@@ -16,3 +16,9 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA "
+        "kernels); skips where torch.cuda.is_available() is false")
