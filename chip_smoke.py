@@ -13,8 +13,15 @@ steps), once through kernel 2 (the decode block) and once through its plain
 version, and the first 512 examples through the step-by-step decoder, whose
 attentions are kernel 1. The kernel paths must give the plain path's tokens
 on every example, apart from steps that are argmax near-ties in the plain
-path (top-2 logit gap below 1e-4), which are counted and printed. Then it
-times each kernel and its plain version with CUDA events, and the full decode.
+path (top-2 logit gap below 1e-4), which are counted and printed. The
+teacher-forced kernels (3, 4 and the weight-gradient helper) are held to
+their plain versions on random inputs at B=200, T=56 and T=53, and, with the
+plain versions, to float64 on the fixture's train batches. The second main
+path resumes training from the fixture checkpoint for 20 steps at batch 200
+through ``train()`` (kernels 3 and 4, then a dev decode through kernel 2),
+round-trips the checkpoint, and compares 5 steps of the kernel path with
+the plain path. Then it times each kernel and its plain version with CUDA
+events, the full decode and the train step.
 
 Every phase prints its wall time. Any failure raises, so the exit code is not
 0 and the final line is not printed. The last lines are: the card's name and
@@ -26,8 +33,12 @@ plain version, times, bound), and the result line
 
 import contextlib
 import json
+import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -39,6 +50,14 @@ BATCH = 4096
 STEP_EXAMPLES = 512
 NEAR_TIE = 1e-4
 DEVICE = "cuda"
+# Training: the README's batch, resumed from the fixture's step 200000 on
+# its 512 train examples; T is the train split's padded target width.
+TRAIN_BATCH = 200
+TRAIN_T = 56
+TRAIN_STEPS = 20
+PRINT_EVERY = 5
+COMPARE_STEPS = 5
+SEED = 42
 
 # NVIDIA H100 SXM data sheet, full 700 W power limit: float32 outside the
 # tensor cores, and HBM3 bandwidth. A bound is the larger of operations over
@@ -185,6 +204,97 @@ def against_float64(label, kernel, plain, exact):
             "version".format(label))
 
 
+def error_ratio(kernel, plain, exact):
+    """(the kernel's max |err| against float64, the plain version's, their
+    ratio); in the ratio each error counts as at least one float32 ulp of
+    the largest float64 value, so two errors at rounding level compare
+    even."""
+    floor = 1.2e-7 * float(exact.abs().max())
+    kernel_err = float((kernel.double() - exact).abs().max())
+    plain_err = float((plain.double() - exact).abs().max())
+    return kernel_err, plain_err, max(kernel_err, floor) / max(plain_err,
+                                                                 floor)
+
+
+def hold_witnesses(label, errors):
+    """Hold the kernel to be no further from float64 than the plain
+    version over several witnesses (inputs): for each quantity, the
+    geometric mean over the witnesses of the kernel's max |err| over the
+    plain version's must be at most 2, the bar of ``against_float64``. One
+    witness is one draw: over the 56 chained steps of a trained decoder fed
+    pad tokens, float32 rounding grows by orders of magnitude in either
+    version, and which one lands closer to float64 varies from draw to
+    draw."""
+    for name, rows in errors.items():
+        ratios = [ratio for _, _, ratio in rows]
+        mean = math.exp(sum(math.log(r) for r in ratios) / len(ratios))
+        print("{} {}: kernel / plain max |err| vs float64 over {} witnesses: "
+              "geometric mean {:.3f} (bar 2), min {:.3f}, max {:.3f}, kernel "
+              "closer in {}; largest |err| kernel {:.3e}, plain {:.3e}".format(
+                  label, name, len(rows), mean, min(ratios), max(ratios),
+                  sum(k <= p for k, p, _ in rows),
+                  max(k for k, _, _ in rows), max(p for _, p, _ in rows)))
+        require(mean <= 2.0, "{} {}: the kernel is further from float64 "
+                "than the plain version".format(label, name))
+
+
+@contextlib.contextmanager
+def encoder_precision(seen):
+    """Inside the block, record the TF32 flags (matmul, cuDNN) in ``seen``
+    at every call of the model's encoder, the first PyTorch products of
+    every entry point."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.decode import greedy
+    from multimodal_seq2seq_gscan_tpu_torch.models import model
+    originals = [(module, module.encode_input) for module in (model, greedy)]
+
+    def recording(inner):
+        def encode_input(*args, **kwargs):
+            seen.add((torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32))
+            return inner(*args, **kwargs)
+        return encode_input
+
+    for module, fn in originals:
+        module.encode_input = recording(fn)
+    try:
+        yield
+    finally:
+        for module, fn in originals:
+            module.encode_input = fn
+
+
+def profile_train_step(step, sync, repeats=3):
+    """Device busy share of ``repeats`` steps and the kernels that take the
+    most device time, by torch.profiler; says so if it sees no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(repeats):
+            step()
+        sync()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if device_ms <= 0:
+        print("profile: torch.profiler saw no device time (not measured)")
+        return
+    print("profile of {} fused train steps: wall {:.3f} ms, device busy "
+          "{:.3f} ms ({:.1f}%), {} device kernels per step".format(
+              repeats, wall_ms, device_ms, 100 * device_ms / wall_ms,
+              sum(e.count for e in events) // repeats))
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        print("  {:>9.3f} ms/step  x{:<4d} {}".format(
+            e.self_device_time_total / 1e3 / repeats, e.count // repeats,
+            e.key[:90]))
+
+
 def random_attention_inputs(gen, device, batch, m, h, masked):
     """The JAX attention test's input distribution at the given shape:
     N(0, 1) queries and keys, an N(0, 1/H) energy vector, valid lengths
@@ -277,7 +387,121 @@ def exact_match(output, dataset, indices, eos_idx):
     return 100.0 * matched / len(indices)
 
 
+def teacher_forced_work(batch, steps, m_t, m_v, h, e, vocab):
+    """(bytes, flops) of kernel 3, of kernel 4 and of the weight-gradient
+    helper at these shapes: each input read once, each output written once;
+    every row-step runs (teacher forcing has no early exit). A row-step of
+    the forward is the decoder step's products, attention terms and cell;
+    kernel 4 recomputes it and adds the transposed products, about 10 flops
+    per (key, feature) of attention backward and the cell's backward."""
+    weights = (h * h + h + 2 * h * h + h + h * h + h + vocab * e
+               + (e + 2 * h) * 4 * h + h * 4 * h + 4 * h + (e + 3 * h) * h
+               + h * vocab)
+    fwd_products = (h * h + 2 * h * h + h * h + (e + 2 * h) * 4 * h
+                    + h * 4 * h + (e + 3 * h) * h + h * vocab)
+    fwd = 2 * fwd_products + (m_t + m_v) * (6 * h + 5) + 12 * h
+    bwd_products = (vocab * h + h * (e + 3 * h) + 4 * h * (e + 2 * h)
+                    + 4 * h * h + h * h + 2 * h * h + h * h)
+    bwd = fwd + 2 * bwd_products + (m_t + m_v) * (10 * h + 4) + 30 * h
+    n = batch * steps
+    keys = batch * (m_t * h + m_t + m_v * h)
+    width = vocab + 2 * e + 15 * h
+    forward = (4 * (n + n * e + keys + 2 * batch * h + n * vocab + 2 * n * h
+                    + batch * m_v + weights), n * fwd)
+    backward = (4 * (n + n * e + keys + 2 * n * h + n * vocab + batch * m_v
+                     + 2 * weights + batch * (m_t + m_v) * h + 2 * batch * h
+                     + n * width), n * bwd)
+    helper = (4 * (n * width + n * h + n * vocab + weights), 2 * n * weights)
+    return forward, backward, helper
+
+
+GRAD_NAMES = ("proj_txt", "proj_vis", "h0", "c0", "txt_qw", "txt_ew",
+              "q2k_w", "q2k_b", "vis_qw", "vis_ew", "embedding", "w_ih",
+              "w_hh", "bias", "out_w", "out_proj")
+
+
+def random_teacher_forced_inputs(gen, device, batch, steps, num_steps, m_t,
+                                 m_v, h, vocab, sos):
+    """Inputs of the teacher-forced kernels drawn as the JAX tests draw
+    them, at the given shapes: ``random_block_inputs``'s weights, keys and
+    state (c0 = h0), uniform teacher tokens with pad past ``num_steps``, a
+    p = 0.3 dropout mask; and N(0, 1) cotangents of the logits (zero past
+    ``num_steps``, as for sliced-off steps) and of the summed attention."""
+    import torch
+    args = random_block_inputs(gen, device, batch, m_t, m_v, h, vocab, sos)
+    tokens = torch.randint(0, vocab, (steps, batch), generator=gen,
+                           device=device, dtype=torch.int32)
+    tokens[num_steps:] = 0
+    drop = (torch.rand(steps, batch, h, generator=gen, device=device)
+            > 0.3).float() / 0.7
+    dlogits = torch.randn(steps, batch, vocab, generator=gen, device=device)
+    dlogits[num_steps:] = 0.0
+    g_asum = torch.randn(batch, m_v, generator=gen, device=device)
+    return args[:5] + (tokens, drop, args[7]), (dlogits, g_asum)
+
+
+def kernel_unroll(inputs, dlogits, g_asum, num_steps):
+    """Kernel 3, kernel 4 and the helper: ((logits, asum), the 16 gradients
+    of GRAD_NAMES, (kernel 4's outputs, h_res, c_res))."""
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    proj_txt, mask, proj_vis, _, _, tokens, drop, weights = inputs
+    logits, h_res, c_res, asum = tf.teacher_forced_forward(
+        *inputs, num_steps=num_steps)
+    raw = tf.teacher_forced_backward(
+        proj_txt, mask, proj_vis, tokens, drop, weights, h_res, c_res,
+        dlogits, g_asum, num_steps=num_steps)
+    grads = tf.teacher_forced_weight_grads(raw[4], h_res, dlogits)
+    return (logits, asum), list(raw[:4]) + list(grads), (raw, h_res, c_res)
+
+
+def plain_unroll(inputs, dlogits, g_asum, num_steps):
+    """The plain unroll and its autograd gradients (GRAD_NAMES order)."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    from multimodal_seq2seq_gscan_tpu_torch.ops.decode_block import (
+        DecoderWeights)
+    proj_txt, mask, proj_vis, h0, c0, tokens, drop, weights = inputs
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (proj_txt, proj_vis, h0, c0, *weights)]
+    with torch.enable_grad():
+        logits, asum = tf.teacher_forced_plain(
+            leaves[0], mask, leaves[1], leaves[2], leaves[3], tokens, drop,
+            DecoderWeights(*leaves[4:]), num_steps=num_steps)
+        grads = torch.autograd.grad(
+            (logits * dlogits).sum() + (asum * g_asum).sum(), leaves)
+    return (logits.detach(), asum.detach()), list(grads)
+
+
+def check_close_quiet(got, want, rtol, atol, label):
+    """Max |err|; fails past atol + rtol|want|."""
+    diff = (got - want).abs()
+    require(bool((diff <= atol + rtol * want.abs()).all()),
+            "{} disagrees with the plain version".format(label))
+    return float(diff.max())
+
+
+def check_close(label, got, want, rtol, atol):
+    """``check_close_quiet``, printed."""
+    diff = (got - want).abs()
+    print("{}: max |err| {:.3e} (rtol {:g}, atol {:g})".format(
+        label, float(diff.max()), rtol, atol))
+    return check_close_quiet(got, want, rtol, atol, label)
+
+
+def leaves_equal(a, b):
+    """Every tensor of two params trees bit-identical."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.models.params import leaves
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
 def main():
+    # Deterministic cuBLAS (for the training comparison) needs a fixed
+    # workspace, set before the first cuBLAS call.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -291,8 +515,17 @@ def main():
     from multimodal_seq2seq_gscan_tpu_torch.ops import _build
     from multimodal_seq2seq_gscan_tpu_torch.ops import additive_attention as k1
     from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    from multimodal_seq2seq_gscan_tpu_torch.models.params import leaves
     from multimodal_seq2seq_gscan_tpu_torch.train.checkpoint import (
-        load_params)
+        load_checkpoint, load_params)
+    from multimodal_seq2seq_gscan_tpu_torch.train.loop import (
+        epoch_stream, train)
+    from multimodal_seq2seq_gscan_tpu_torch.train.state import Adam
+    from multimodal_seq2seq_gscan_tpu_torch.train.step import (
+        loss_and_grads, train_step)
+    from multimodal_seq2seq_gscan_tpu_torch.utils.precision import (
+        full_float32)
 
     device = torch.device(DEVICE)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
@@ -302,9 +535,12 @@ def main():
         kind = torch.cuda.get_device_name(0)
         count = torch.cuda.device_count()
         smi = nvidia_smi_line()
-        # Full float32: cuDNN would run the encoder's convolutions in TF32.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        # Not set here: the entry points run in full float32 on their own
+        # (checked on the main path), and the phases that call the model's
+        # pieces or the plain versions directly run under full_float32().
+        print("TF32 flags of the process: matmul {}, cuDNN {}".format(
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32))
         print("torch {} (CUDA {}), python {}".format(
             torch.__version__, torch.version.cuda, sys.version.split()[0]))
         print("device: {} x{}".format(kind, count))
@@ -318,7 +554,7 @@ def main():
             if "registers" in line or "spill" in line or "error" in line:
                 print("  ptxas: " + line.strip())
 
-    with phase("load fixture"):
+    with phase("load fixture"), full_float32():
         dataset = GroundedScanDataset(str(FIXTURE / "dataset.txt"),
                                       str(FIXTURE), split="dev")
         dataset.read_dataset(max_examples=BATCH)
@@ -352,7 +588,8 @@ def main():
         print("examples {}, M_t {}, M_v {}, H {}, V {}".format(
             len(indices), m_t, m_v, hidden, vocab))
 
-    with phase("kernels against their plain versions"), torch.no_grad():
+    with phase("kernels against their plain versions"), torch.no_grad(), \
+            full_float32():
         gen = torch.Generator(device=device).manual_seed(0)
         # Kernel 1, (a): the JAX attention test's inputs at a decoder step's
         # two calls (M_t masked, M_v unmasked), with that test's bars.
@@ -427,7 +664,172 @@ def main():
                             rows_of(exact, name, same))
         first_block_row_steps = int(ref.step_emitted.sum())
 
-    with phase("main path: decode {} fixture dev examples".format(BATCH)):
+    with phase("teacher-forced kernels against their plain versions"), \
+            torch.no_grad(), full_float32():
+        # (a) The JAX tests' input distribution at the training shapes,
+        # B=200 with T=56 (3 pad steps past num_steps=53) and T=53, at the
+        # JAX tests' bars; kernel 4 and the helper run twice.
+        tf_err = {"forward": 0.0, "backward": 0.0, "helper": 0.0}
+        for steps, num_steps in ((TRAIN_T - 3, TRAIN_T - 3),
+                                 (TRAIN_T, TRAIN_T - 3)):
+            label = "teacher_forced random T={} num_steps={}".format(
+                steps, num_steps)
+            inputs, (dlogits, g_asum) = random_teacher_forced_inputs(
+                gen, device, TRAIN_BATCH, steps, num_steps, m_t, m_v,
+                hidden, vocab, config.target_sos_idx)
+            (logits, asum), grads, (raw, h_res, c_res) = kernel_unroll(
+                inputs, dlogits, g_asum, num_steps)
+            sync()
+            (ref_logits, ref_asum), ref_grads = plain_unroll(
+                inputs, dlogits, g_asum, num_steps)
+            tf_err["forward"] = max(
+                tf_err["forward"],
+                check_close(label + " logits", logits[:num_steps],
+                            ref_logits[:num_steps], 1e-5, 1e-5),
+                check_close(label + " summed attention", asum, ref_asum,
+                            1e-5, 1e-6))
+            for i, (name, got, want) in enumerate(zip(GRAD_NAMES, grads,
+                                                      ref_grads)):
+                err = check_close("{} d{}".format(label, name), got, want,
+                                  2e-4, 2e-5)
+                key = "backward" if i < 4 else "helper"
+                tf_err[key] = max(tf_err[key], err)
+            helper_plain = tf.weight_grads_plain(raw[4], h_res, dlogits)
+            for name, got, want in zip(GRAD_NAMES[4:], grads[4:],
+                                       helper_plain):
+                check_close("{} helper vs its plain version d{}".format(
+                    label, name), got, want, 2e-4, 2e-5)
+            again = kernel_unroll(inputs, dlogits, g_asum, num_steps)
+            sync()
+            same = all(torch.equal(a, b) for a, b in
+                       zip(list(raw) + grads, list(again[2][0]) + again[1]))
+            print("{}: kernel 4 + helper run twice, bit-identical: "
+                  "{}".format(label, same))
+            require(same, "kernel 4 is not bit-identical from run to run")
+            random_tf = (inputs, dlogits, g_asum, num_steps)
+
+        # (b) The fixture's train split against float64, nine witnesses: its
+        # three batches in file order, each with three decoder dropout masks.
+        # Seed 0 takes the cotangent of the fixture's own training loss (NLL;
+        # it trains without the aux task); seeds 1 and 2 add an N(0, 1/B)
+        # cotangent on the summed attention, as the aux loss would. Held for
+        # every output and gradient, by hold_witnesses: the whole unroll
+        # (logits at target positions and at all T, the summed attention
+        # over all T, the 16 gradients), and one step from the float64
+        # unroll's state at every (t, row), where no chain amplifies the
+        # rounding (logits, new h and c, the step's visual attention, the 16
+        # gradients of that step).
+        train_set = GroundedScanDataset(str(FIXTURE / "dataset.txt"),
+                                        str(FIXTURE), split="train")
+        train_set.read_dataset()
+        unrolled, one_step = {}, {}
+        names = ["d" + n for n in GRAD_NAMES]
+        pad_idx = config.target_pad_idx
+        for train_batch, _ in train_set.get_data_iterator(
+                batch_size=TRAIN_BATCH, pad_to_full_batch=True):
+            train_batch = train_batch.to(device)
+            encoded = model.encode_input(
+                params, config, train_batch.input_ids,
+                train_batch.input_lengths, train_batch.situations)
+            f_txt, f_vis = (x.contiguous() for x in
+                            model.project_keys(params, encoded))
+            f_mask = encoded.command_mask.contiguous()
+            f_h0 = model.initialize_decoder_hidden(
+                params, config, encoded.hidden)[0][0].contiguous()
+            f_tokens = train_batch.target_ids.T.to(torch.int32).contiguous()
+            f_steps = f_tokens.shape[0]
+            scored = (torch.arange(f_steps, device=device)[:, None]
+                      < train_batch.target_lengths[None, :])[..., None]
+            for seed in range(3):
+                wgen = torch.Generator(device=device).manual_seed(seed)
+                f_drop = model.decoder_drop_mask(
+                    config, (f_steps, TRAIN_BATCH, hidden), device, wgen,
+                    False)
+                g_aux = torch.randn(TRAIN_BATCH, m_v, generator=wgen,
+                                    device=device) / TRAIN_BATCH * min(seed, 1)
+                fixture_tf = (f_txt, f_mask, f_vis, f_h0, f_h0.clone(),
+                              f_tokens, f_drop, weights)
+                exact_in = as_float64(fixture_tf)
+                lg64, h64, c64, _ = tf.teacher_forced_forward_plain(
+                    *exact_in, num_steps=f_steps)
+                with torch.enable_grad():
+                    lg = lg64.requires_grad_(True)
+                    loss = model.get_loss(
+                        config, torch.log_softmax(lg.transpose(0, 1), dim=-1),
+                        train_batch.target_ids)
+                    d_lg = torch.autograd.grad(loss, lg)[0].float()
+                cot = (d_lg.contiguous(), g_aux)
+                got_out, got_grads, _ = kernel_unroll(fixture_tf, *cot,
+                                                      f_steps)
+                sync()
+                plain_out, plain_grads = plain_unroll(fixture_tf, *cot,
+                                                      f_steps)
+                exact_out, exact_grads = plain_unroll(
+                    exact_in, *as_float64(cot), f_steps)
+                for name, got, want, truth in zip(
+                        ["logits (t < target length)", "logits (all T)",
+                         "summed attention (all T)"] + names,
+                        [got_out[0] * scored, got_out[0], got_out[1]]
+                        + got_grads,
+                        [plain_out[0] * scored, plain_out[0], plain_out[1]]
+                        + plain_grads,
+                        [exact_out[0] * scored, exact_out[0], exact_out[1]]
+                        + exact_grads):
+                    unrolled.setdefault(name, []).append(
+                        error_ratio(got, want, truth))
+
+                # One step from the float64 state at each (t, row): T x B
+                # rows of a two-step unroll whose second step is padding
+                # with no cotangent, so its outputs are step t's alone.
+                rows = f_steps * TRAIN_BATCH
+                idx = torch.arange(TRAIN_BATCH, device=device).repeat(f_steps)
+
+                def two(first, second):
+                    return torch.stack([first, second]).contiguous()
+
+                step_in = (
+                    f_txt[idx], f_mask[idx], f_vis[idx],
+                    h64.reshape(rows, hidden).float(),
+                    c64.reshape(rows, hidden).float(),
+                    two(f_tokens.reshape(rows), torch.full_like(
+                        f_tokens.reshape(rows), pad_idx)),
+                    two(f_drop.reshape(rows, -1),
+                        torch.ones_like(f_drop.reshape(rows, -1))),
+                    weights)
+                step_cot = (two(d_lg.reshape(rows, vocab),
+                                torch.zeros(rows, vocab, device=device)),
+                            g_aux[idx])
+                results = []
+                for args, cotangents, unroll in (
+                        (step_in, step_cot, "kernel"),
+                        (step_in, step_cot, "plain"),
+                        (as_float64(step_in), as_float64(step_cot),
+                         "plain")):
+                    if unroll == "kernel":
+                        (lg_s, asum_s), grads_s, (_, h_s, c_s) = \
+                            kernel_unroll(args, *cotangents, 1)
+                        sync()
+                    else:
+                        (lg_s, asum_s), grads_s = plain_unroll(
+                            args, *cotangents, 1)
+                        _, h_s, c_s, _ = tf.teacher_forced_forward_plain(
+                            *args, num_steps=1)
+                    results.append([lg_s[0] * scored.reshape(rows, 1),
+                                    lg_s[0], h_s[1], c_s[1], asum_s]
+                                   + list(grads_s))
+                for name, got, want, truth in zip(
+                        ["logits (t < target length)", "logits (all T)",
+                         "new h", "new c", "visual attention"]
+                        + names, *results):
+                    one_step.setdefault(name, []).append(
+                        error_ratio(got, want, truth))
+                del step_in, step_cot, results
+        hold_witnesses("teacher_forced fixture, one step:", one_step)
+        hold_witnesses("teacher_forced fixture, whole unroll:", unrolled)
+
+    tf32_seen = set()
+    with phase("main path: decode {} fixture dev examples".format(BATCH)), \
+            encoder_precision(tf32_seen):
         decode_kernel = greedy.make_greedy_decoder(
             config, MAX_DECODING_STEPS, EXIT_CHECK_EVERY, decode_impl="block")
         decode_plain = greedy.make_greedy_decoder(
@@ -488,11 +890,158 @@ def main():
             int(kernel_out.emitted_mask.sum(0).gt(0).sum()),
             MAX_DECODING_STEPS + 1, int(kernel_out.lengths.sum())))
 
-    with phase("times (CUDA events)"), torch.no_grad():
+    with phase("main path: train {} steps at batch {} from the fixture "
+               "checkpoint".format(TRAIN_STEPS, TRAIN_BATCH)), \
+            encoder_precision(tf32_seen):
+        start = 200000
+        last = start + TRAIN_STEPS - 1
+        events = []
+
+        def report(kind, iteration, values):
+            events.append((kind, iteration, values))
+            print("{} {}: {}".format(kind, iteration, ", ".join(
+                "{} {:.6g}".format(k, v) for k, v in values.items())))
+
+        out_dir = tempfile.mkdtemp(prefix="gscan_chip_smoke_")
+        try:
+            k1.launches, k2.launches = 0, 0
+            tf.launches.update({name: 0 for name in tf.launches})
+            state, train_config = train(
+                str(FIXTURE / "dataset.txt"), str(FIXTURE),
+                training_batch_size=TRAIN_BATCH,
+                resume_from_file=str(FIXTURE / "model_best.msgpack"),
+                max_training_iterations=last, print_every=PRINT_EVERY,
+                evaluate_every=last, output_directory=out_dir,
+                max_testing_examples=STEP_EXAMPLES, seed=SEED,
+                device=device, callback=report)
+            sync()
+            launches_train = dict(tf.launches, decode_block=k2.launches,
+                                  additive_attention=k1.launches)
+            print("launches, training: {}".format(launches_train))
+            require(all(launches_train[name] == TRAIN_STEPS
+                        for name in tf.launches),
+                    "a teacher-forced kernel was not launched once per step")
+            require(launches_train["decode_block"] > 0,
+                    "the dev evaluation did not run kernel 2")
+            train_losses = [v["loss"] for kind, _, v in events
+                            if kind == "train"]
+            evaluations = [v for kind, _, v in events if kind == "eval"]
+            require(len(train_losses) == TRAIN_STEPS // PRINT_EVERY
+                    and all(math.isfinite(x) and x < 1.0
+                            for x in train_losses),
+                    "training losses: {}".format(train_losses))
+            require(len(evaluations) == 1
+                    and evaluations[0]["exact_match"] > 90.0,
+                    "dev evaluation: {}".format(evaluations))
+            require(state.step == start + TRAIN_STEPS,
+                    "state step {}".format(state.step))
+            written, meta = load_checkpoint(
+                os.path.join(out_dir, "checkpoint.msgpack"), device=device)
+            same = (leaves_equal(written.params, state.params)
+                    and leaves_equal(written.opt_state.mu,
+                                     state.opt_state.mu)
+                    and leaves_equal(written.opt_state.nu,
+                                     state.opt_state.nu)
+                    and written.opt_state[0::3] == state.opt_state[0::3]
+                    and written.step == state.step == meta["iteration"]
+                    and bool((written.rng == state.rng).all()))
+            print("checkpoint round trip ({}): every leaf equal: {}; "
+                  "meta {}".format(sorted(os.listdir(out_dir)), same, meta))
+            require(same, "the checkpoint read back differs from the state")
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+
+        # The first steps again from the fixture state, through kernels 3+4
+        # ("fused"), through kernel 1 ("step", one step) and the plain
+        # unroll, with the same batches and dropout generators. PyTorch's
+        # own backward (the encoder's, in both paths) is not deterministic
+        # by default: two plain runs are measured that way first, then the
+        # comparison runs with deterministic algorithms, so that it sees
+        # only the kernel path's arithmetic against the plain path's.
+        resumed, _ = load_checkpoint(str(FIXTURE / "model_best.msgpack"),
+                                     device=device)
+        stream = epoch_stream(train_set, TRAIN_BATCH,
+                              np.random.default_rng(SEED))
+        batches = [next(stream)[0].to(device) for _ in range(COMPARE_STEPS)]
+        optimizer = Adam()
+        configs = {impl: train_config._replace(teacher_forced_impl=impl)
+                   for impl in ("fused", "step", "plain")}
+
+        def trajectory(impl):
+            """(per-step losses, params after step 1) of COMPARE_STEPS."""
+            state, losses = resumed, []
+            for i, batch_i in enumerate(batches):
+                state, metrics = train_step(state, batch_i, configs[impl],
+                                            optimizer)
+                losses.append(float(metrics["loss"]))
+                if i == 0:
+                    params_1 = state.params
+            return losses, params_1
+
+        def max_rel(a, b):
+            return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+        print("plain path run twice with PyTorch's default algorithms: "
+              "per-step loss max rel difference {:.3e}".format(
+                  max_rel(trajectory("plain")[0], trajectory("plain")[0])))
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            first = {impl: loss_and_grads(resumed, batches[0], cfg)
+                     for impl, cfg in configs.items()}
+            for impl in ("fused", "step"):
+                np_loss, ref_loss = float(first[impl][0]), float(
+                    first["plain"][0])
+                rel = abs(np_loss - ref_loss) / abs(ref_loss)
+                print("step 1 {} vs plain: loss {:.8f} vs {:.8f}, rel err "
+                      "{:.3e} (rtol 1e-5)".format(impl, np_loss, ref_loss,
+                                                  rel))
+                require(rel <= 1e-5,
+                        "step-1 loss of {} differs".format(impl))
+                grad_err = max(
+                    check_close_quiet(g, r, 3e-4, 3e-5, impl) for g, r in
+                    zip(leaves(first[impl][2]), leaves(first["plain"][2])))
+                print("step 1 {} vs plain: gradients max |err| {:.3e} (rtol "
+                      "3e-4, atol 3e-5)".format(impl, grad_err))
+            losses, params_1 = {}, {}
+            for impl in ("fused", "plain"):
+                losses[impl], params_1[impl] = trajectory(impl)
+            again = trajectory("fused")
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+        param_err = max(float((a - b).abs().max()) for a, b in
+                        zip(leaves(params_1["fused"]),
+                            leaves(params_1["plain"])))
+        print("params after step 1, fused vs plain: max |err| {:.3e} (atol "
+              "1e-6)".format(param_err))
+        require(param_err <= 1e-6, "params after step 1 differ")
+        rel = max_rel(losses["fused"], losses["plain"])
+        print("per-step loss, fused {} vs plain {}: max rel err {:.3e} "
+              "(rtol 1e-5); fused run again: {}".format(
+                  ["{:.6f}".format(x) for x in losses["fused"]],
+                  ["{:.6f}".format(x) for x in losses["plain"]], rel,
+                  "bit-identical" if again[0] == losses["fused"]
+                  and leaves_equal(again[1], params_1["fused"])
+                  else "differs"))
+        require(rel <= 1e-5, "per-step losses differ")
+    print("TF32 flags (matmul, cuDNN) inside the entry points on the main "
+          "paths: {}; outside: ({}, {})".format(
+              sorted(tf32_seen), torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32))
+    require(tf32_seen == {(False, False)},
+            "an entry point ran PyTorch's products with TF32 allowed")
+
+    with phase("times (CUDA events)"), torch.no_grad(), full_float32():
         def both_attention(fn):
             return lambda: [fn(*args) for args in attention_calls]
 
         attention_ms = cuda_ms(both_attention(k1.additive_attention), 50)
+        # The same launches through the autograd.Function, the wrapper's
+        # path when a gradient is wanted: its host cost beside the direct
+        # launch's.
+        attention_function_ms = cuda_ms(
+            both_attention(k1.AdditiveAttention.apply), 50)
         attention_plain_ms = cuda_ms(
             both_attention(k1.additive_attention_plain), 20)
         block_ms = cuda_ms(lambda: k2.fused_decode_block(
@@ -521,9 +1070,10 @@ def main():
             BATCH, m_t, m_v, hidden, vocab, EXIT_CHECK_EVERY, weights_bytes,
             first_block_row_steps))
         print("additive_attention (M={} masked + M={} unmasked, B={}): "
-              "{:.4f} ms, plain {:.4f} ms, bound {:.4f} ms ({})".format(
+              "{:.4f} ms, plain {:.4f} ms, bound {:.4f} ms ({}); through "
+              "its autograd.Function {:.4f} ms".format(
                   m_t, m_v, BATCH, attention_ms, attention_plain_ms,
-                  *attention_bound))
+                  *attention_bound, attention_function_ms))
         print("decode_block (K={}, B={}, {} emitting row-steps): {:.4f} ms, "
               "plain {:.4f} ms, bound {:.4f} ms ({})".format(
                   EXIT_CHECK_EVERY, BATCH, first_block_row_steps, block_ms,
@@ -535,6 +1085,63 @@ def main():
         print("of which the encoder (encode_input, project_keys, initial "
               "state): {:.3f} ms; decode blocks run: {}".format(
                   encode_ms, launches_block["decode_block"]))
+
+    with phase("times: training (CUDA events)"), torch.no_grad(), \
+            full_float32():
+        inputs, dlogits, g_asum, num_steps = random_tf
+        steps = inputs[5].shape[0]
+        _, _, (raw, h_res, c_res) = kernel_unroll(inputs, dlogits, g_asum,
+                                                  num_steps)
+        fwd_ms = cuda_ms(lambda: tf.teacher_forced_forward(
+            *inputs, num_steps=num_steps), 20)
+        bwd_ms = cuda_ms(lambda: tf.teacher_forced_backward(
+            *inputs[:3], *inputs[5:], h_res, c_res, dlogits, g_asum,
+            num_steps=num_steps), 10)
+        helper_ms = cuda_ms(lambda: tf.teacher_forced_weight_grads(
+            raw[4], h_res, dlogits), 20)
+        fwd_plain_ms = cuda_ms(lambda: tf.teacher_forced_forward_plain(
+            *inputs, num_steps=num_steps), 3, warmup=1)
+        bwd_plain_ms = cuda_ms(lambda: tf.teacher_forced_backward_plain(
+            *inputs[:3], *inputs[5:], h_res, c_res, dlogits, g_asum,
+            num_steps=num_steps), 3, warmup=1)
+        helper_plain_ms = cuda_ms(lambda: tf.weight_grads_plain(
+            raw[4], h_res, dlogits), 10)
+        fwd_work, bwd_work, helper_work = teacher_forced_work(
+            TRAIN_BATCH, steps, m_t, m_v, hidden, hidden, vocab)
+        fwd_bound, bwd_bound, helper_bound = (
+            bound_ms(*w) for w in (fwd_work, bwd_work, helper_work))
+        for name, ms, plain_ms, bound in (
+                ("teacher_forced_forward (kernel 3)", fwd_ms, fwd_plain_ms,
+                 fwd_bound),
+                ("teacher_forced_backward (kernel 4)", bwd_ms, bwd_plain_ms,
+                 bwd_bound),
+                ("teacher_forced_weight_grads (helper)", helper_ms,
+                 helper_plain_ms, helper_bound)):
+            print("{} (B={}, T={}): {:.4f} ms, plain {:.4f} ms, bound {:.4f} "
+                  "ms ({})".format(name, TRAIN_BATCH, steps, ms, plain_ms,
+                                   *bound))
+        step_ms = {}
+        for impl, repeats in (("fused", 10), ("step", 3), ("plain", 3)):
+            step_ms[impl] = cuda_ms(lambda: train_step(
+                resumed, batches[0], configs[impl], optimizer), repeats,
+                warmup=1)
+        print("train step at batch {} (T={}, dropout on, Adam): fused "
+              "{:.3f} ms, step {:.3f} ms, plain {:.3f} ms".format(
+                  TRAIN_BATCH, batches[0].target_ids.shape[1],
+                  step_ms["fused"], step_ms["step"], step_ms["plain"]))
+        print("training examples/s: fused {:.1f}, step {:.1f}, plain "
+              "{:.1f}".format(*(TRAIN_BATCH / step_ms[i] * 1e3
+                                for i in ("fused", "step", "plain"))))
+        _, _, grads0 = loss_and_grads(resumed, batches[0], configs["fused"])
+        grads_ms = cuda_ms(lambda: loss_and_grads(
+            resumed, batches[0], configs["fused"]), 10, warmup=1)
+        adam_ms = cuda_ms(lambda: optimizer.apply(
+            resumed.params, grads0, resumed.opt_state), 10)
+        print("of the fused step: forward + backward {:.3f} ms (kernels 3, "
+              "4 and the helper at this T: see the profile), Adam {:.3f} "
+              "ms".format(grads_ms, adam_ms))
+        profile_train_step(lambda: train_step(
+            resumed, batches[0], configs["fused"], optimizer), sync)
 
     kernels = [
         {"name": "additive_attention", "route": "cuda",
@@ -553,6 +1160,21 @@ def main():
          "plain_ms": block_plain_ms, "bound_ms": block_bound[0],
          "bound_by": block_bound[1], "library_ms": None},
     ]
+    tf_source = "multimodal_seq2seq_gscan_tpu_torch/csrc/teacher_forced.cu"
+    tf_replaces = "multimodal_seq2seq_gscan_tpu/ops/pallas_teacher_forced.py"
+    for name, line, err, ms, plain_ms, bound in (
+            ("teacher_forced_forward", 164, tf_err["forward"], fwd_ms,
+             fwd_plain_ms, fwd_bound),
+            ("teacher_forced_backward", 457, tf_err["backward"], bwd_ms,
+             bwd_plain_ms, bwd_bound),
+            ("teacher_forced_weight_grads", 457, tf_err["helper"], helper_ms,
+             helper_plain_ms, helper_bound)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": tf_source,
+            "replaces": "{}:{}".format(tf_replaces, line),
+            "launches": launches_train[name], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None})
     print("near-ties: block decode {}, step decode {}".format(ties_block,
                                                               ties_step))
     print("total wall time: {:.2f} s".format(

@@ -3,8 +3,9 @@
 The port's counterpart of the JAX package's ``data/dataset.py``: the same
 tokenization, the same uint8 dense situation grids (``gscan/encode.py``), the
 same bucketed padding (sequence dims rounded up to a multiple of 8) and the
-same optional zero-row padding of a short final batch, so both packages
-build identical batches from one file. It reads the split straight from the
+same optional zero-row padding of a short final batch, and the same
+(length-bucketed) shuffle, so both packages build identical batches from one
+file and one numpy seed. It reads the split straight from the
 JSON and carries neither the dataset engine nor the C++ scanner; the k-shot
 split moves are not supported.
 """
@@ -63,6 +64,7 @@ class GroundedScanDataset:
         self._target_lengths = np.zeros((0,), np.int32)
         self._agent_positions = np.zeros((0,), np.int32)
         self._target_positions = np.zeros((0,), np.int32)
+        self._order = np.zeros((0,), np.int64)
 
     def read_dataset(self, max_examples: Optional[int] = None):
         """Tokenize and encode the split's examples once into numpy columns."""
@@ -98,7 +100,34 @@ class GroundedScanDataset:
                                         np.int32)
         self._agent_positions = np.asarray(agent_positions, np.int32)
         self._target_positions = np.asarray(target_positions, np.int32)
+        self._order = np.arange(len(self.input_ids), dtype=np.int64)
         logger.info("Read %d %s examples.", len(self.input_ids), self.split)
+
+    def shuffle_data(self, rng: Optional[np.random.Generator] = None,
+                     bucket_by_length_with_batch_size: Optional[int] = None):
+        """A random order of the examples for the iterator.
+
+        With ``bucket_by_length_with_batch_size`` the permutation is sorted
+        by target length within windows of 64 batches and the batches'
+        order is shuffled, so a batch's padded width tracks its own longest
+        target (the JAX loader's ``shuffle_data``, draw for draw).
+        """
+        if rng is None:
+            rng = np.random.default_rng()
+        order = rng.permutation(len(self.input_ids))
+        batch_size = bucket_by_length_with_batch_size
+        if batch_size:
+            window = batch_size * 64
+            pieces = []
+            for start in range(0, len(order), window):
+                chunk = order[start:start + window]
+                pieces.append(chunk[np.argsort(self._target_lengths[chunk],
+                                               kind="stable")])
+            order = np.concatenate(pieces) if pieces else order
+            starts = np.arange(0, len(order), batch_size)
+            rng.shuffle(starts)
+            order = np.concatenate([order[s:s + batch_size] for s in starts])
+        self._order = order
 
     def _bucketed_length(self, length: int) -> int:
         return _round_up(max(int(length), 2), LENGTH_BUCKET_SIZE)
@@ -113,15 +142,16 @@ class GroundedScanDataset:
     def get_data_iterator(self, batch_size: int = 10,
                           pad_to_full_batch: bool = False
                           ) -> Iterator[Tuple[Batch, np.ndarray]]:
-        """Yield (Batch on the CPU, example indices) in file order.
+        """Yield (Batch on the CPU, example indices) in the current order
+        (file order until ``shuffle_data``).
 
         Sequence dims are padded to the bucketed max length of the batch;
         with ``pad_to_full_batch`` a short final batch gets zero rows up to
         ``batch_size`` (rows beyond ``len(example_indices)``).
         """
-        n = len(self.input_ids)
+        n = len(self._order)
         for start in range(0, n, batch_size):
-            idx = np.arange(start, min(start + batch_size, n), dtype=np.int64)
+            idx = self._order[start:start + batch_size]
             rows = batch_size if pad_to_full_batch else len(idx)
             pad_rows = rows - len(idx)
 

@@ -30,6 +30,7 @@ from multimodal_seq2seq_gscan_tpu_torch.models.model import (
 from multimodal_seq2seq_gscan_tpu_torch.models.params import ModelParams
 from multimodal_seq2seq_gscan_tpu_torch.ops.decode_block import (
     BlockOutput, decode_block_plain, fused_decode_block, pack_decoder_weights)
+from multimodal_seq2seq_gscan_tpu_torch.utils.precision import full_float32
 
 DECODE_IMPLS = ("block", "block_plain", "step")
 
@@ -78,6 +79,7 @@ def make_greedy_decoder(config: ModelConfig, max_decoding_steps: int,
     block = max(1, min(exit_check_every, num_steps))
     num_blocks = -(-num_steps // block)
 
+    @full_float32()
     def decode(params: ModelParams, input_ids: torch.Tensor,
                input_lengths: torch.Tensor, situations: torch.Tensor,
                target_positions: torch.Tensor) -> GreedyDecodeOutput:

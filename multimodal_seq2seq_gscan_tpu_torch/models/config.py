@@ -1,9 +1,15 @@
 """Static model configuration (a copy of the JAX package's ``ModelConfig``).
 
-The JAX config's ``attention_impl`` and ``teacher_forced_impl`` switches are
-not carried over: in this package the implementation follows the tensors'
-device (a CUDA kernel on ``cuda``, its plain PyTorch version on ``cpu``).
+The JAX config's ``attention_impl`` switch is not carried over: a kernel
+wrapper follows the tensors' device (the CUDA kernel on ``cuda``, its plain
+PyTorch version on ``cpu``). ``teacher_forced_impl`` is, with the port's
+names: ``"fused"`` (kernels 3 and 4, JAX's ``"pallas"``), ``"step"`` (a loop
+over ``decoder_step``, whose attentions are kernel 1, JAX's ``"xla"``) and
+``"plain"`` (``ops.teacher_forced.teacher_forced_plain`` with autograd, the
+yardstick of the other two).
 """
+
+TEACHER_FORCED_IMPLS = ("fused", "step", "plain")
 
 from typing import NamedTuple
 
@@ -35,6 +41,8 @@ class ModelConfig(NamedTuple):
     conditional_attention: bool = True
     auxiliary_task: bool = False
     attention_type: str = "bahdanau"
+    # Default from H100 measurements (PERF.md): kernels 3+4.
+    teacher_forced_impl: str = "fused"
 
     input_padding_idx: int = 0
     target_pad_idx: int = 0

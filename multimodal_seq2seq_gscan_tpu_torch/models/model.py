@@ -1,20 +1,25 @@
-"""The multimodal seq2seq model, inference path: encoder and one decoder step.
+"""The multimodal seq2seq model: CNN + BiLSTM encoder, joint-attention decoder.
 
-PyTorch counterparts of ``encode_input``, ``initialize_decoder_hidden``,
-``project_keys`` and ``decoder_step`` in the JAX package's
-``models/model.py``: the same tensor algebra, batch-first, deterministic (no
-dropout). Training-only functions wait for the training slice.
+PyTorch counterparts of the JAX package's ``models/model.py``: the same
+tensor algebra, batch-first. Dropout draws from an explicit
+``torch.Generator`` in a fixed order (CNN features, encoder embedding, then
+one ``[T, B, E]`` mask for the decoder's embedded tokens), so a generator
+seeded alike gives every teacher-forced implementation the same noise.
 """
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
+from multimodal_seq2seq_gscan_tpu_torch.models.config import (
+    TEACHER_FORCED_IMPLS, ModelConfig)
 from multimodal_seq2seq_gscan_tpu_torch.models.nn import (
-    additive_attention, embed, lstm_cell, masked_lstm_scan, reverse_padded,
-    sequence_mask, situation_cnn)
+    additive_attention, dropout, embed, lstm_cell, masked_lstm_scan,
+    reverse_padded, sequence_mask, situation_cnn)
 from multimodal_seq2seq_gscan_tpu_torch.models.params import ModelParams
+from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf_ops
+from multimodal_seq2seq_gscan_tpu_torch.ops.decode_block import (
+    pack_decoder_weights)
 
 
 class EncodedInput(NamedTuple):
@@ -26,17 +31,28 @@ class EncodedInput(NamedTuple):
 
 def encode_input(params: ModelParams, config: ModelConfig,
                  command_ids: torch.Tensor, command_lengths: torch.Tensor,
-                 situations: torch.Tensor) -> EncodedInput:
+                 situations: torch.Tensor, *,
+                 generator: Optional[torch.Generator] = None,
+                 deterministic: bool = True) -> EncodedInput:
     """CNN over the situation grid + (bi)LSTM over the command tokens.
 
     The two directions' outputs and final hidden states are summed (reference
     seq2seq_model.py:76-81); the backward pass runs over the length-reversed
-    valid prefix, which reproduces packed-sequence semantics.
+    valid prefix, which reproduces packed-sequence semantics. Dropout (CNN
+    features, then the embedded command) draws from ``generator`` unless
+    ``deterministic``.
     """
+    if not deterministic and len(params.encoder.fwd_layers) > 1:
+        raise NotImplementedError("dropout between encoder layers is not "
+                                  "ported: train one encoder layer")
     features = torch.relu(situation_cnn(params.cnn, situations,
                                         config.cnn_kernel_size))
+    features = dropout(generator, features, config.cnn_dropout_p,
+                       deterministic)
     embedded = embed(params.encoder.embedding, command_ids,
                      config.input_padding_idx)
+    embedded = dropout(generator, embedded, config.encoder_dropout_p,
+                       deterministic)
     mask = sequence_mask(command_lengths, command_ids.shape[1])
 
     # torch nn.LSTM stack wiring: layer i>0 consumes the concat of both
@@ -92,10 +108,12 @@ def decoder_step(params: ModelParams, config: ModelConfig,
                  hidden: Tuple[torch.Tensor, torch.Tensor],
                  projected_textual_keys: torch.Tensor,
                  command_mask: torch.Tensor,
-                 projected_visual_keys: torch.Tensor):
+                 projected_visual_keys: torch.Tensor,
+                 drop: Optional[torch.Tensor] = None):
     """One decoder step (reference BahdanauAttentionDecoderRNN.forward_step).
 
-    token_ids: [B]; hidden: (h, c) each [num_layers, B, H].
+    token_ids: [B]; hidden: (h, c) each [num_layers, B, H]; drop: an optional
+    [B, E] multiplicative dropout mask on the embedded token.
     Returns (logits [B, V], (h, c), attn_commands [B, M_t],
     attn_situations [B, M_v]). Both attentions go through
     ``ops.additive_attention`` (kernel 1 on the card).
@@ -105,6 +123,8 @@ def decoder_step(params: ModelParams, config: ModelConfig,
 
     embedded = embed(params.decoder.embedding, token_ids,
                      config.target_pad_idx)
+    if drop is not None:
+        embedded = embedded * drop
     context_command, attn_commands = additive_attention(
         params.textual_attention, query, projected_textual_keys, command_mask)
 
@@ -135,6 +155,145 @@ def decoder_step(params: ModelParams, config: ModelConfig,
     return logits, hidden_out, attn_commands, attn_situations
 
 
+def decoder_drop_mask(config: ModelConfig, shape: Tuple[int, int, int],
+                      device, generator: Optional[torch.Generator],
+                      deterministic: bool) -> torch.Tensor:
+    """The decoder's ``[T, B, E]`` dropout mask on the embedded tokens:
+    ``keep / (1 - p)`` with ``keep ~ Bernoulli(1 - p)``, or ones
+    (JAX ``models/model.py:272-277``)."""
+    if deterministic or config.decoder_dropout_p == 0.0:
+        return torch.ones(shape, device=device)
+    keep = 1.0 - config.decoder_dropout_p
+    return (torch.rand(shape, generator=generator, device=device)
+            < keep).float() / keep
+
+
+def decode_teacher_forced(params: ModelParams, config: ModelConfig,
+                          target_ids: torch.Tensor, encoded: EncodedInput, *,
+                          generator: Optional[torch.Generator] = None,
+                          deterministic: bool = True):
+    """Teacher-forced unroll over all T target positions.
+
+    Returns log-probs [B, T, V] and the visual attention summed over *all*
+    T steps, pad steps included (as the reference does) [B, M_v].
+    ``config.teacher_forced_impl`` picks the unroll (see
+    ``models/config.py``); all three draw the same dropout mask.
+    """
+    impl = config.teacher_forced_impl
+    if impl not in TEACHER_FORCED_IMPLS:
+        raise ValueError("teacher_forced_impl must be one of {}, got "
+                         "{!r}".format(TEACHER_FORCED_IMPLS, impl))
+    if config.num_decoder_layers != 1:
+        raise NotImplementedError("the teacher-forced unroll takes one "
+                                  "decoder layer")
+    projected_textual, projected_visual = project_keys(params, encoded)
+    h, c = initialize_decoder_hidden(params, config, encoded.hidden)
+    batch, steps = target_ids.shape
+    tokens = target_ids.T.to(torch.int32).contiguous()             # [T, B]
+    drop = decoder_drop_mask(
+        config, (steps, batch, params.decoder.embedding.shape[1]),
+        target_ids.device, generator, deterministic)
+    if impl == "step":
+        hidden = (h, c)
+        logits, attention = [], []
+        for t in range(steps):
+            step_logits, hidden, _, attn_situations = decoder_step(
+                params, config, tokens[t], hidden, projected_textual,
+                encoded.command_mask, projected_visual, drop=drop[t])
+            logits.append(step_logits)
+            attention.append(attn_situations)
+        logits = torch.stack(logits)
+        summed_attention = torch.stack(attention).sum(dim=0)
+    else:
+        unroll = (tf_ops.fused_teacher_forced if impl == "fused"
+                  else tf_ops.teacher_forced_plain)
+        logits, summed_attention = unroll(
+            projected_textual.contiguous(),
+            encoded.command_mask.contiguous(),
+            projected_visual.contiguous(), h[0], c[0], tokens, drop,
+            pack_decoder_weights(params, config.target_pad_idx),
+            num_steps=steps)
+    log_probs = torch.log_softmax(logits.transpose(0, 1), dim=-1)
+    return log_probs, summed_attention
+
+
+def forward(params: ModelParams, config: ModelConfig,
+            command_ids: torch.Tensor, command_lengths: torch.Tensor,
+            situations: torch.Tensor, target_ids: torch.Tensor, *,
+            generator: Optional[torch.Generator] = None,
+            deterministic: bool = True):
+    """Encode + teacher-forced decode (+ the aux head's scores)."""
+    encoded = encode_input(params, config, command_ids, command_lengths,
+                           situations, generator=generator,
+                           deterministic=deterministic)
+    log_probs, summed_attention = decode_teacher_forced(
+        params, config, target_ids, encoded, generator=generator,
+        deterministic=deterministic)
+    if config.auxiliary_task:
+        target_position_scores = auxiliary_task_forward(summed_attention)
+    else:
+        target_position_scores = torch.zeros_like(summed_attention)
+    return log_probs, target_position_scores
+
+
 def auxiliary_task_forward(summed_attention: torch.Tensor) -> torch.Tensor:
     """Log-softmax over grid cells of the time-summed situation attention."""
     return torch.log_softmax(summed_attention, dim=-1)
+
+
+def remove_start_of_sequence(targets: torch.Tensor) -> torch.Tensor:
+    """Shift targets left by one (drop SOS, append a pad column)."""
+    return torch.cat([targets[:, 1:], torch.zeros_like(targets[:, :1])],
+                     dim=1)
+
+
+def get_loss(config: ModelConfig, target_log_probs: torch.Tensor,
+             targets: torch.Tensor) -> torch.Tensor:
+    """NLL averaged over non-pad target tokens (NLLLoss(ignore_index=pad))."""
+    targets = remove_start_of_sequence(targets).long()
+    token_log_probs = torch.gather(target_log_probs, -1,
+                                   targets[..., None])[..., 0]      # [B, T]
+    mask = (targets != config.target_pad_idx).to(target_log_probs.dtype)
+    total = torch.clamp(mask.sum(), min=1.0)
+    return -(token_log_probs * mask).sum() / total
+
+
+def get_metrics(config: ModelConfig, target_log_probs: torch.Tensor,
+                targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(token accuracy %, exact-match %) over the batch; all-pad rows (the
+    padding of a short batch) are left out of exact match."""
+    targets = remove_start_of_sequence(targets).long()
+    mask = targets != config.target_pad_idx
+    correct = (torch.argmax(target_log_probs, dim=-1) == targets) & mask
+    accuracy = 100.0 * correct.sum() / torch.clamp(mask.sum(), min=1)
+    per_example_total = mask.sum(dim=1)
+    valid_example = per_example_total > 0
+    matched = (correct.sum(dim=1) == per_example_total) & valid_example
+    exact = 100.0 * matched.sum() / torch.clamp(valid_example.sum(), min=1)
+    return accuracy, exact
+
+
+def get_auxiliary_loss(auxiliary_log_probs: torch.Tensor,
+                       target_positions: torch.Tensor,
+                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """NLL of the target grid cell; ``valid`` masks padded batch rows."""
+    token_log_probs = torch.gather(auxiliary_log_probs, -1,
+                                   target_positions.long()[:, None])[:, 0]
+    if valid is None:
+        return -token_log_probs.mean()
+    weights = valid.to(token_log_probs.dtype)
+    return -(token_log_probs * weights).sum() / torch.clamp(weights.sum(),
+                                                            min=1.0)
+
+
+def get_auxiliary_accuracy(auxiliary_scores: torch.Tensor,
+                           target_positions: torch.Tensor,
+                           valid: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    predictions = torch.argmax(auxiliary_scores, dim=-1)
+    correct = (predictions == target_positions.long()).float()
+    if valid is None:
+        return 100.0 * correct.mean()
+    weights = valid.float()
+    return 100.0 * (correct * weights).sum() / torch.clamp(weights.sum(),
+                                                           min=1.0)

@@ -1,9 +1,10 @@
-"""Neural building blocks: LSTM scans, additive attention, the situation CNN.
+"""Neural building blocks: LSTM scans, additive attention, the situation
+CNN, dropout.
 
-PyTorch counterparts of the JAX package's ``models/nn.py`` (inference only:
-no dropout). Batch-first, with the same layouts at the public functions
-(NHWC situations, HWIO conv weights, ``[4H, in]`` LSTM weights), so the two
-packages can be compared on the same inputs.
+PyTorch counterparts of the JAX package's ``models/nn.py``. Batch-first, with
+the same layouts at the public functions (NHWC situations, HWIO conv weights,
+``[4H, in]`` LSTM weights), so the two packages can be compared on the same
+inputs.
 """
 
 from typing import Optional, Tuple
@@ -123,3 +124,14 @@ def embed(embedding: torch.Tensor, token_ids: torch.Tensor,
     """Embedding lookup with the padding row pinned to zero at lookup."""
     vectors = F.embedding(token_ids.long(), embedding)
     return vectors * (token_ids != padding_idx)[..., None].to(vectors.dtype)
+
+
+def dropout(generator: Optional[torch.Generator], x: torch.Tensor,
+            rate: float, deterministic: bool) -> torch.Tensor:
+    """Inverted dropout drawn from ``generator``; the identity when
+    ``deterministic`` or ``rate == 0``."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))

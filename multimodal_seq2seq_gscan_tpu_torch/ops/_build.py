@@ -35,6 +35,13 @@ SIGNATURES = {
     "gscan_additive_attention": [_P] * 6 + [_I] * 3 + [_P],
     # 7 state inputs, 12 weights, 8 outputs, B, Mt, Mv, H, V, K, eos, stream
     "gscan_decode_block": [_P] * 27 + [_I] * 7 + [_P],
+    # 7 inputs, 12 weights, 4 outputs, B, T, num_steps, Mt, Mv, H, E, V,
+    # stream
+    "gscan_teacher_forced_forward": [_P] * 23 + [_I] * 8 + [_P],
+    # 9 inputs, 12 weights, 7 transposed, 5 outputs, the same 8 ints, stream
+    "gscan_teacher_forced_backward": [_P] * 33 + [_I] * 8 + [_P],
+    # stash, h_res, dlogits, 12 outputs, N, H, E, V, stream
+    "gscan_teacher_forced_weight_grads": [_P] * 15 + [_I] * 4 + [_P],
 }
 
 _library: Optional[ctypes.CDLL] = None

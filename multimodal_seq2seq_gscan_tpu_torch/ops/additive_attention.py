@@ -1,4 +1,4 @@
-"""Kernel 1: fused masked additive attention (forward).
+"""Kernel 1: fused masked additive attention (forward, with a plain backward).
 
 Replaces the TPU kernel ``multimodal_seq2seq_gscan_tpu/ops/pallas_attention.py``
 (``fused_additive_attention``). CUDA source: ``csrc/additive_attention.cu``,
@@ -11,7 +11,13 @@ row, lanes over H), so only the keys, the query and the two outputs touch
 device memory, and the second read of a row's keys comes from cache.
 
 ``additive_attention`` is the wrapper: the plain version for CPU tensors, the
-kernel for CUDA tensors (or an error; it never falls back).
+kernel for CUDA tensors (or an error; it never falls back). On the card, when
+a gradient is wanted, it runs as :class:`AdditiveAttention`, whose backward
+is the plain PyTorch port of the TPU kernel's analytic VJP
+(``_attention_bwd``; the TPU kernel has no backward kernel of its own
+either), so gradients flow through the kernel. Without one (the greedy
+decode) it launches the kernel directly: the call is host-bound, and an
+autograd node costs host time for nothing.
 """
 
 from typing import Optional, Tuple
@@ -47,6 +53,33 @@ def additive_attention_plain(projected_queries: torch.Tensor,
     return context, weights
 
 
+def attention_vjp_plain(projected_queries: torch.Tensor,
+                        projected_keys: torch.Tensor, weights: torch.Tensor,
+                        energy_w: torch.Tensor, d_context: torch.Tensor,
+                        d_weights: Optional[torch.Tensor]
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Analytic VJP of the attention (``_attention_bwd`` in the JAX
+    package's ``ops/pallas_attention.py``), recomputing tanh.
+
+    Returns (d_projected_queries [B, H], d_projected_keys [B, M, H],
+    d_energy per row [B, H]); the energy vector's gradient is the sum of the
+    last over rows. Masked keys have weight exactly 0, so no mask is needed,
+    except on an all-masked row, where (as in the JAX function) the uniform
+    weights pass a gradient that autograd through the -1e9 fill would not.
+    """
+    d_w = torch.bmm(projected_keys, d_context[:, :, None])[..., 0]  # [B, M]
+    d_keys = weights[:, :, None] * d_context[:, None, :]
+    if d_weights is not None:
+        d_w = d_w + d_weights
+    inner = torch.sum(weights * d_w, dim=-1, keepdim=True)
+    d_scores = weights * (d_w - inner)
+    hidden = torch.tanh(projected_queries[:, None, :] + projected_keys)
+    d_pre = d_scores[:, :, None] * energy_w[None, None, :, 0] \
+        * (1.0 - hidden * hidden)
+    d_energy_rows = torch.sum(hidden * d_scores[:, :, None], dim=1)
+    return torch.sum(d_pre, dim=1), d_keys + d_pre, d_energy_rows
+
+
 def check_tensor(name: str, tensor: torch.Tensor, shape: tuple,
                  dtype: torch.dtype, device: torch.device):
     """Raise unless ``tensor`` is what a kernel takes: a contiguous tensor of
@@ -80,6 +113,17 @@ def additive_attention(projected_queries: torch.Tensor,
     if device.type != "cuda":
         raise ValueError("additive_attention runs on cpu or cuda, not "
                          "{}".format(device))
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (projected_queries, projected_keys,
+                                      energy_w)):
+        return AdditiveAttention.apply(projected_queries, projected_keys,
+                                       mask, energy_w)
+    return _launch(projected_queries, projected_keys, mask, energy_w)
+
+
+def _launch(projected_queries, projected_keys, mask, energy_w):
+    """Kernel 1 on the card: checks its inputs, launches it, counts it."""
+    device = projected_keys.device
     batch, m, h = projected_keys.shape
     if not (0 < m <= MAX_KEYS and 0 < h <= MAX_HIDDEN):
         raise ValueError("additive_attention kernel takes M <= {} and "
@@ -106,3 +150,25 @@ def additive_attention(projected_queries: torch.Tensor,
     global launches
     launches += 1
     return context, weights
+
+
+class AdditiveAttention(torch.autograd.Function):
+    """Kernel 1 as a differentiable op: the CUDA forward, and the plain
+    :func:`attention_vjp_plain` as its backward."""
+
+    @staticmethod
+    def forward(ctx, projected_queries, projected_keys, mask, energy_w):
+        context, weights = _launch(projected_queries, projected_keys, mask,
+                                   energy_w)
+        ctx.save_for_backward(projected_queries, projected_keys, energy_w,
+                              weights)
+        return context, weights
+
+    @staticmethod
+    def backward(ctx, d_context, d_weights):
+        projected_queries, projected_keys, energy_w, weights = \
+            ctx.saved_tensors
+        d_pq, d_keys, d_energy_rows = attention_vjp_plain(
+            projected_queries, projected_keys, weights, energy_w, d_context,
+            d_weights)
+        return d_pq, d_keys, None, d_energy_rows.sum(dim=0)[:, None]

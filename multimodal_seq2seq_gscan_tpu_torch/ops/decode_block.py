@@ -148,9 +148,16 @@ def fused_decode_block(proj_textual: torch.Tensor, cmd_mask: torch.Tensor,
     """``num_steps`` greedy decoder steps: the kernel on CUDA, plain on CPU.
 
     Same arguments and results as :func:`decode_block_plain`. The inputs are
-    not modified; every output is a new tensor.
+    not modified; every output is a new tensor. The kernel has no backward:
+    it raises when grad mode is on and an input requires grad, rather than
+    return outputs without a graph.
     """
     device = proj_textual.device
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (proj_textual, cmd_mask, proj_visual, h,
+                                      c, *weights)):
+        raise RuntimeError("fused_decode_block has no backward: call it "
+                           "under torch.no_grad() or on detached inputs")
     if device.type == "cpu":
         return decode_block_plain(proj_textual, cmd_mask, proj_visual, h, c,
                                   tokens, done, weights, num_steps=num_steps,

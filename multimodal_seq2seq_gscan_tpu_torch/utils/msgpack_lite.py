@@ -1,11 +1,14 @@
-"""A small pure-Python reader for the msgpack that flax's serializer writes.
+"""A small pure-Python reader and writer of the msgpack flax's serializer uses.
 
-Replaces ``flax.serialization.msgpack_restore`` (used by the JAX package's
-``train/checkpoint.py``) so that checkpoints load without flax or msgpack.
-It reads the subset flax emits: maps, arrays, str, bin, int, float, bool, nil
-and ext type 1, flax's ndarray record. The payload of an ext-1 record is
-itself msgpack, ``[shape, dtype-name, raw C-order bytes]``, and decodes to a
-numpy array. Any other ext type raises.
+Replaces ``flax.serialization.msgpack_restore`` and ``msgpack_serialize``
+(used by the JAX package's ``train/checkpoint.py``) so that checkpoints load
+and save without flax or msgpack. It handles the subset flax emits: maps,
+arrays, str, bin, int, float, bool, nil and ext type 1, flax's ndarray
+record. The payload of an ext-1 record is itself msgpack, ``[shape,
+dtype-name, raw C-order bytes]``, and decodes to a numpy array. Any other
+ext type raises. The writer picks the smallest encoding of each value, as
+the ``msgpack`` package does, so a decoded flax file re-encodes to the same
+bytes.
 """
 
 import struct
@@ -117,3 +120,93 @@ def _map(buf: memoryview, pos: int, n: int) -> Tuple[dict, int]:
         value, pos = _decode(buf, pos)
         out[key] = value
     return out, pos
+
+
+def packb(value: Any) -> bytes:
+    """Encode ``value`` (dicts with str keys, lists and tuples, str, bytes,
+    int, float, bool, None and numpy arrays or scalars, the last two as
+    ext-1 ndarray records) as msgpack."""
+    out = bytearray()
+    _encode(value, out)
+    return bytes(out)
+
+
+def _sized(out: bytearray, n: int, fix_base, fix_max: int, codes):
+    """The header of a str / bin / array / map / ext of length ``n``:
+    ``fix_base | n`` when ``n <= fix_max``, else the first of ``codes``
+    (8-, 16- and 32-bit lengths) whose length field holds ``n``."""
+    if fix_base is not None and n <= fix_max:
+        out.append(fix_base | n)
+        return
+    for code, fmt in zip(codes, (">B", ">H", ">I")):
+        if code is not None and n < 1 << (8 * struct.calcsize(fmt)):
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise MsgpackError("object of length {} is too long".format(n))
+
+
+def _encode(value: Any, out: bytearray):
+    if value is None:
+        out.append(0xc0)
+    elif isinstance(value, bool):
+        out.append(0xc3 if value else 0xc2)
+    elif isinstance(value, int):
+        _encode_int(value, out)
+    elif isinstance(value, float):
+        out.append(0xcb)
+        out += struct.pack(">d", value)
+    elif isinstance(value, str):
+        raw = value.encode("utf-8")
+        _sized(out, len(raw), 0xa0, 31, (0xd9, 0xda, 0xdb))
+        out += raw
+    elif isinstance(value, (bytes, bytearray, memoryview)):
+        raw = bytes(value)
+        _sized(out, len(raw), None, -1, (0xc4, 0xc5, 0xc6))
+        out += raw
+    elif isinstance(value, (np.ndarray, np.generic)):
+        array = np.asarray(value)
+        payload = packb([list(array.shape), array.dtype.name,
+                         array.tobytes("C")])
+        n = len(payload)
+        fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+        if n in fixext:
+            out.append(fixext[n])
+        else:
+            _sized(out, n, None, -1, (0xc7, 0xc8, 0xc9))
+        out += struct.pack(">b", _NDARRAY_EXT)
+        out += payload
+    elif isinstance(value, (list, tuple)):
+        _sized(out, len(value), 0x90, 15, (None, 0xdc, 0xdd))
+        for item in value:
+            _encode(item, out)
+    elif isinstance(value, dict):
+        _sized(out, len(value), 0x80, 15, (None, 0xde, 0xdf))
+        for key, item in value.items():
+            _encode(key, out)
+            _encode(item, out)
+    else:
+        raise MsgpackError("cannot encode {!r}".format(type(value)))
+
+
+def _encode_int(value: int, out: bytearray):
+    if 0 <= value <= 0x7f:
+        out.append(value)
+    elif -32 <= value < 0:
+        out.append(value & 0xff)
+    elif value >= 0:
+        for code, fmt in ((0xcc, ">B"), (0xcd, ">H"), (0xce, ">I"),
+                          (0xcf, ">Q")):
+            if value < 1 << (8 * struct.calcsize(fmt)):
+                out.append(code)
+                out += struct.pack(fmt, value)
+                return
+        raise MsgpackError("int {} does not fit in 64 bits".format(value))
+    else:
+        for code, fmt in ((0xd0, ">b"), (0xd1, ">h"), (0xd2, ">i"),
+                          (0xd3, ">q")):
+            if value >= -(1 << (8 * struct.calcsize(fmt) - 1)):
+                out.append(code)
+                out += struct.pack(fmt, value)
+                return
+        raise MsgpackError("int {} does not fit in 64 bits".format(value))

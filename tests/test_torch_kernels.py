@@ -9,7 +9,13 @@ tests/conftest.py cannot load (it imports JAX), with
 Bars are the JAX package's for its own kernels: attention context atol 1e-5
 and weights atol 1e-6 (tests/test_pallas_attention.py); decode-block tokens,
 done and emitted flags equal, attention rtol 1e-5 / atol 1e-6
-(tests/test_pallas_decoder.py), here also for the carried h and c.
+(tests/test_pallas_decoder.py), here also for the carried h and c;
+teacher-forced logits rtol/atol 1e-5, summed attention rtol 1e-5 / atol
+1e-6 and gradients rtol 2e-4 / atol 2e-5
+(tests/test_pallas_teacher_forced.py), with kernel 4 and its weight-gradient
+helper bit-identical from run to run. Kernel 1's gradients (its backward is
+the plain ``attention_vjp_plain``) match autograd through its plain version
+at rtol 1e-4 / atol 1e-5, the bar of float32 sums in two orders.
 """
 
 import numpy as np
@@ -104,3 +110,149 @@ def test_decode_block_kernel_matches_plain(cuda):
     for name in ("step_attn_cmd", "step_attn_sit", "h", "c"):
         torch.testing.assert_close(getattr(out, name), getattr(ref, name),
                                    rtol=1e-5, atol=1e-6)
+
+
+def teacher_forced_inputs(device, batch, steps, num_steps, m_t=16, m_v=36,
+                          h=100, vocab=9, seed=0):
+    """Flagship widths; weights drawn as the JAX package initialises them,
+    N(0, 1) keys, command lengths in 1..M_t, a p=0.3 dropout mask, tokens
+    uniform over the vocabulary with pad past num_steps."""
+    rng = np.random.RandomState(seed)
+
+    def t(array):
+        return torch.from_numpy(np.asarray(array, np.float32)).to(device)
+
+    def uniform(shape, fan_in):
+        return t(rng.uniform(-1, 1, shape) / np.sqrt(fan_in))
+
+    embedding = rng.randn(vocab, h)
+    embedding[0] = 0.0
+    weights = k2.DecoderWeights(
+        uniform((h, h), h), uniform((h, 1), h), uniform((2 * h, h), 2 * h),
+        uniform((1, h), 2 * h), uniform((h, h), h), uniform((h, 1), h),
+        t(embedding), uniform((3 * h, 4 * h), h), uniform((h, 4 * h), h),
+        uniform((1, 4 * h), h), uniform((4 * h, h), 4 * h),
+        uniform((h, vocab), h))
+    lengths = rng.randint(1, m_t + 1, size=batch)
+    mask = t(np.arange(m_t)[None] < lengths[:, None])
+    tokens = rng.randint(0, vocab, size=(steps, batch))
+    tokens[num_steps:] = 0
+    drop = (rng.rand(steps, batch, h) > 0.3) / 0.7
+    h0 = np.tanh(rng.randn(batch, h))
+    inputs = (t(rng.randn(batch, m_t, h)), mask, t(rng.randn(batch, m_v, h)),
+              t(h0), t(rng.randn(batch, h) * 0.5),
+              torch.from_numpy(tokens.astype(np.int32)).to(device), t(drop),
+              weights)
+    cotangents = (t(rng.randn(steps, batch, vocab)),
+                  t(rng.randn(batch, m_v)))
+    return inputs, cotangents
+
+
+@pytest.mark.cuda
+def test_teacher_forced_kernels_match_plain(cuda):
+    """Kernel 3 and kernel 4 + the weight-gradient helper against the plain
+    unroll and its autograd gradients, at the JAX tests' bars (logits rtol/atol
+    1e-5, summed attention atol 1e-6; gradients rtol 2e-4 / atol 2e-5), on a
+    batch that is not a multiple of the CTA rows and with time padding."""
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    batch, steps, num_steps = 37, 13, 11
+    inputs, (w_log, w_asum) = teacher_forced_inputs(cuda, batch, steps,
+                                                    num_steps)
+    before = dict(tf.launches)
+    logits, h_res, c_res, asum = tf.teacher_forced_forward(
+        *inputs, num_steps=num_steps)
+    torch.cuda.synchronize()
+    differentiable = [inputs[0], inputs[2], inputs[3], inputs[4],
+                      *inputs[7]]
+    leaves = [x.clone().requires_grad_(True) for x in differentiable]
+    plain_inputs = (leaves[0], inputs[1], leaves[1], leaves[2], leaves[3],
+                    inputs[5], inputs[6], k2.DecoderWeights(*leaves[4:]))
+    ref_logits, ref_asum = tf.teacher_forced_plain(*plain_inputs,
+                                                   num_steps=num_steps)
+    torch.testing.assert_close(logits[:num_steps], ref_logits[:num_steps],
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(asum, ref_asum, rtol=1e-5, atol=1e-6)
+
+    dlogits = torch.zeros_like(logits)
+    dlogits[:num_steps] = w_log[:num_steps]
+    ref_grads = torch.autograd.grad(
+        (ref_logits * dlogits).sum() + (ref_asum * w_asum).sum(), leaves)
+    outs = tf.teacher_forced_backward(
+        inputs[0], inputs[1], inputs[2], inputs[5], inputs[6], inputs[7],
+        h_res, c_res, dlogits, w_asum, num_steps=num_steps)
+    grads = list(outs[:4]) + list(tf.teacher_forced_weight_grads(
+        outs[4], h_res, dlogits))
+    torch.cuda.synchronize()
+    names = ["proj_txt", "proj_vis", "h0", "c0"] + list(
+        k2.DecoderWeights._fields)
+    for name, got, want in zip(names, grads, ref_grads):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5,
+                                   msg=name)
+    assert tf.launches["teacher_forced_forward"] \
+        == before["teacher_forced_forward"] + 1
+    assert tf.launches["teacher_forced_backward"] \
+        == before["teacher_forced_backward"] + 1
+    assert tf.launches["teacher_forced_weight_grads"] \
+        == before["teacher_forced_weight_grads"] + 1
+
+    # Kernel 4 and the helper again on the same inputs: every bit the same.
+    again = tf.teacher_forced_backward(
+        inputs[0], inputs[1], inputs[2], inputs[5], inputs[6], inputs[7],
+        h_res, c_res, dlogits, w_asum, num_steps=num_steps)
+    again = list(again[:4]) + list(tf.teacher_forced_weight_grads(
+        again[4], h_res, dlogits))
+    for name, first, second in zip(names, grads, again):
+        assert torch.equal(first, second), name
+
+
+@pytest.mark.cuda
+def test_attention_backward_on_card(cuda):
+    """Kernel 1 under autograd: its gradients equal those of the plain
+    version (the backward is the same plain function on both)."""
+    pq, keys, mask, energy = [
+        torch.from_numpy(a).to(cuda) if a is not None else None
+        for a in attention_inputs(4, 64, 16, 100,
+                                  np.random.RandomState(2).randint(
+                                      1, 17, size=64))]
+    cot_c = torch.randn(64, 100, device=cuda)
+    cot_w = torch.randn(64, 16, device=cuda)
+    grads = []
+    for fn in (k1.additive_attention, k1.additive_attention_plain):
+        leaves = [x.clone().requires_grad_(True) for x in (pq, keys, energy)]
+        ctx, w = fn(leaves[0], leaves[1], mask, leaves[2])
+        grads.append(torch.autograd.grad(
+            (ctx * cot_c).sum() + (w * cot_w).sum(), leaves))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_attention_without_grad_launches_directly(cuda):
+    """With no gradient wanted, kernel 1 runs without an autograd node."""
+    pq, keys, mask, energy = [
+        torch.from_numpy(a).to(cuda) if a is not None else None
+        for a in attention_inputs(5, 8, 16, 100,
+                                  np.random.RandomState(3).randint(
+                                      1, 17, size=8))]
+    before = k1.launches
+    leaf = pq.clone().requires_grad_(True)
+    with torch.no_grad():
+        ctx, w = k1.additive_attention(leaf, keys, mask, energy)
+    assert ctx.grad_fn is None and w.grad_fn is None
+    ctx, w = k1.additive_attention(leaf, keys, mask, energy)
+    assert ctx.grad_fn is not None
+    assert k1.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_decode_block_refuses_grad(cuda):
+    weights = k2.DecoderWeights(*(torch.zeros(s, device=cuda) for s in (
+        (8, 8), (8, 1), (16, 8), (1, 8), (8, 8), (8, 1), (9, 8), (24, 32),
+        (8, 32), (1, 32), (32, 8), (8, 9))))
+    h = torch.zeros(2, 8, device=cuda, requires_grad=True)
+    args = (torch.zeros(2, 3, 8, device=cuda), torch.ones(2, 3, device=cuda),
+            torch.zeros(2, 4, 8, device=cuda), h, h.detach(),
+            torch.ones(2, dtype=torch.int32, device=cuda),
+            torch.zeros(2, dtype=torch.bool, device=cuda), weights)
+    with pytest.raises(RuntimeError):
+        k2.fused_decode_block(*args, num_steps=2, eos_idx=2)
