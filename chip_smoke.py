@@ -107,6 +107,31 @@ def cuda_ms(fn, repeats, warmup=2):
     return start.elapsed_time(end) / repeats
 
 
+def graph_ms(fn, repeats):
+    """Mean milliseconds of ``fn()`` replayed from a CUDA graph: the
+    device's time for its launches, without the host's cost of issuing
+    them."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(repeats):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
 def bound_ms(num_bytes, flops):
     """(least milliseconds the card needs, what bounds it)."""
     by_bytes = num_bytes / HBM_BYTES_PER_S * 1e3
@@ -440,6 +465,49 @@ def random_teacher_forced_inputs(gen, device, batch, steps, num_steps, m_t,
     return args[:5] + (tokens, drop, args[7]), (dlogits, g_asum)
 
 
+def helper_library_operands(stash, h_res, dlogits, emb_dim):
+    """The helper's 14 products ``X^T dY`` as (X, dY) pairs, each operand
+    copied out contiguous before any timing. A sum over row-steps (a bias,
+    an energy vector) is the product with a column of ones."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    hidden, vocab = h_res.shape[-1], dlogits.shape[-1]
+    lay = tf.stash_layout(vocab, emb_dim, hidden)
+    x = stash.reshape(-1, lay.width)
+    h = h_res.reshape(-1, hidden)
+    ones = torch.ones_like(h[:, :1])
+
+    def cols(start, end):
+        return x[:, start:end]
+
+    djp, dg = cols(lay.d_joint, lay.d_pq_txt), cols(lay.d_gates,
+                                                    lay.d_pq_vis)
+    pairs = [(h, cols(lay.d_pq_txt, lay.d_emb)),
+             (ones, cols(lay.g_txt_ew, lay.width)),
+             (h, djp), (cols(lay.ctx_cmd, lay.ctx_sit), djp), (ones, djp),
+             (cols(lay.vq, lay.d_ph), cols(lay.d_pq_vis, lay.d_joint)),
+             (ones, cols(lay.g_vis_ew, lay.g_txt_ew)),
+             (cols(lay.onehot, lay.onehot + vocab),
+              cols(lay.d_emb, lay.g_vis_ew)),
+             (cols(lay.emb, lay.h_new), dg), (cols(lay.ctx_cmd, lay.ph), dg),
+             (h, dg), (ones, dg),
+             (cols(lay.emb, lay.ph), cols(lay.d_ph, lay.d_gates)),
+             (cols(lay.ph, lay.vq), dlogits.reshape(-1, vocab))]
+    return [(a.contiguous(), b.contiguous()) for a, b in pairs]
+
+
+def helper_library(operands):
+    """The helper's library call: its 14 products as ``torch.matmul``
+    (cuBLAS), assembled into the twelve gradients of ``DecoderWeights``."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.ops.decode_block import (
+        DecoderWeights)
+    p = [torch.matmul(a.T, b) for a, b in operands]
+    return DecoderWeights(p[0], p[1].T, torch.cat([p[2], p[3]]), p[4], p[5],
+                          p[6].T, p[7], torch.cat([p[8], p[9]]), p[10],
+                          p[11], p[12], p[13])
+
+
 def kernel_unroll(inputs, dlogits, g_asum, num_steps):
     """Kernel 3, kernel 4 and the helper: ((logits, asum), the 16 gradients
     of GRAD_NAMES, (kernel 4's outputs, h_res, c_res))."""
@@ -682,6 +750,23 @@ def main():
             sync()
             (ref_logits, ref_asum), ref_grads = plain_unroll(
                 inputs, dlogits, g_asum, num_steps)
+            # The float64 referee: the plain version evaluated in float64
+            # on the same inputs. At these shapes the plain version's own
+            # float32 rounding is about the atol of the checks below, so
+            # each kernel output is also held to be no further from float64
+            # than twice the plain version's distance.
+            (exact_logits, exact_asum), exact_grads = plain_unroll(
+                as_float64(inputs), *as_float64((dlogits, g_asum)),
+                num_steps)
+            for name, got, want, truth in zip(
+                    ["logits", "summed attention"]
+                    + ["d" + n for n in GRAD_NAMES],
+                    [logits[:num_steps], asum] + grads,
+                    [ref_logits[:num_steps], ref_asum] + ref_grads,
+                    [exact_logits[:num_steps], exact_asum] + exact_grads):
+                against_float64("{} {}".format(label, name), got, want,
+                                truth)
+            del exact_grads
             tf_err["forward"] = max(
                 tf_err["forward"],
                 check_close(label + " logits", logits[:num_steps],
@@ -1120,6 +1205,23 @@ def main():
             print("{} (B={}, T={}): {:.4f} ms, plain {:.4f} ms, bound {:.4f} "
                   "ms ({})".format(name, TRAIN_BATCH, steps, ms, plain_ms,
                                    *bound))
+        # The helper's library call: its 14 products through torch.matmul
+        # (cuBLAS) on operands staged beforehand, timed with the helper as
+        # CUDA graphs, so that neither pays the host's cost of launching.
+        operands = helper_library_operands(raw[4], h_res, dlogits,
+                                           inputs[7].embedding.shape[1])
+        helper_grads = tf.teacher_forced_weight_grads(raw[4], h_res, dlogits)
+        for name, got, want in zip(GRAD_NAMES[4:], helper_library(operands),
+                                   helper_grads):
+            check_close("helper library call d" + name, got, want, 2e-4,
+                        2e-5)
+        helper_library_ms = graph_ms(lambda: helper_library(operands), 20)
+        helper_graph_ms = graph_ms(lambda: tf.teacher_forced_weight_grads(
+            raw[4], h_res, dlogits), 20)
+        print("helper in a CUDA graph: {:.4f} ms; its library call (14 "
+              "torch.matmul on staged operands) in a CUDA graph: {:.4f} "
+              "ms".format(helper_graph_ms, helper_library_ms))
+        del operands
         step_ms = {}
         for impl, repeats in (("fused", 10), ("step", 3), ("plain", 3)):
             step_ms[impl] = cuda_ms(lambda: train_step(
@@ -1162,19 +1264,19 @@ def main():
     ]
     tf_source = "multimodal_seq2seq_gscan_tpu_torch/csrc/teacher_forced.cu"
     tf_replaces = "multimodal_seq2seq_gscan_tpu/ops/pallas_teacher_forced.py"
-    for name, line, err, ms, plain_ms, bound in (
+    for name, line, err, ms, plain_ms, bound, library_ms in (
             ("teacher_forced_forward", 164, tf_err["forward"], fwd_ms,
-             fwd_plain_ms, fwd_bound),
+             fwd_plain_ms, fwd_bound, None),
             ("teacher_forced_backward", 457, tf_err["backward"], bwd_ms,
-             bwd_plain_ms, bwd_bound),
+             bwd_plain_ms, bwd_bound, None),
             ("teacher_forced_weight_grads", 457, tf_err["helper"], helper_ms,
-             helper_plain_ms, helper_bound)):
+             helper_plain_ms, helper_bound, helper_library_ms)):
         kernels.append({
             "name": name, "route": "cuda", "source": tf_source,
             "replaces": "{}:{}".format(tf_replaces, line),
             "launches": launches_train[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": None})
+            "bound_by": bound[1], "library_ms": library_ms})
     print("near-ties: block decode {}, step decode {}".format(ties_block,
                                                               ties_step))
     print("total wall time: {:.2f} s".format(

@@ -16,27 +16,34 @@
 //
 // Kernel 4: per step in reverse, recompute the step from (h_res, c_res),
 // then backpropagate through the head, the cell and both attentions with
-// the TPU kernel's math. The per-row gradients (d_proj_txt, d_proj_vis, dh,
-// dc) belong to the CTA that owns the row. The weight gradients are sums
-// over rows and steps: kernel 4 writes every row-step's operands (the X and
-// dY of each X^T dY) to a stash in device memory, and the helper kernel
-// (weight_grads_kernel) forms the sums, each output by one thread in a fixed
-// order. No atomics anywhere, so every output is bit-identical from run to
-// run. The stash layout is ops/teacher_forced.py's StashLayout.
+// the TPU kernel's math. The weight gradients are sums over rows and steps:
+// kernel 4 writes every row-step's operands (the X and dY of each X^T dY)
+// to a stash in device memory, and the helper kernel (weight_grads_kernel)
+// forms the sums. No atomics anywhere, so every output is bit-identical
+// from run to run. The stash layout is ops/teacher_forced.py's StashLayout.
 //
 // Bound on the H100: operations (a row-step is ~0.5 MFLOP; kernel 4 about
 // three times kernel 3), but the T-step chain makes both recurrent kernels
-// latency-bound: each step is a chain of small products whose weights
-// (~1 MB) come from L2. Design, as kernel 2's: one CTA owns R batch rows
-// for all T steps (no communication between CTAs; grid = ceil(B / R)); the
-// rows' activations live in shared memory feature-major ([feature][R]), so
-// one weight element read from L2 feeds the R rows through float4 reads of
+// latency-bound.
+//
+// Kernel 3's design, as kernel 2's: one CTA owns R batch rows for all T
+// steps (no communication between CTAs; grid = ceil(B / R)); the rows'
+// activations live in shared memory feature-major ([feature][R]), so one
+// weight element read from L2 feeds the R rows through float4 reads of
 // shared memory; a thread owns one output column of a product for the R
 // rows and sums its inputs in a fixed order, in two chains (even and odd
-// inputs; see accum). Attention rows go one warp per row
-// (attend.cuh forward, attend_row_backward below). R = 4: at the training
-// batch of 200 that gives 50 CTAs (R = 16, kernel 2's, gives 13; R = 8 was
-// measured 1.3x slower for both kernels, PERF.md).
+// inputs; see accum). Attention rows go one warp per row (attend.cuh).
+// R = 4: at the training batch of 200 that gives 50 CTAs (R = 8 was
+// measured 1.3x slower, PERF.md).
+//
+// Kernel 4's design (backward_cluster_kernel, below): a thread-block
+// cluster of 8 CTAs per group of 16 rows, each CTA holding the weight
+// columns of its share of the hidden units in shared memory for the whole
+// walk, products split over all 512 threads, partial sums combined across
+// the cluster in rank order through distributed shared memory, and each
+// row's attentions spread over all the warps of one CTA.
+#include <cstdint>
+
 #include "attend.cuh"
 
 namespace {
@@ -60,29 +67,20 @@ struct Weights {
   const float* out_proj;  // [H, V]
 };
 
-// The transposed weights of the backward's products.
-struct Transposed {
-  const float* txt_qw;    // [H, H]
-  const float* q2k_w;     // [H, 2H]
-  const float* vis_qw;    // [H, H]
-  const float* w_ih;      // [4H, E + 2H]
-  const float* w_hh;      // [4H, H]
-  const float* out_w;     // [H, E + 3H]
-  const float* out_proj;  // [V, H]
-};
-
-// Column offsets of a row-step in the stash (ops/teacher_forced.py).
+// Column offsets of a row-step in the stash (ops/teacher_forced.py). The
+// one-hot segment is padded with zeros to P = V rounded up to 4 columns.
 struct Stash {
   int onehot, emb, h_new, ctx_cmd, ctx_sit, ph, vq, d_ph, d_gates, d_pq_vis,
       d_joint, d_pq_txt, d_emb, g_vis_ew, g_txt_ew, width;
   __host__ __device__ Stash(int V, int E, int H)
-      : onehot(0), emb(V), h_new(V + E), ctx_cmd(V + E + H),
-        ctx_sit(V + E + 2 * H), ph(V + E + 3 * H), vq(V + E + 4 * H),
-        d_ph(V + E + 5 * H), d_gates(V + E + 6 * H),
-        d_pq_vis(V + E + 10 * H), d_joint(V + E + 11 * H),
-        d_pq_txt(V + E + 12 * H), d_emb(V + E + 13 * H),
-        g_vis_ew(V + 2 * E + 13 * H), g_txt_ew(V + 2 * E + 14 * H),
-        width(V + 2 * E + 15 * H) {}
+      : onehot(0), emb(pad(V)), h_new(pad(V) + E), ctx_cmd(pad(V) + E + H),
+        ctx_sit(pad(V) + E + 2 * H), ph(pad(V) + E + 3 * H),
+        vq(pad(V) + E + 4 * H), d_ph(pad(V) + E + 5 * H),
+        d_gates(pad(V) + E + 6 * H), d_pq_vis(pad(V) + E + 10 * H),
+        d_joint(pad(V) + E + 11 * H), d_pq_txt(pad(V) + E + 12 * H),
+        d_emb(pad(V) + E + 13 * H), g_vis_ew(pad(V) + 2 * E + 13 * H),
+        g_txt_ew(pad(V) + 2 * E + 14 * H), width(pad(V) + 2 * E + 15 * H) {}
+  __host__ __device__ static int pad(int V) { return (V + 3) / 4 * 4; }
 };
 
 __device__ __forceinline__ void zero(float (&acc)[R]) {
@@ -361,391 +359,1083 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(
   }
 }
 
-// The backward of gscan::attend_row for one row, by one warp (the TPU
-// backward kernel's attention part, and _attention_bwd): given the
-// context's cotangent dctx = a + b (+ c) (feature-major, stride `stride`),
-// the softmax weights w [M] and an optional extra cotangent of the weights
-// g [M] * g_scale,
-//   dw[m]  = sum_h dctx[h] K[m, h] + g[m] g_scale
-//   ds[m]  = w[m] (dw[m] - sum_m' w[m'] dw[m'])
-//   hid    = tanh(pq[h] + K[m, h])
-//   dK[m, h] += w[m] dctx[h] + ds[m] ew[h] (1 - hid^2)   (global, this row's)
-//   dpq[h] = sum_m ds[m] ew[h] (1 - hid^2),  gew[h] = sum_m hid ds[m]
-// As in the TPU kernel, no mask: a masked key has weight exactly 0.
-__device__ void attend_row_backward(
-    const float* pq, const float* dctx_a, const float* dctx_b,
-    const float* dctx_c, int stride, const float* __restrict__ keys,
-    const float* w, const float* __restrict__ ew,
-    const float* __restrict__ g, float g_scale, int M, int H,
-    float* __restrict__ dkeys, float* dpq, float* __restrict__ gew,
-    float* dw) {
-  constexpr int NH = gscan::kMaxH / 32;
-  constexpr int kG = gscan::kGroup;
-  const int lane = threadIdx.x & 31;
-  float q[NH], e[NH], dc[NH];
-#pragma unroll
-  for (int i = 0; i < NH; ++i) {
-    const int h = lane + 32 * i;
-    q[i] = e[i] = dc[i] = 0.f;
-    if (h < H) {
-      q[i] = pq[h * stride];
-      e[i] = ew[h];
-      dc[i] = dctx_a[h * stride] + dctx_b[h * stride];
-      if (dctx_c != nullptr) dc[i] += dctx_c[h * stride];
-    }
-  }
-  for (int m0 = 0; m0 < M; m0 += kG) {
-    float p[kG];
-#pragma unroll
-    for (int gi = 0; gi < kG; ++gi) {
-      p[gi] = 0.f;
-      if (m0 + gi < M) {
-        const float* k = keys + (size_t)(m0 + gi) * H;
-#pragma unroll
-        for (int i = 0; i < NH; ++i) {
-          const int h = lane + 32 * i;
-          if (h < H) p[gi] = fmaf(dc[i], k[h], p[gi]);
-        }
-      }
-    }
-#pragma unroll
-    for (int offset = 16; offset > 0; offset >>= 1)
-#pragma unroll
-      for (int gi = 0; gi < kG; ++gi)
-        p[gi] += __shfl_xor_sync(0xffffffffu, p[gi], offset);
-    if (lane == 0) {
-#pragma unroll
-      for (int gi = 0; gi < kG; ++gi) {
-        const int m = m0 + gi;
-        if (m < M) dw[m] = g != nullptr ? p[gi] + g[m] * g_scale : p[gi];
-      }
-    }
-  }
-  __syncwarp();
-  float part = 0.f;
-  for (int m = lane; m < M; m += 32) part += w[m] * dw[m];
-  const float inner = gscan::warp_sum(part);
+// ---------------------------------------------------------------------------
+// Kernel 4: one thread-block cluster of S CTAs per group of RC batch rows.
+//
+// CTA `rank` of a cluster owns the hidden units [u0, u0 + C) (C = ceil(H/S))
+// and the embedding features [e0, e0 + CE): it keeps the column slices of
+// every weight matrix for its units in shared memory for the whole T-step
+// walk (~126 KB at H = E = 100, S = 8), so no weight is read from L2 after
+// the kernel starts. A product y = x W (x the full input, y a slice) runs
+// split-K over all the threads of the CTA; a transposed product dx = dy W^T
+// sums over the CTA's own units only, for every output, and the S partial
+// sums are added by the CTA that owns each output, in rank order
+// (reduce-scatter through distributed shared memory). Full vectors that a
+// product reads (h, the LSTM input, the visual query, the new h) are
+// broadcast to every CTA of the cluster. The attentions of row r run in the
+// CTA of rank r % S, over all its warps (attend_cta). The step's inputs
+// are copied in by cp.async while the step before is still running. Every
+// sum has an order fixed by the
+// shapes, and there are no atomics: the outputs are bit-identical from run
+// to run. The phases are separated by cluster barriers (16 per step).
+// ---------------------------------------------------------------------------
 
-  float dq[NH], ge[NH];
+// cp.async copies into shared memory (completed by cp_async_wait).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+// Copies `bytes` (0..16) of src and zero-fills the rest of the 16.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Threads per CTA of kernel 4: 384 measured fastest on the H100 (512,
+// capped at 128 registers a thread, took 1.17x as long; 320 and 256 took
+// 1.03x and 1.08x; PERF.md).
+constexpr int kClusterThreads = 384;
+constexpr int kClusterWarps = kClusterThreads / 32;
+
+// Cluster barrier halves: arrive (release this CTA's shared-memory writes
+// and reads) and wait (acquire everyone's). Every thread calls both.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// The address of `p` (a shared-memory address of this CTA) in the shared
+// memory of CTA `rank` of the cluster.
+template <typename T>
+__device__ __forceinline__ T* remote(T* p, unsigned rank) {
+  size_t out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(reinterpret_cast<size_t>(p)), "r"(rank));
+  return reinterpret_cast<T*>(out);
+}
+
+__device__ __forceinline__ void fma4v(float4& acc, const float4 v, float w) {
+  acc.x = fmaf(v.x, w, acc.x);
+  acc.y = fmaf(v.y, w, acc.y);
+  acc.z = fmaf(v.z, w, acc.z);
+  acc.w = fmaf(v.w, w, acc.w);
+}
+__device__ __forceinline__ void add4(float4& a, const float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+constexpr int kRowGroup = 8;  // rows per product item
+constexpr int kScratch = kClusterThreads * kRowGroup;  // see cta_product
+
+// Reserve n floats at p, float4-aligned; returns where they start.
+__host__ __device__ inline size_t take(size_t& p, size_t n) {
+  const size_t at = p;
+  p += (n + 3) & ~size_t(3);
+  return at;
+}
+
+// Offsets (in floats) of the cluster kernel's shared memory. Feature-major
+// buffers are [feature][RC]; "owned" buffers hold the rows whose attention
+// this CTA runs, [feature][kOwn].
+template <int S, int RC>
+struct ClusterLayout {
+  static constexpr int kOwn = RC / S;
+  int C, CE, WR;
+  size_t w_txt, w_q2k, w_vis, w_ih, w_out, w_proj, b_q2k, b_gate;  // weights
+  size_t f_h, f_in, f_vh;  // full vectors: h, [emb; ctx_cmd; ctx_sit], vq|h_new
+  size_t s_c, s_cn, s_g, s_vq, s_hn, s_ph, s_dph, s_dg, s_dpqv, s_djp, s_djt,
+      s_dpqt, s_dh, s_dc, s_dpre, s_dli, s_dlog;  // this CTA's slices
+  size_t o_pqt, o_pqv, o_dcs, o_dcc, o_wt, o_wv, o_dw;
+  size_t recv, scratch, total;
+  __host__ __device__ ClusterLayout(int H, int E, int V, int Mt, int Mv) {
+    C = (H + S - 1) / S;
+    CE = (E + S - 1) / S;
+    WR = CE + 3 * C;
+    size_t p = 0;
+    w_txt = take(p, (size_t)H * C);
+    w_q2k = take(p, (size_t)2 * H * C);
+    w_vis = take(p, (size_t)H * C);
+    w_ih = take(p, (size_t)(E + 3 * H) * 4 * C);  // w_ih rows, then w_hh rows
+    w_out = take(p, (size_t)(E + 3 * H) * C);
+    w_proj = take(p, (size_t)C * V);
+    b_q2k = take(p, C);
+    b_gate = take(p, 4 * C);
+    f_h = take(p, (size_t)H * RC);
+    f_in = take(p, (size_t)(E + 2 * H) * RC);
+    f_vh = take(p, (size_t)H * RC);
+    s_c = take(p, C * RC);
+    s_cn = take(p, C * RC);
+    s_g = take(p, 4 * C * RC);
+    s_vq = take(p, C * RC);
+    s_hn = take(p, C * RC);
+    s_ph = take(p, C * RC);
+    s_dph = take(p, C * RC);
+    s_dg = take(p, 4 * C * RC);
+    s_dpqv = take(p, C * RC);
+    s_djp = take(p, C * RC);
+    s_djt = take(p, 2 * C * RC);
+    s_dpqt = take(p, C * RC);
+    s_dh = take(p, C * RC);
+    s_dc = take(p, C * RC);
+    s_dpre = take(p, (size_t)WR * RC);
+    s_dli = take(p, (size_t)WR * RC);
+    s_dlog = take(p, (size_t)V * RC);
+    o_pqt = take(p, (size_t)H * kOwn);
+    o_pqv = take(p, (size_t)H * kOwn);
+    o_dcs = take(p, (size_t)H * kOwn);
+    o_dcc = take(p, (size_t)H * kOwn);
+    o_wt = take(p, (size_t)Mt * kOwn);
+    o_wv = take(p, (size_t)Mv * kOwn);
+    o_dw = take(p, (size_t)gscan::kMaxM * kOwn);
+    recv = take(p, (size_t)S * WR * RC);
+    scratch = take(p, (size_t)kScratch);
+    total = p;
+  }
+};
+
+struct Seg {
+  const float* x;  // feature-major [k][RC]
+  int k;
+};
+
+// y[n][r] = sum_k x[k][r] W[k * ldw + n] for n < nc and the RC rows, with x
+// the concatenation of up to three segments along k (W's rows follow the
+// same order). Items are (column n, kRowGroup rows); K is split over the
+// threads the items leave free, and the splits' partial sums are added in
+// split order. epi(n, g, float4) receives rows 4g .. 4g+3 of column n.
+// Ends with __syncthreads().
+template <int RC, typename Epi>
+__device__ void cta_product(Seg s0, Seg s1, Seg s2, const float* W, int ldw,
+                            int nc, float* scratch, Epi epi) {
+  constexpr int RG = RC < kRowGroup ? RC : kRowGroup;
+  constexpr int Q = RG / 4;  // float4s per item
+  constexpr int G = RC / RG;
+  constexpr int kMinK = 8;
+  const int K = s0.k + s1.k + s2.k;
+  const int items = nc * G;
+  int ks = items > 0 ? kClusterThreads / items : 1;
+  ks = max(1, min(ks, (K + kMinK - 1) / kMinK));
+  float4* scratch4 = reinterpret_cast<float4*>(scratch);
+  for (int t = threadIdx.x; t < items * ks; t += kClusterThreads) {
+    const int i = t % items, s = t / items;
+    const int n = i / G, g = i % G;
+    const int kb = K * s / ks, ke = K * (s + 1) / ks;
+    float4 acc[Q];
 #pragma unroll
-  for (int i = 0; i < NH; ++i) dq[i] = ge[i] = 0.f;
-  for (int m = 0; m < M; ++m) {
-    const float wm = w[m];
-    const float ds = wm * (dw[m] - inner);
-    const float* k = keys + (size_t)m * H;
-    float* dk = dkeys + (size_t)m * H;
+    for (int q = 0; q < Q; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    int base = 0;
+    const Seg segs[3] = {s0, s1, s2};
+#pragma unroll
+    for (int sg = 0; sg < 3; ++sg) {
+      const int lo = max(kb - base, 0), hi = min(ke - base, segs[sg].k);
+      const float* x = segs[sg].x + RG * g;
+      const float* w = W + (size_t)base * ldw + n;
+#pragma unroll 4
+      for (int k = lo; k < hi; ++k) {
+        const float wk = w[(size_t)k * ldw];
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+          fma4v(acc[q], *reinterpret_cast<const float4*>(x + k * RC + 4 * q),
+                wk);
+      }
+      base += segs[sg].k;
+    }
+    if (ks == 1) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) epi(n, g * Q + q, acc[q]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) scratch4[(s * items + i) * Q + q] = acc[q];
+    }
+  }
+  if (ks > 1) {
+    __syncthreads();
+    for (int t = threadIdx.x; t < items * Q; t += kClusterThreads) {
+      const int i = t / Q, q = t % Q;
+      float4 a = scratch4[i * Q + q];
+      for (int s = 1; s < ks; ++s) add4(a, scratch4[(s * items + i) * Q + q]);
+      epi(i / G, (i % G) * Q + q, a);
+    }
+  }
+  __syncthreads();
+}
+
+// part[j][r] = sum_{u < K} dy[u][r] W[j * ldw + u] for j < J: a transposed
+// product over this CTA's units only. epi(j, g, float4) as cta_product's.
+template <int RC, typename Epi>
+__device__ void cta_partial(const float* dy, int K, const float* W, int ldw,
+                            int J, Epi epi) {
+  constexpr int G = RC / 4;
+  for (int t = threadIdx.x; t < J * G; t += kClusterThreads) {
+    const int j = t / G, g = t % G;
+    const float* w = W + (size_t)j * ldw;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int u = 0; u < K; ++u)
+      fma4v(acc, *reinterpret_cast<const float4*>(dy + u * RC + 4 * g),
+            w[u]);
+    epi(j, g, acc);
+  }
+}
+
+// Key loads issued together per lane (12, 18 and 36 measured slower:
+// registers, PERF.md).
+constexpr int kKeyBatch = 8;
+
+template <int kOwn>
+struct RowTeam {
+  static constexpr int kWarpsPerRow = kClusterWarps / kOwn;
+  int o, lw, lane, b;
+  bool valid;
+  __device__ RowTeam(int b_first, int b_stride, int B) {
+    const int warp = threadIdx.x >> 5;
+    lane = threadIdx.x & 31;
+    o = warp / kWarpsPerRow;
+    lw = warp % kWarpsPerRow;
+    b = b_first + o * b_stride;
+    valid = b < B;
+  }
+};
+
+// Forward: w = softmax(masked scores), ctx[h] = sum_m w[m] K[m, h].
+// pq [H][kOwn]; ctx_out(h, o, row, value) stores the context; weights go
+// to wts [kOwn][M]; sc [kOwn][kMaxM] is scratch.
+template <int kOwn, typename Out>
+__device__ void attend_cta(const float* pq, const float* __restrict__ keys,
+                           const float* __restrict__ mask,
+                           const float* __restrict__ ew, int M, int H,
+                           int b_first, int b_stride, int B, float* wts,
+                           float* sc, Out ctx_out) {
+  constexpr int NH = gscan::kMaxH / 32;
+  constexpr int NM = gscan::kMaxM / 32;
+  const RowTeam<kOwn> team(b_first, b_stride, B);
+  const int o = team.o, lane = team.lane;
+  const float* K = keys + (size_t)team.b * M * H;
+  if (team.valid) {
+    float q[NH], e[NH];
 #pragma unroll
     for (int i = 0; i < NH; ++i) {
       const int h = lane + 32 * i;
-      if (h < H) {
-        const float hid = tanhf(q[i] + k[h]);
-        ge[i] = fmaf(hid, ds, ge[i]);
-        const float dpre = ds * e[i] * (1.f - hid * hid);
-        dq[i] += dpre;
-        dk[h] += wm * dc[i] + dpre;
+      q[i] = h < H ? pq[h * kOwn + o] : 0.f;
+      e[i] = h < H ? ew[h] : 0.f;
+    }
+    constexpr int kStride = RowTeam<kOwn>::kWarpsPerRow;
+    constexpr int kG = gscan::kGroup;
+    for (int m0 = team.lw; m0 < M; m0 += kG * kStride) {
+      float p[kG];
+#pragma unroll
+      for (int gi = 0; gi < kG; ++gi) {
+        const int m = m0 + gi * kStride;
+        p[gi] = 0.f;
+#pragma unroll
+        for (int i = 0; i < NH; ++i) {
+          const int h = lane + 32 * i;
+          if (m < M && h < H)
+            p[gi] = fmaf(tanhf(q[i] + K[(size_t)m * H + h]), e[i], p[gi]);
+        }
+      }
+#pragma unroll
+      for (int offset = 16; offset > 0; offset >>= 1)
+#pragma unroll
+        for (int gi = 0; gi < kG; ++gi)
+          p[gi] += __shfl_xor_sync(0xffffffffu, p[gi], offset);
+#pragma unroll
+      for (int gi = 0; gi < kG; ++gi) {
+        const int m = m0 + gi * kStride;
+        if (lane == 0 && m < M)
+          sc[o * gscan::kMaxM + m] =
+              mask != nullptr && !(mask[(size_t)team.b * M + m] > 0.f)
+                  ? -1e9f
+                  : p[gi];
       }
     }
   }
-#pragma unroll
-  for (int i = 0; i < NH; ++i) {
-    const int h = lane + 32 * i;
-    if (h < H) {
-      dpq[h * stride] = dq[i];
-      gew[h] = ge[i];
-    }
-  }
-  __syncwarp();
-}
-
-__global__ void __launch_bounds__(kThreads) backward_kernel(
-    const int* __restrict__ tokens, const float* __restrict__ drop,
-    const float* __restrict__ proj_txt, const float* __restrict__ cmd_mask,
-    const float* __restrict__ proj_vis, const float* __restrict__ h_res,
-    const float* __restrict__ c_res, const float* __restrict__ dlogits,
-    const float* __restrict__ g_asum, Weights wt, Transposed tr,
-    float* __restrict__ d_proj_txt, float* __restrict__ d_proj_vis,
-    float* __restrict__ dh0, float* __restrict__ dc0,
-    float* __restrict__ stash, int B, int T, int num_steps, int Mt, int Mv,
-    int H, int E, int V) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  StepBuffers b;
-  float* p = b.carve(smem, H, E, Mt, Mv);
-  float* s_c_new = p;  p += H * R;
-  float* s_dlog = p;   p += V * R;            // [V][R]
-  float* s_dph = p;    p += H * R;
-  float* s_dpre = p;   p += (E + 3 * H) * R;  // d [emb; h_new; ctx_cmd; ctx_sit]
-  float* s_dg = p;     p += 4 * H * R;        // d gates (pre-activation)
-  float* s_dli = p;    p += (E + 3 * H) * R;  // d [emb; ctx_cmd; ctx_sit] | dh
-  float* s_dpqv = p;   p += H * R;
-  float* s_djp = p;    p += H * R;            // d visual query pre-activation
-  float* s_djoint = p; p += 2 * H * R;        // d [h; ctx_cmd] of the query
-  float* s_dpqt = p;   p += H * R;
-  float* s_dh = p;     p += H * R;
-  float* s_dc = p;     p += H * R;
-  float* s_dw = p;     p += gscan::kMaxM * R;  // [R][kMaxM] scratch
-  const size_t total = p - smem;
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int b0 = blockIdx.x * R;
-  const int rows = min(R, B - b0);
-  const Stash lay(V, E, H);
-  const int G = 4 * H;
-
-  for (size_t i = tid; i < total; i += kThreads) smem[i] = 0.f;
   __syncthreads();
-
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t tb = (size_t)t * B + b0;
-    for (int i = tid; i < R * H; i += kThreads) {
-      const int r = i / H, u = i % H;
-      const bool in = r < rows;
-      b.h[u * R + r] = in ? h_res[(tb + r) * H + u] : 0.f;
-      b.c[u * R + r] = in ? c_res[(tb + r) * H + u] : 0.f;
-    }
-    for (int i = tid; i < R * V; i += kThreads) {
-      const int r = i / V, v = i % V;
-      s_dlog[v * R + r] = r < rows ? dlogits[(tb + r) * V + v] : 0.f;
-    }
-    __syncthreads();
-
-    // Recompute the step's forward.
-    step_forward(b, s_c_new, tokens, drop, proj_txt, cmd_mask, proj_vis,
-                 wt, tb, b0, rows, Mt, Mv, H, E, V);
-
-    // d_ph = dlogits out_proj^T.
-    for (int u = tid; u < H; u += kThreads) {
-      float acc[R];
-      zero(acc);
-      accum(acc, s_dlog, tr.out_proj, H, u, V);
+  if (team.valid && team.lw == 0) {
+    float s[NM];
+    float mx = -INFINITY;
 #pragma unroll
-      for (int r = 0; r < R; ++r) s_dph[u * R + r] = acc[r];
+    for (int j = 0; j < NM; ++j) {
+      const int m = 32 * j + lane;
+      s[j] = m < M ? sc[o * gscan::kMaxM + m] : -INFINITY;
+      mx = fmaxf(mx, s[j]);
     }
-    __syncthreads();
-
-    // d [emb; h_new; ctx_cmd; ctx_sit] = d_ph out_w^T.
-    for (int j = tid; j < E + 3 * H; j += kThreads) {
-      float acc[R];
-      zero(acc);
-      accum(acc, s_dph, tr.out_w, E + 3 * H, j, H);
+    mx = gscan::warp_max(mx);
+    float sum = 0.f;
 #pragma unroll
-      for (int r = 0; r < R; ++r) s_dpre[j * R + r] = acc[r];
+    for (int j = 0; j < NM; ++j) {
+      s[j] = 32 * j + lane < M ? expf(s[j] - mx) : 0.f;
+      sum += s[j];
     }
-    __syncthreads();
-
-    // The cell's backward; dc becomes the gradient of the pre-step c.
-    for (int u = tid; u < H; u += kThreads) {
+    sum = gscan::warp_sum(sum);
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float si = sigmoidf(b.gates[u * R + r]);
-        const float sf = sigmoidf(b.gates[(H + u) * R + r]);
-        const float tg = tanhf(b.gates[(2 * H + u) * R + r]);
-        const float so = sigmoidf(b.gates[(3 * H + u) * R + r]);
-        const float c = b.c[u * R + r];
-        const float tc = tanhf(s_c_new[u * R + r]);
-        const float dh_new = s_dh[u * R + r] + s_dpre[(E + u) * R + r];
-        const float dct = s_dc[u * R + r] + dh_new * so * (1.f - tc * tc);
-        s_dg[u * R + r] = dct * tg * si * (1.f - si);
-        s_dg[(H + u) * R + r] = dct * c * sf * (1.f - sf);
-        s_dg[(2 * H + u) * R + r] = dct * si * (1.f - tg * tg);
-        s_dg[(3 * H + u) * R + r] = dh_new * tc * so * (1.f - so);
-        s_dc[u * R + r] = dct * sf;
-      }
-    }
-    __syncthreads();
-
-    // d_lstm_in = d_gates w_ih (columns 0 .. E+2H), dh_lstm = d_gates w_hh.
-    for (int j = tid; j < E + 3 * H; j += kThreads) {
-      float acc[R];
-      zero(acc);
-      if (j < E + 2 * H)
-        accum(acc, s_dg, tr.w_ih, E + 2 * H, j, G);
-      else
-        accum(acc, s_dg, tr.w_hh, H, j - (E + 2 * H), G);
-#pragma unroll
-      for (int r = 0; r < R; ++r) s_dli[j * R + r] = acc[r];
-    }
-    __syncthreads();
-
-    // Visual attention backward, with the summed attention's cotangent on
-    // the valid steps.
-    for (int r = warp; r < rows; r += kWarps) {
-      const size_t row = b0 + r;
-      attend_row_backward(
-          b.pq_vis + r, s_dli + (E + H) * R + r, s_dpre + (E + 2 * H) * R + r,
-          nullptr, R, proj_vis + row * Mv * H, b.w_vis + r * Mv, wt.vis_ew,
-          g_asum + row * Mv, t < num_steps ? 1.f : 0.f, Mv, H,
-          d_proj_vis + row * Mv * H, s_dpqv + r,
-          stash + (tb + r) * lay.width + lay.g_vis_ew,
-          s_dw + r * gscan::kMaxM);
-    }
-    __syncthreads();
-
-    // d of the visual query's pre-activation.
-    for (int u = tid; u < H; u += kThreads) {
-      float acc[R];
-      zero(acc);
-      accum(acc, s_dpqv, tr.vis_qw, H, u, H);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float vq = b.vq[u * R + r];
-        s_djp[u * R + r] = acc[r] * (1.f - vq * vq);
-      }
-    }
-    __syncthreads();
-
-    // d [h; ctx_cmd] of the visual query.
-    for (int j = tid; j < 2 * H; j += kThreads) {
-      float acc[R];
-      zero(acc);
-      accum(acc, s_djp, tr.q2k_w, 2 * H, j, H);
-#pragma unroll
-      for (int r = 0; r < R; ++r) s_djoint[j * R + r] = acc[r];
-    }
-    __syncthreads();
-
-    // Textual attention backward.
-    for (int r = warp; r < rows; r += kWarps) {
-      const size_t row = b0 + r;
-      attend_row_backward(
-          b.pq_txt + r, s_dli + E * R + r, s_dpre + (E + H) * R + r,
-          s_djoint + H * R + r, R, proj_txt + row * Mt * H, b.w_txt + r * Mt,
-          wt.txt_ew, nullptr, 0.f, Mt, H, d_proj_txt + row * Mt * H,
-          s_dpqt + r, stash + (tb + r) * lay.width + lay.g_txt_ew,
-          s_dw + r * gscan::kMaxM);
-    }
-    __syncthreads();
-
-    // dh of the pre-step state: dh_lstm + dh_joint + dh_txt.
-    for (int u = tid; u < H; u += kThreads) {
-      float acc[R];
-      zero(acc);
-      accum(acc, s_dpqt, tr.txt_qw, H, u, H);
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        s_dh[u * R + r] = s_dli[(E + 2 * H + u) * R + r] +
-                          s_djoint[u * R + r] + acc[r];
-    }
-    // The row-step's operands for the weight gradients.
-    auto put = [&](const float* buf, int width, int offset) {
-      for (int i = tid; i < R * width; i += kThreads) {
-        const int r = i / width, f = i % width;
-        if (r < rows) stash[(tb + r) * lay.width + offset + f] = buf[f * R + r];
-      }
-    };
-    for (int i = tid; i < R * V; i += kThreads) {
-      const int r = i / V, v = i % V;
-      if (r < rows)
-        stash[(tb + r) * lay.width + lay.onehot + v] =
-            tokens[tb + r] == v ? 1.f : 0.f;
-    }
-    put(b.emb, E, lay.emb);
-    put(b.h_new, H, lay.h_new);
-    put(b.ctx_cmd, 2 * H, lay.ctx_cmd);  // ctx_cmd, ctx_sit
-    put(b.ph, H, lay.ph);
-    put(b.vq, H, lay.vq);
-    put(s_dph, H, lay.d_ph);
-    put(s_dg, G, lay.d_gates);
-    put(s_dpqv, H, lay.d_pq_vis);
-    put(s_djp, H, lay.d_joint);
-    put(s_dpqt, H, lay.d_pq_txt);
-    for (int i = tid; i < R * E; i += kThreads) {
-      const int r = i / E, e = i % E;
-      if (r < rows)
-        stash[(tb + r) * lay.width + lay.d_emb + e] =
-            (s_dli[e * R + r] + s_dpre[e * R + r]) * drop[(tb + r) * E + e];
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < R * H; i += kThreads) {
-    const int r = i / H, u = i % H;
-    if (r < rows) {
-      dh0[(size_t)(b0 + r) * H + u] = s_dh[u * R + r];
-      dc0[(size_t)(b0 + r) * H + u] = s_dc[u * R + r];
+    for (int j = 0; j < NM; ++j) {
+      const int m = 32 * j + lane;
+      if (m < M) wts[o * M + m] = s[j] / sum;
     }
   }
+  __syncthreads();
+  // Context: warp lw < ceil(H / 32) takes features 32 lw + lane, all keys.
+  if (team.valid && team.lw * 32 < H) {
+    const int h = team.lw * 32 + lane;
+    const float* wrow = wts + o * M;
+    float acc = 0.f;
+    if (h < H) {
+      int m = 0;
+      for (; m + kKeyBatch <= M; m += kKeyBatch) {
+        float kv[kKeyBatch];
+#pragma unroll
+        for (int j = 0; j < kKeyBatch; ++j) kv[j] = K[(size_t)(m + j) * H + h];
+#pragma unroll
+        for (int j = 0; j < kKeyBatch; ++j) acc = fmaf(wrow[m + j], kv[j], acc);
+      }
+      for (; m < M; ++m) acc = fmaf(wrow[m], K[(size_t)m * H + h], acc);
+    }
+    ctx_out(h, o, acc);
+  }
+  __syncthreads();
 }
+
+// Backward (the TPU backward kernel's attention part, and _attention_bwd):
+// given the context's cotangent dctx [H][kOwn], the weights wts [kOwn][M],
+// pq [H][kOwn] and an optional cotangent of the weights g [B][M] * g_scale,
+//   dw[m]  = sum_h dctx[h] K[m, h] + g[m] g_scale
+//   ds[m]  = w[m] (dw[m] - sum_m' w[m'] dw[m'])
+//   hid    = tanh(pq[h] + K[m, h])
+//   dK[m, h] += w[m] dctx[h] + ds[m] ew[h] (1 - hid^2)   (dkeys, [B][M][H])
+//   dpq[h] = sum_m ds[m] ew[h] (1 - hid^2),  gew[h] = sum_m hid ds[m]
+// dpq_out(h, o, value) stores dpq; gew has a row stride of gew_stride.
+// As in the TPU kernel, no mask: a masked key has weight exactly 0. dw
+// [kOwn][kMaxM] is scratch.
+template <int kOwn, typename Out>
+__device__ void attend_cta_backward(
+    const float* pq, const float* dctx, const float* __restrict__ keys,
+    const float* wts, const float* __restrict__ ew,
+    const float* __restrict__ g, float g_scale, int M, int H, int b_first,
+    int b_stride, int B, float* __restrict__ dkeys, float* __restrict__ gew,
+    size_t gew_stride, float* dw, Out dpq_out) {
+  constexpr int NH = gscan::kMaxH / 32;
+  constexpr int NM = gscan::kMaxM / 32;
+  const RowTeam<kOwn> team(b_first, b_stride, B);
+  const int o = team.o, lane = team.lane;
+  const float* K = keys + (size_t)team.b * M * H;
+  float* dK = dkeys + (size_t)team.b * M * H;
+  if (team.valid) {
+    float dc[NH];
+#pragma unroll
+    for (int i = 0; i < NH; ++i) {
+      const int h = lane + 32 * i;
+      dc[i] = h < H ? dctx[h * kOwn + o] : 0.f;
+    }
+    constexpr int kStride = RowTeam<kOwn>::kWarpsPerRow;
+    constexpr int kG = gscan::kGroup;
+    for (int m0 = team.lw; m0 < M; m0 += kG * kStride) {
+      float p[kG];
+#pragma unroll
+      for (int gi = 0; gi < kG; ++gi) {
+        const int m = m0 + gi * kStride;
+        p[gi] = 0.f;
+#pragma unroll
+        for (int i = 0; i < NH; ++i) {
+          const int h = lane + 32 * i;
+          if (m < M && h < H) p[gi] = fmaf(dc[i], K[(size_t)m * H + h], p[gi]);
+        }
+      }
+#pragma unroll
+      for (int offset = 16; offset > 0; offset >>= 1)
+#pragma unroll
+        for (int gi = 0; gi < kG; ++gi)
+          p[gi] += __shfl_xor_sync(0xffffffffu, p[gi], offset);
+#pragma unroll
+      for (int gi = 0; gi < kG; ++gi) {
+        const int m = m0 + gi * kStride;
+        if (lane == 0 && m < M)
+          dw[o * gscan::kMaxM + m] =
+              g != nullptr ? p[gi] + g[(size_t)team.b * M + m] * g_scale
+                           : p[gi];
+      }
+    }
+  }
+  __syncthreads();
+  if (team.valid) {
+    float part = 0.f;
+#pragma unroll
+    for (int j = 0; j < NM; ++j) {
+      const int m = 32 * j + lane;
+      if (m < M) part += wts[o * M + m] * dw[o * gscan::kMaxM + m];
+    }
+    const float inner = gscan::warp_sum(part);
+    // Warp lw < ceil(H / 32) takes features 32 lw + lane, all keys.
+    if (team.lw * 32 < H) {
+      const float* dwrow = dw + o * gscan::kMaxM;
+      const int h = team.lw * 32 + lane;
+      float dq = 0.f, ge = 0.f;
+      if (h < H) {
+        const float q = pq[h * kOwn + o], e = ew[h], d = dctx[h * kOwn + o];
+        const float* wrow = wts + o * M;
+        auto key = [&](int m, float kv, float dk) {
+          const float wm = wrow[m];
+          const float dsm = wm * (dwrow[m] - inner);
+          const float hid = tanhf(q + kv);
+          ge = fmaf(hid, dsm, ge);
+          const float dpre = dsm * e * (1.f - hid * hid);
+          dq += dpre;
+          dK[(size_t)m * H + h] = dk + (wm * d + dpre);
+        };
+        int m = 0;
+        for (; m + kKeyBatch <= M; m += kKeyBatch) {
+          float kv[kKeyBatch], dk[kKeyBatch];
+#pragma unroll
+          for (int j = 0; j < kKeyBatch; ++j) {
+            kv[j] = K[(size_t)(m + j) * H + h];
+            dk[j] = dK[(size_t)(m + j) * H + h];
+          }
+#pragma unroll
+          for (int j = 0; j < kKeyBatch; ++j) key(m + j, kv[j], dk[j]);
+        }
+        for (; m < M; ++m)
+          key(m, K[(size_t)m * H + h], dK[(size_t)m * H + h]);
+        gew[(size_t)team.b * gew_stride + h] = ge;
+      }
+      dpq_out(h, o, dq);
+    }
+  }
+  __syncthreads();
+}
+
+struct BackwardArgs {
+  const int* tokens;
+  const float *drop, *proj_txt, *cmd_mask, *proj_vis, *h_res, *c_res,
+      *dlogits, *g_asum;
+  Weights wt;
+  float *d_proj_txt, *d_proj_vis, *dh0, *dc0, *stash;
+  int B, T, num_steps, Mt, Mv, H, E, V;
+};
+
+template <int S, int RC>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    backward_cluster_kernel(const BackwardArgs a) {
+  static_assert(RC % 4 == 0 && RC % S == 0, "rows per cluster");
+  constexpr int G = RC / 4;
+  constexpr int kOwn = RC / S;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int H = a.H, E = a.E, V = a.V, Mt = a.Mt, Mv = a.Mv, B = a.B;
+  const ClusterLayout<S, RC> L(H, E, V, Mt, Mv);
+  const int C = L.C, CE = L.CE, WR = L.WR;
+  const unsigned rank = cluster_rank();
+  const int u0 = rank * C, nu = max(0, min(C, H - u0));
+  const int e0 = rank * CE, ne = max(0, min(CE, E - e0));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b0 = (blockIdx.x / S) * RC;
+  const Stash lay(V, E, H);
+  const int G4 = 4 * C;
+
+  float *w_txt = sm + L.w_txt, *w_q2k = sm + L.w_q2k, *w_vis = sm + L.w_vis;
+  float *w_ih = sm + L.w_ih, *w_out = sm + L.w_out, *w_proj = sm + L.w_proj;
+  float *b_q2k = sm + L.b_q2k, *b_gate = sm + L.b_gate;
+  float *f_h = sm + L.f_h, *f_in = sm + L.f_in, *f_vh = sm + L.f_vh;
+  float *s_c = sm + L.s_c, *s_cn = sm + L.s_cn, *s_g = sm + L.s_g;
+  float *s_vq = sm + L.s_vq, *s_hn = sm + L.s_hn, *s_ph = sm + L.s_ph;
+  float *s_dph = sm + L.s_dph, *s_dg = sm + L.s_dg, *s_dpqv = sm + L.s_dpqv;
+  float *s_djp = sm + L.s_djp, *s_djt = sm + L.s_djt, *s_dpqt = sm + L.s_dpqt;
+  float *s_dh = sm + L.s_dh, *s_dc = sm + L.s_dc, *s_dpre = sm + L.s_dpre;
+  float *s_dli = sm + L.s_dli, *s_dlog = sm + L.s_dlog;
+  float *o_pqt = sm + L.o_pqt, *o_pqv = sm + L.o_pqv;
+  float *o_dcs = sm + L.o_dcs, *o_dcc = sm + L.o_dcc;
+  float *o_wt = sm + L.o_wt, *o_wv = sm + L.o_wv, *o_dw = sm + L.o_dw;
+  float *recv = sm + L.recv, *scratch = sm + L.scratch;
+
+  for (size_t i = tid; i < L.total; i += kClusterThreads) sm[i] = 0.f;
+  __syncthreads();
+  // This CTA's weight slices: column j < C of a slice is the global column
+  // u0 + j (gate g: g * H + u0 + j); columns past H stay 0.
+  const Weights& wt = a.wt;
+  for (int i = tid; i < H * C; i += kClusterThreads) {
+    const int k = i / C, j = i % C;
+    if (j < nu) {
+      w_txt[i] = wt.txt_qw[(size_t)k * H + u0 + j];
+      w_vis[i] = wt.vis_qw[(size_t)k * H + u0 + j];
+    }
+  }
+  for (int i = tid; i < 2 * H * C; i += kClusterThreads) {
+    const int k = i / C, j = i % C;
+    if (j < nu) w_q2k[i] = wt.q2k_w[(size_t)k * H + u0 + j];
+  }
+  for (int i = tid; i < (E + 3 * H) * G4; i += kClusterThreads) {
+    const int k = i / G4, gj = i % G4, g = gj / C, j = gj % C;
+    if (j < nu) {
+      const int col = g * H + u0 + j;
+      w_ih[i] = k < E + 2 * H ? wt.w_ih[(size_t)k * 4 * H + col]
+                              : wt.w_hh[(size_t)(k - E - 2 * H) * 4 * H + col];
+    }
+  }
+  for (int i = tid; i < (E + 3 * H) * C; i += kClusterThreads) {
+    const int k = i / C, j = i % C;
+    if (j < nu) w_out[i] = wt.out_w[(size_t)k * H + u0 + j];
+  }
+  for (int i = tid; i < C * V; i += kClusterThreads) {
+    const int j = i / V;
+    if (j < nu) w_proj[i] = wt.out_proj[(size_t)(u0 + j) * V + i % V];
+  }
+  for (int gj = tid; gj < G4; gj += kClusterThreads) {
+    const int g = gj / C, j = gj % C;
+    if (j < nu) {
+      b_gate[gj] = wt.bias[g * H + u0 + j];
+      if (g == 0) b_q2k[j] = wt.q2k_b[u0 + j];
+    }
+  }
+  // Every CTA of the cluster has started (its shared memory exists) before
+  // any CTA writes into another's.
+  cluster_sync();
+
+  auto valid = [&](int r) { return b0 + r < B; };
+  // Push a value of row r to the CTA that runs row r's attentions.
+  auto to_owner = [&](float* buf, int h, int r, float v) {
+    remote(buf, r % S)[h * kOwn + r / S] = v;
+  };
+  auto to_owner4 = [&](float* buf, int h, int g, float4 v) {
+    to_owner(buf, h, 4 * g, v.x);
+    to_owner(buf, h, 4 * g + 1, v.y);
+    to_owner(buf, h, 4 * g + 2, v.z);
+    to_owner(buf, h, 4 * g + 3, v.w);
+  };
+  auto broadcast4 = [&](float* buf, int f, int g, float4 v) {
+    for (int d = 0; d < S; ++d)
+      *reinterpret_cast<float4*>(remote(buf, d) + f * RC + 4 * g) = v;
+  };
+  auto at4 = [&](float* buf, int f, int g) -> float4& {
+    return *reinterpret_cast<float4*>(buf + f * RC + 4 * g);
+  };
+  // Reduce-scatter: the partial sum of output j in the layout [E | H | H | H]
+  // (E features sliced by CE, each H block by C) goes to slot `rank` of the
+  // receive buffer of the CTA that owns j.
+  auto push_e3h = [&](int j, int g, float4 v) {
+    int owner, local;
+    if (j < E) {
+      owner = j / CE;
+      local = j % CE;
+    } else {
+      const int seg = (j - E) / H, u = (j - E) % H;
+      owner = u / C;
+      local = CE + seg * C + u % C;
+    }
+    *reinterpret_cast<float4*>(remote(recv, owner) +
+                               ((size_t)rank * WR + local) * RC + 4 * g) = v;
+  };
+  // The same for outputs in blocks of H, the block's slice at `first` + seg*C.
+  auto push_h = [&](int j, int g, float4 v, int first) {
+    const int seg = j / H, u = j % H;
+    *reinterpret_cast<float4*>(
+        remote(recv, u / C) +
+        ((size_t)rank * WR + first + seg * C + u % C) * RC + 4 * g) = v;
+  };
+  // Sum slots 0 .. S-1 of receive columns [first, first + n), in rank order.
+  auto reduce = [&](int first, int n, auto store) {
+    for (int t = tid; t < n * G; t += kClusterThreads) {
+      const int l = t / G, g = t % G;
+      float4 sum = at4(recv, first + l, g);
+      for (int s = 1; s < S; ++s) add4(sum, at4(recv, s * WR + first + l, g));
+      store(l, g, sum);
+    }
+  };
+  const Seg none{nullptr, 0};
+
+  // The step inputs, copied asynchronously into their buffers as soon as
+  // the step before has read them for the last time: h in full, c in this
+  // CTA's slice, the logits' cotangent.
+  auto fetch_h = [&](int t) {
+    const size_t tb = (size_t)t * B + b0;
+    for (int i = tid; i < H * RC; i += kClusterThreads) {
+      const int r = i / H, k = i % H;
+      cp_async4(f_h + k * RC + r,
+                a.h_res + (tb + (valid(r) ? r : 0)) * H + k, valid(r));
+    }
+    cp_async_commit();
+  };
+  auto fetch_c = [&](int t) {
+    const size_t tb = (size_t)t * B + b0;
+    for (int i = tid; i < RC * C; i += kClusterThreads) {
+      const int r = i / C, j = i % C;
+      const bool in = valid(r) && j < nu;
+      cp_async4(s_c + j * RC + r,
+                a.c_res + (tb + (in ? r : 0)) * H + (in ? u0 + j : 0), in);
+    }
+    cp_async_commit();
+  };
+  auto fetch_dlog = [&](int t) {
+    const size_t tb = (size_t)t * B + b0;
+    for (int i = tid; i < RC * V; i += kClusterThreads) {
+      const int r = i / V, v = i % V;
+      cp_async4(s_dlog + v * RC + r,
+                a.dlogits + (tb + (valid(r) ? r : 0)) * V + v, valid(r));
+    }
+    cp_async_commit();
+  };
+  fetch_h(a.T - 1);
+  fetch_c(a.T - 1);
+  fetch_dlog(a.T - 1);
+
+  for (int t = a.T - 1; t >= 0; --t) {
+    const size_t tb = (size_t)t * B + b0;
+    cp_async_wait<0>();
+    for (int i = tid; i < E * RC; i += kClusterThreads) {
+      const int e = i / RC, r = i % RC;
+      float v = 0.f;
+      if (valid(r)) {
+        const int tok = a.tokens[tb + r];
+        if (tok >= 0 && tok < V)
+          v = __ldg(wt.emb + (size_t)tok * E + e) * a.drop[(tb + r) * E + e];
+      }
+      f_in[i] = v;
+    }
+    __syncthreads();
+
+    // --- The step's forward, recomputed.
+    // Textual query slice, to the rows' attention CTAs.
+    cta_product<RC>(Seg{f_h, H}, none, none, w_txt, C, C, scratch,
+                    [&](int n, int g, float4 v) {
+                      if (n < nu) to_owner4(o_pqt, u0 + n, g, v);
+                    });
+    cluster_sync();
+    // Textual attention of the owned rows; the context to every CTA.
+    attend_cta<kOwn>(o_pqt, a.proj_txt, a.cmd_mask, wt.txt_ew, Mt, H,
+                     b0 + rank, S, B, o_wt, o_dw, [&](int h, int o, float v) {
+                       if (h < H)
+                         for (int d = 0; d < S; ++d)
+                           remote(f_in, d)[(E + h) * RC + o * S + rank] = v;
+                     });
+    cluster_sync();
+    // Visual query slice tanh([h; ctx_cmd] W + b), to every CTA.
+    cta_product<RC>(Seg{f_h, H}, Seg{f_in + E * RC, H}, none, w_q2k, C, C,
+                    scratch, [&](int n, int g, float4 v) {
+                      if (n >= nu) return;
+                      const float bias = b_q2k[n];
+                      v = make_float4(tanhf(v.x + bias), tanhf(v.y + bias),
+                                      tanhf(v.z + bias), tanhf(v.w + bias));
+                      at4(s_vq, n, g) = v;
+                      broadcast4(f_vh, u0 + n, g, v);
+                    });
+    cluster_sync();
+    cta_product<RC>(Seg{f_vh, H}, none, none, w_vis, C, C, scratch,
+                    [&](int n, int g, float4 v) {
+                      if (n < nu) to_owner4(o_pqv, u0 + n, g, v);
+                    });
+    cluster_sync();
+    attend_cta<kOwn>(o_pqv, a.proj_vis, nullptr, wt.vis_ew, Mv, H, b0 + rank,
+                     S, B, o_wv, o_dw, [&](int h, int o, float v) {
+                       if (h < H)
+                         for (int d = 0; d < S; ++d)
+                           remote(f_in, d)[(E + H + h) * RC + o * S + rank] =
+                               v;
+                     });
+    cluster_sync();
+    // Gate pre-activations of this CTA's units: [emb; ctx_cmd; ctx_sit] W_ih
+    // + h W_hh + b.
+    cta_product<RC>(Seg{f_in, E + 2 * H}, Seg{f_h, H}, none, w_ih, G4, G4,
+                    scratch, [&](int n, int g, float4 v) {
+                      const float bias = b_gate[n];
+                      at4(s_g, n, g) = make_float4(v.x + bias, v.y + bias,
+                                                   v.z + bias, v.w + bias);
+                    });
+    if (t > 0) fetch_h(t - 1);  // h is not read again in this step
+    // The cell; the new h to every CTA (over the visual query, which no
+    // CTA reads after the last barrier).
+    for (int i = tid; i < nu * RC; i += kClusterThreads) {
+      const int j = i / RC, r = i % RC;
+      const float gi = s_g[j * RC + r], gf = s_g[(C + j) * RC + r];
+      const float gg = s_g[(2 * C + j) * RC + r];
+      const float go = s_g[(3 * C + j) * RC + r];
+      const float cn = sigmoidf(gf) * s_c[i] + sigmoidf(gi) * tanhf(gg);
+      const float hn = sigmoidf(go) * tanhf(cn);
+      s_cn[i] = cn;
+      s_hn[i] = hn;
+      for (int d = 0; d < S; ++d) remote(f_vh, d)[(u0 + j) * RC + r] = hn;
+    }
+    cluster_sync();
+    // The head's hidden layer [emb; h_new; ctx_cmd; ctx_sit] W_out.
+    cta_product<RC>(Seg{f_in, E}, Seg{f_vh, H}, Seg{f_in + E * RC, 2 * H},
+                    w_out, C, C, scratch,
+                    [&](int n, int g, float4 v) { at4(s_ph, n, g) = v; });
+
+    // --- The step's backward.
+    // d_ph = dlogits out_proj^T, this CTA's units.
+    for (int t2 = tid; t2 < C * G; t2 += kClusterThreads) {
+      const int j = t2 / G, g = t2 % G;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int v = 0; v < V; ++v)
+        fma4v(acc, at4(s_dlog, v, g), w_proj[j * V + v]);
+      at4(s_dph, j, g) = acc;
+    }
+    __syncthreads();
+    if (t > 0) fetch_dlog(t - 1);
+    // d [emb; h_new; ctx_cmd; ctx_sit] = d_ph out_w^T.
+    cta_partial<RC>(s_dph, C, w_out, C, E + 3 * H, push_e3h);
+    cluster_sync();
+    reduce(0, WR, [&](int l, int g, float4 v) { at4(s_dpre, l, g) = v; });
+    cluster_arrive();  // this CTA is done reading its receive buffer
+    __syncthreads();
+    // The cell's backward; dc becomes the gradient of the pre-step c.
+    for (int i = tid; i < nu * RC; i += kClusterThreads) {
+      const int j = i / RC, r = i % RC;
+      const float si = sigmoidf(s_g[j * RC + r]);
+      const float sf = sigmoidf(s_g[(C + j) * RC + r]);
+      const float tg = tanhf(s_g[(2 * C + j) * RC + r]);
+      const float so = sigmoidf(s_g[(3 * C + j) * RC + r]);
+      const float c = s_c[i];
+      const float tc = tanhf(s_cn[i]);
+      const float dh_new = s_dh[i] + s_dpre[(CE + j) * RC + r];
+      const float dct = s_dc[i] + dh_new * so * (1.f - tc * tc);
+      s_dg[j * RC + r] = dct * tg * si * (1.f - si);
+      s_dg[(C + j) * RC + r] = dct * c * sf * (1.f - sf);
+      s_dg[(2 * C + j) * RC + r] = dct * si * (1.f - tg * tg);
+      s_dg[(3 * C + j) * RC + r] = dh_new * tc * so * (1.f - so);
+      s_dc[i] = dct * sf;
+    }
+    __syncthreads();
+    if (t > 0) fetch_c(t - 1);
+    cluster_wait();
+    // d [emb; ctx_cmd; ctx_sit] = d_gates w_ih^T, dh_lstm = d_gates w_hh^T.
+    cta_partial<RC>(s_dg, G4, w_ih, G4, E + 3 * H, push_e3h);
+    cluster_sync();
+    reduce(0, WR, [&](int l, int g, float4 v) { at4(s_dli, l, g) = v; });
+    __syncthreads();
+    // The visual context's cotangent, to the rows' attention CTAs.
+    for (int i = tid; i < nu * RC; i += kClusterThreads) {
+      const int j = i / RC, r = i % RC;
+      to_owner(o_dcs, u0 + j, r,
+               s_dli[(CE + C + j) * RC + r] + s_dpre[(CE + 2 * C + j) * RC + r]);
+    }
+    cluster_sync();
+    // Visual attention backward, with the summed attention's cotangent on
+    // the valid steps; d_pq_vis back to the units' CTAs.
+    attend_cta_backward<kOwn>(
+        o_pqv, o_dcs, a.proj_vis, o_wv, wt.vis_ew, a.g_asum,
+        t < a.num_steps ? 1.f : 0.f, Mv, H, b0 + rank, S, B, a.d_proj_vis,
+        a.stash + (size_t)t * B * lay.width + lay.g_vis_ew, lay.width, o_dw,
+        [&](int h, int o, float v) {
+          if (h < H) remote(s_dpqv, h / C)[(h % C) * RC + o * S + rank] = v;
+        });
+    cluster_sync();
+    // d of the visual query = d_pq_vis vis_qw^T; times tanh' its
+    // pre-activation's.
+    cta_partial<RC>(s_dpqv, C, w_vis, C, H, [&](int j, int g, float4 v) {
+      push_h(j, g, v, 0);
+    });
+    cluster_sync();
+    reduce(0, C, [&](int l, int g, float4 v) {
+      const float4 q = at4(s_vq, l, g);
+      at4(s_djp, l, g) = make_float4(v.x * (1.f - q.x * q.x),
+                                     v.y * (1.f - q.y * q.y),
+                                     v.z * (1.f - q.z * q.z),
+                                     v.w * (1.f - q.w * q.w));
+    });
+    __syncthreads();
+    // d [h; ctx_cmd] of the visual query = d_joint q2k_w^T (receive columns
+    // C .. 3C, which the reduce above does not read).
+    cta_partial<RC>(s_djp, C, w_q2k, C, 2 * H, [&](int j, int g, float4 v) {
+      push_h(j, g, v, C);
+    });
+    cluster_sync();
+    reduce(C, 2 * C, [&](int l, int g, float4 v) { at4(s_djt, l, g) = v; });
+    __syncthreads();
+    for (int i = tid; i < nu * RC; i += kClusterThreads) {
+      const int j = i / RC, r = i % RC;
+      to_owner(o_dcc, u0 + j, r,
+               (s_dli[(CE + j) * RC + r] + s_dpre[(CE + C + j) * RC + r]) +
+                   s_djt[(C + j) * RC + r]);
+    }
+    cluster_sync();
+    // Textual attention backward; d_pq_txt back to the units' CTAs.
+    attend_cta_backward<kOwn>(
+        o_pqt, o_dcc, a.proj_txt, o_wt, wt.txt_ew, nullptr, 0.f, Mt, H,
+        b0 + rank, S, B, a.d_proj_txt,
+        a.stash + (size_t)t * B * lay.width + lay.g_txt_ew, lay.width, o_dw,
+        [&](int h, int o, float v) {
+          if (h < H) remote(s_dpqt, h / C)[(h % C) * RC + o * S + rank] = v;
+        });
+    cluster_sync();
+    // dh of the pre-step state: dh_lstm + dh_joint + d_pq_txt txt_qw^T.
+    cta_partial<RC>(s_dpqt, C, w_txt, C, H, [&](int j, int g, float4 v) {
+      push_h(j, g, v, 0);
+    });
+    cluster_sync();
+    reduce(0, C, [&](int l, int g, float4 v) {
+      const float4 lstm = at4(s_dli, CE + 2 * C + l, g);
+      const float4 joint = at4(s_djt, l, g);
+      at4(s_dh, l, g) = make_float4((lstm.x + joint.x) + v.x,
+                                    (lstm.y + joint.y) + v.y,
+                                    (lstm.z + joint.z) + v.z,
+                                    (lstm.w + joint.w) + v.w);
+    });
+    // The row-step's operands for the weight gradients, this CTA's slices.
+    for (int i = tid; i < RC * lay.emb; i += kClusterThreads) {
+      const int r = i / lay.emb, v = i % lay.emb;  // one-hot, then zeros
+      if (rank == 0 && valid(r))
+        a.stash[(tb + r) * lay.width + lay.onehot + v] =
+            a.tokens[tb + r] == v ? 1.f : 0.f;
+    }
+    for (int i = tid; i < RC * ne; i += kClusterThreads) {
+      const int r = i / ne, l = i % ne, e = e0 + l;
+      if (!valid(r)) continue;
+      float* row = a.stash + (tb + r) * lay.width;
+      row[lay.emb + e] = f_in[e * RC + r];
+      row[lay.d_emb + e] =
+          (s_dli[l * RC + r] + s_dpre[l * RC + r]) * a.drop[(tb + r) * E + e];
+    }
+    for (int i = tid; i < RC * nu; i += kClusterThreads) {
+      const int r = i / nu, j = i % nu, u = u0 + j;
+      if (!valid(r)) continue;
+      float* row = a.stash + (tb + r) * lay.width;
+      row[lay.h_new + u] = s_hn[j * RC + r];
+      row[lay.ctx_cmd + u] = f_in[(E + u) * RC + r];
+      row[lay.ctx_sit + u] = f_in[(E + H + u) * RC + r];
+      row[lay.ph + u] = s_ph[j * RC + r];
+      row[lay.vq + u] = s_vq[j * RC + r];
+      row[lay.d_ph + u] = s_dph[j * RC + r];
+      for (int g = 0; g < 4; ++g)
+        row[lay.d_gates + g * H + u] = s_dg[(g * C + j) * RC + r];
+      row[lay.d_pq_vis + u] = s_dpqv[j * RC + r];
+      row[lay.d_joint + u] = s_djp[j * RC + r];
+      row[lay.d_pq_txt + u] = s_dpqt[j * RC + r];
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < RC * nu; i += kClusterThreads) {
+    const int r = i / nu, j = i % nu;
+    if (valid(r)) {
+      a.dh0[(size_t)(b0 + r) * H + u0 + j] = s_dh[j * RC + r];
+      a.dc0[(size_t)(b0 + r) * H + u0 + j] = s_dc[j * RC + r];
+    }
+  }
+  // No CTA leaves while another may still write into its shared memory.
+  cluster_sync();
+}
+
+
+// The cluster kernel's sizes: 8 CTAs per cluster (the largest portable
+// cluster; the weight slices need 8 to fit), 16 rows per cluster (at B=200,
+// 13 clusters in one wave; 8 rows took 1.4x as long in two waves, PERF.md).
+constexpr int kClusterSize = 8;
+constexpr int kClusterRows = 16;
 
 size_t backward_smem_floats(int H, int E, int V, int Mt, int Mv) {
-  return StepBuffers::floats(H, E, Mt, Mv) +
-         (size_t)R * (H + V + H + (E + 3 * H) + 4 * H + (E + 3 * H) + H +
-                      H + 2 * H + H + H + H + gscan::kMaxM);
+  return ClusterLayout<kClusterSize, kClusterRows>(H, E, V, Mt, Mv).total;
 }
 
-// The helper kernel: weight gradients out = X^T dY, summed over N row-steps.
+// ---------------------------------------------------------------------------
+// The helper kernel: the weight gradients out = X^T dY, summed over N
+// row-steps of the stash, for 14 products (~241k outputs at H = E = 100).
+//
+// Bound on the H100: operations (2 flops per output per row-step) over
+// ~70 MB of stash read once. Design: a CTA owns a 64 x 64 tile of one
+// product's output AND one chunk of the N row-steps, so the grid holds
+// tiles x chunks CTAs (the chunk count is the one whose waves of resident
+// CTAs take least time). The X and dY rows of the chunk go through shared
+// memory 32 rows at a time in 3 stages of cp.async (16 bytes at a time
+// where the rows are aligned), so later rows load while the current ones
+// are summed; each thread keeps a 4 x 4 block of outputs in registers (one
+// float4 of X and one of dY per 16 fmas). Each 32-row block is summed on
+// its own and added to the chunk's sum with Kahan compensation. A second
+// kernel adds the chunks' sums in chunk order, again compensated. A sum
+// over row-steps alone (a bias) is a last column of ones of another
+// product's X. The order of every sum is fixed by the shapes and the card:
+// no atomics.
+// ---------------------------------------------------------------------------
 constexpr int kMaxProblems = 16;
-constexpr int kTile = 32;
+constexpr int kTileI = 64, kTileJ = 64, kRowsPerStage = 32, kStages = 3;
 constexpr int kGradThreads = 256;
+constexpr int kSplits = 12;  // at most this many chunks of row-steps
 
 struct GradProblem {
   const float* x;   // [N, ldx] from column 0; null: a column of ones
   const float* dy;  // [N, ldy] from column 0
   float* out;       // [rows, cols] row-major
-  int ldx, ldy, rows, cols, tile0, tiles_j;
+  int ldx, ldy, rows, cols;
+  // Non-null: X has a last column of ones (row rows - 1 of the output, the
+  // sum of dY over the row-steps), and that output row goes here.
+  float* out_ones;
+  int tile0, tiles_j;
+  size_t part0;     // offset of this product in each chunk's partial sums
+  bool vec_x, vec_y;  // rows 16-byte aligned: load 4 floats at a time
 };
 
 struct GradProblems {
   GradProblem p[kMaxProblems];
-  int count, N;
+  int count, N, chunk, splits, tiles;
+  size_t outputs;  // sum of rows * cols
 };
 
-// One CTA per 32 x 32 tile of one problem's output; each thread sums four
-// outputs over all N rows, 32 rows of X and dY at a time through shared
-// memory. The order of every sum is fixed by the shapes alone.
-__global__ void __launch_bounds__(kGradThreads) weight_grads_kernel(
-    GradProblems probs) {
-  __shared__ float xs[kTile][kTile + 1];
-  __shared__ float ds[kTile][kTile + 1];
+__device__ __forceinline__ void kahan_add(float& sum, float& comp, float v) {
+  const float y = v - comp;
+  const float t = sum + y;
+  comp = (t - sum) - y;
+  sum = t;
+}
+
+// Four columns c .. c+3 (of `limit` valid ones) of row n of a [N, ld]
+// operand into dst, zero past the limit or when the row is out of range.
+__device__ __forceinline__ void load4(float* dst, const float* base, int ld,
+                                      bool vec, int n, bool in_n, int c,
+                                      int limit) {
+  const float* row = base + (size_t)n * ld;
+  if (vec) {
+    const int valid = in_n ? max(0, min(4, limit - c)) : 0;
+    cp_async16(dst, row + (c < limit ? c : 0), 4 * valid);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      cp_async4(dst + q, row + min(c + q, limit - 1), in_n && c + q < limit);
+  }
+}
+
+// blockIdx.x = split * tiles + tile. Writes the chunk's sums to
+// partial[split * outputs + part0 + i * cols + j].
+// Compiled for 4 resident CTAs per SM (64 registers a thread): measured
+// 1.06x faster than for 1 or 2 (PERF.md).
+constexpr int kHelperMinBlocks = 4;
+__global__ void __launch_bounds__(kGradThreads, kHelperMinBlocks)
+    weight_grads_kernel(const GradProblems probs,
+                        float* __restrict__ partial) {
+  __shared__ __align__(16) float xs[kStages][kRowsPerStage][kTileI];
+  __shared__ __align__(16) float ds[kStages][kRowsPerStage][kTileJ];
+  const int tile = blockIdx.x % probs.tiles, split = blockIdx.x / probs.tiles;
   int k = 0;
-  while (k + 1 < probs.count && probs.p[k + 1].tile0 <= (int)blockIdx.x) ++k;
-  const GradProblem P = probs.p[k];
-  const int local = blockIdx.x - P.tile0;
-  const int i0 = (local / P.tiles_j) * kTile, j0 = (local % P.tiles_j) * kTile;
-  const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;
-  constexpr int kPer = kTile * kTile / kGradThreads;  // outputs per thread
-  float acc[kPer], comp[kPer];
+  while (k + 1 < probs.count && probs.p[k + 1].tile0 <= tile) ++k;
+  const GradProblem& P = probs.p[k];
+  const int local = tile - P.tile0;
+  const int i0 = (local / P.tiles_j) * kTileI, j0 = (local % P.tiles_j) * kTileJ;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int n_begin = split * probs.chunk;
+  const int n_end = min(probs.N, n_begin + probs.chunk);
+  const int stages = (n_end - n_begin + kRowsPerStage - 1) / kRowsPerStage;
+
+  // One stage: rows n_begin + s * 32 .. +32 of X (columns i0..i0+63) and dY
+  // (j0..j0+63); out-of-range elements are zero-filled.
+  auto load = [&](int s, int buf) {
+    const int n0 = n_begin + s * kRowsPerStage;
+    for (int e = threadIdx.x; e < kRowsPerStage * kTileI / 4;
+         e += kGradThreads) {
+      const int nn = e / (kTileI / 4), c = e % (kTileI / 4) * 4;
+      const int n = min(n0 + nn, probs.N - 1);
+      const bool in_n = n0 + nn < n_end;
+      const int ones = P.out_ones != nullptr ? P.rows - 1 - i0 : -1;
+      if (ones >= c && ones < c + 4) {
+        // The chunk that holds the column of ones: data, then ones, then 0.
 #pragma unroll
-  for (int q = 0; q < kPer; ++q) acc[q] = comp[q] = 0.f;
-  const int N = probs.N;
-  for (int n0 = 0; n0 < N; n0 += kTile) {
-    for (int e = threadIdx.x; e < kTile * kTile; e += kGradThreads) {
-      const int nn = e / kTile, c = e % kTile, n = n0 + nn;
-      float xv = 0.f, dv = 0.f;
-      if (n < N && i0 + c < P.rows)
-        xv = P.x != nullptr ? P.x[(size_t)n * P.ldx + i0 + c] : 1.f;
-      if (n < N && j0 + c < P.cols) dv = P.dy[(size_t)n * P.ldy + j0 + c];
-      xs[nn][c] = xv;
-      ds[nn][c] = dv;
+        for (int q = 0; q < 4; ++q) {
+          if (c + q < ones)
+            cp_async4(&xs[buf][nn][c + q],
+                      P.x + (size_t)n * P.ldx + i0 + c + q, in_n);
+          else
+            xs[buf][nn][c + q] = in_n && c + q == ones ? 1.f : 0.f;
+        }
+      } else if (P.x != nullptr) {
+        load4(&xs[buf][nn][c], P.x + i0, P.ldx, P.vec_x, n, in_n, c,
+              P.rows - i0 - (P.out_ones != nullptr));
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          xs[buf][nn][c + q] = in_n && i0 + c + q < P.rows ? 1.f : 0.f;
+      }
+      load4(&ds[buf][nn][c], P.dy + j0, P.ldy, P.vec_y, n, in_n, c,
+            P.cols - j0);
+    }
+    cp_async_commit();
+  };
+
+  float acc[4][4], comp[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = comp[a][b] = 0.f;
+  for (int s = 0; s < min(stages, kStages - 1); ++s) load(s, s);
+  for (int s = 0; s < stages; ++s) {
+    const int buf = s % kStages;
+    if (s + kStages - 1 < stages) {
+      load(s + kStages - 1, (s + kStages - 1) % kStages);
+      cp_async_wait<kStages - 1>();
+    } else if (s + 1 < stages) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    // Blocked summation: each tile of 32 rows is summed on its own and
-    // then added with a compensated (Kahan) sum, which keeps the float32
-    // error of the N-term sums near one rounding.
-    float part[kPer];
+    float part[4][4];
 #pragma unroll
-    for (int q = 0; q < kPer; ++q) part[q] = 0.f;
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) part[a][b] = 0.f;
 #pragma unroll 8
-    for (int nn = 0; nn < kTile; ++nn) {
-      const float dv = ds[nn][tx];
+    for (int nn = 0; nn < kRowsPerStage; ++nn) {
+      const float4 xv = *reinterpret_cast<const float4*>(&xs[buf][nn][ty * 4]);
+      const float4 dv = *reinterpret_cast<const float4*>(&ds[buf][nn][tx * 4]);
+      const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+      const float da[4] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
-      for (int q = 0; q < kPer; ++q)
-        part[q] = fmaf(xs[nn][ty + q * (kGradThreads / kTile)], dv, part[q]);
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) part[a][b] = fmaf(xa[a], da[b], part[a][b]);
     }
 #pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      const float y = part[q] - comp[q];
-      const float t = acc[q] + y;
-      comp[q] = (t - acc[q]) - y;
-      acc[q] = t;
-    }
-    __syncthreads();
-  }
+    for (int a = 0; a < 4; ++a)
 #pragma unroll
-  for (int q = 0; q < kPer; ++q) {
-    const int i = i0 + ty + q * (kGradThreads / kTile), j = j0 + tx;
-    if (i < P.rows && j < P.cols) P.out[(size_t)i * P.cols + j] = acc[q];
+      for (int b = 0; b < 4; ++b) kahan_add(acc[a][b], comp[a][b], part[a][b]);
+    __syncthreads();  // the buffer is free for the next load into it
   }
+  float* out = partial + (size_t)split * probs.outputs + P.part0;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int i = i0 + ty * 4 + a, j = j0 + tx * 4 + b;
+      if (i < P.rows && j < P.cols) out[(size_t)i * P.cols + j] = acc[a][b];
+    }
+}
+
+// Adds the chunks' sums of every output in chunk order, compensated.
+__global__ void __launch_bounds__(256) weight_grads_combine_kernel(
+    const GradProblems probs, const float* __restrict__ partial) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= probs.outputs) return;
+  int k = 0;
+  while (k + 1 < probs.count && probs.p[k + 1].part0 <= e) ++k;
+  float sum = 0.f, comp = 0.f;
+  for (int s = 0; s < probs.splits; ++s)
+    kahan_add(sum, comp, partial[(size_t)s * probs.outputs + e]);
+  const GradProblem& P = probs.p[k];
+  const size_t local = e - P.part0;
+  const size_t last = (size_t)(P.rows - 1) * P.cols;
+  if (P.out_ones != nullptr && local >= last)
+    P.out_ones[local - last] = sum;
+  else
+    P.out[local] = sum;
 }
 
 bool valid_shapes(int B, int T, int Mt, int Mv, int H, int E, int V) {
@@ -763,6 +1453,34 @@ cudaError_t launch(Kernel kernel, size_t smem_floats, int B, void* stream,
   if (err != cudaSuccess) return err;
   kernel<<<(B + R - 1) / R, kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(args...);
+  return cudaGetLastError();
+}
+
+// One cluster of kClusterSize CTAs per kClusterRows rows.
+cudaError_t launch_backward(const BackwardArgs& args, void* stream) {
+  auto kernel = backward_cluster_kernel<kClusterSize, kClusterRows>;
+  const size_t smem =
+      backward_smem_floats(args.H, args.E, args.V, args.Mt, args.Mv) *
+      sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim =
+      dim3(((args.B + kClusterRows - 1) / kClusterRows) * kClusterSize);
+  config.blockDim = dim3(kClusterThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeClusterDimension;
+  attribute[0].val.clusterDim.x = kClusterSize;
+  attribute[0].val.clusterDim.y = 1;
+  attribute[0].val.clusterDim.z = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, args);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -788,6 +1506,22 @@ extern "C" int gscan_teacher_forced_forward(
       h_res, c_res, asum, B, T, num_steps, Mt, Mv, H, E, V));
 }
 
+// Bytes of shared memory kernel 4 needs per CTA at these shapes.
+extern "C" long long gscan_teacher_forced_backward_smem_bytes(int H, int E,
+                                                               int V, int Mt,
+                                                               int Mv) {
+  return (long long)backward_smem_floats(H, E, V, Mt, Mv) * 4;
+}
+
+// Bytes of shared memory a CTA may opt in to on `device`, or -1.
+extern "C" long long gscan_max_shared_memory_per_block(int device) {
+  int bytes = 0;
+  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return -1;
+  return bytes;
+}
+
 extern "C" int gscan_teacher_forced_backward(
     const int* tokens, const float* drop, const float* proj_txt,
     const float* cmd_mask, const float* proj_vis, const float* h_res,
@@ -795,66 +1529,104 @@ extern "C" int gscan_teacher_forced_backward(
     const float* txt_qw, const float* txt_ew, const float* q2k_w,
     const float* q2k_b, const float* vis_qw, const float* vis_ew,
     const float* emb, const float* w_ih, const float* w_hh, const float* bias,
-    const float* out_w, const float* out_proj, const float* txt_qw_t,
-    const float* q2k_w_t, const float* vis_qw_t, const float* w_ih_t,
-    const float* w_hh_t, const float* out_w_t, const float* out_proj_t,
-    float* d_proj_txt, float* d_proj_vis, float* dh0, float* dc0,
-    float* stash, int B, int T, int num_steps, int Mt, int Mv, int H, int E,
-    int V, void* stream) {
+    const float* out_w, const float* out_proj, float* d_proj_txt,
+    float* d_proj_vis, float* dh0, float* dc0, float* stash, int B, int T,
+    int num_steps, int Mt, int Mv, int H, int E, int V, void* stream) {
   if (!valid_shapes(B, T, Mt, Mv, H, E, V))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Weights wt{txt_qw, txt_ew, q2k_w, q2k_b, vis_qw, vis_ew,
-                   emb,    w_ih,   w_hh,  bias,  out_w,  out_proj};
-  const Transposed tr{txt_qw_t, q2k_w_t, vis_qw_t, w_ih_t,
-                      w_hh_t,   out_w_t, out_proj_t};
-  return static_cast<int>(launch(
-      backward_kernel, backward_smem_floats(H, E, V, Mt, Mv), B, stream,
+  const BackwardArgs args{
       tokens, drop, proj_txt, cmd_mask, proj_vis, h_res, c_res, dlogits,
-      g_asum, wt, tr, d_proj_txt, d_proj_vis, dh0, dc0, stash, B, T,
-      num_steps, Mt, Mv, H, E, V));
+      g_asum,
+      Weights{txt_qw, txt_ew, q2k_w, q2k_b, vis_qw, vis_ew, emb, w_ih, w_hh,
+              bias, out_w, out_proj},
+      d_proj_txt, d_proj_vis, dh0, dc0, stash, B, T, num_steps, Mt, Mv, H, E,
+      V};
+  return static_cast<int>(launch_backward(args, stream));
 }
 
+// `partial` holds `partial_floats` floats: room for the chunks' sums of
+// the 14 products' outputs, for at most kSplits chunks.
 extern "C" int gscan_teacher_forced_weight_grads(
     const float* stash, const float* h_res, const float* dlogits,
     float* g_txt_qw, float* g_txt_ew, float* g_q2k_w, float* g_q2k_b,
     float* g_vis_qw, float* g_vis_ew, float* g_emb, float* g_w_ih,
-    float* g_w_hh, float* g_bias, float* g_out_w, float* g_out_proj, int N,
-    int H, int E, int V, void* stream) {
+    float* g_w_hh, float* g_bias, float* g_out_w, float* g_out_proj,
+    float* partial, int partial_floats, int N, int H, int E, int V,
+    void* stream) {
   if (N <= 0 || H <= 0 || E <= 0 || V <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Stash lay(V, E, H);
   const int W = lay.width, G = 4 * H;
   const float* s = stash;
-  // {x, dy, out, ldx, ldy, rows, cols}: out = X^T dY.
+  // {x, dy, out, ldx, ldy, rows, cols[, out_ones]}: out = X^T dY.
   const GradProblem list[] = {
       {h_res, s + lay.d_pq_txt, g_txt_qw, H, W, H, H},
       {nullptr, s + lay.g_txt_ew, g_txt_ew, 0, W, 1, H},
       {h_res, s + lay.d_joint, g_q2k_w, H, W, H, H},
-      {s + lay.ctx_cmd, s + lay.d_joint, g_q2k_w + (size_t)H * H, W, W, H, H},
-      {nullptr, s + lay.d_joint, g_q2k_b, 0, W, 1, H},
+      {s + lay.ctx_cmd, s + lay.d_joint, g_q2k_w + (size_t)H * H, W, W,
+       H + 1, H, g_q2k_b},
       {s + lay.vq, s + lay.d_pq_vis, g_vis_qw, W, W, H, H},
       {nullptr, s + lay.g_vis_ew, g_vis_ew, 0, W, 1, H},
       {s + lay.onehot, s + lay.d_emb, g_emb, W, W, V, E},
       {s + lay.emb, s + lay.d_gates, g_w_ih, W, W, E, G},
       {s + lay.ctx_cmd, s + lay.d_gates, g_w_ih + (size_t)E * G, W, W, 2 * H,
        G},
-      {h_res, s + lay.d_gates, g_w_hh, H, W, H, G},
-      {nullptr, s + lay.d_gates, g_bias, 0, W, 1, G},
+      {h_res, s + lay.d_gates, g_w_hh, H, W, H + 1, G, g_bias},
       {s + lay.emb, s + lay.d_ph, g_out_w, W, W, E + 3 * H, H},
       {s + lay.ph, dlogits, g_out_proj, W, V, H, V},
   };
   GradProblems probs{};
   probs.count = static_cast<int>(sizeof(list) / sizeof(list[0]));
   probs.N = N;
+  auto aligned = [](const float* ptr, int ld) {
+    return ptr != nullptr && ld % 4 == 0 &&
+           reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  };
   int tiles = 0;
+  size_t outputs = 0;
   for (int i = 0; i < probs.count; ++i) {
     GradProblem p = list[i];
     p.tile0 = tiles;
-    p.tiles_j = (p.cols + kTile - 1) / kTile;
-    tiles += ((p.rows + kTile - 1) / kTile) * p.tiles_j;
+    p.tiles_j = (p.cols + kTileJ - 1) / kTileJ;
+    p.part0 = outputs;
+    p.vec_x = aligned(p.x, p.ldx);
+    p.vec_y = aligned(p.dy, p.ldy);
+    tiles += ((p.rows + kTileI - 1) / kTileI) * p.tiles_j;
+    outputs += (size_t)p.rows * p.cols;
     probs.p[i] = p;
   }
-  weight_grads_kernel<<<tiles, kGradThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(probs);
+  probs.tiles = tiles;
+  probs.outputs = outputs;
+  // The number of chunks: the one whose waves of resident CTAs take the
+  // least time, waves / chunks (a function of the card and the shapes).
+  static int resident = 0;
+  if (resident == 0) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, weight_grads_kernel, kGradThreads, 0);
+    resident = max(1, sms * per_sm);
+  }
+  const int room = min(kSplits, static_cast<int>(partial_floats / outputs));
+  if (room < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int best = 1;
+  for (int s = 2; s <= min(room, (N + kRowsPerStage - 1) / kRowsPerStage);
+       ++s) {
+    const long long waves_s = (tiles * (long long)s + resident - 1) / resident;
+    const long long waves_b =
+        (tiles * (long long)best + resident - 1) / resident;
+    if (waves_s * best <= waves_b * s) best = s;
+  }
+  const int per = (N + best - 1) / best;
+  probs.chunk = (per + kRowsPerStage - 1) / kRowsPerStage * kRowsPerStage;
+  probs.splits = (N + probs.chunk - 1) / probs.chunk;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  weight_grads_kernel<<<tiles * probs.splits, kGradThreads, 0, st>>>(probs,
+                                                                    partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  weight_grads_combine_kernel<<<(unsigned)((outputs + 255) / 256), 256, 0,
+                                st>>>(probs, partial);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,7 +23,8 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
+from multimodal_seq2seq_gscan_tpu_torch.models.config import (
+    ModelConfig, decoder_impl)
 from multimodal_seq2seq_gscan_tpu_torch.models.model import (
     auxiliary_task_forward, decoder_step, encode_input,
     initialize_decoder_hidden, project_keys)
@@ -64,17 +65,14 @@ def make_greedy_decoder(config: ModelConfig, max_decoding_steps: int,
     input_lengths, situations, target_positions) -> GreedyDecodeOutput``.
 
     The inputs' device is the decode's device. ``"block"`` and
-    ``"block_plain"`` need the flagship decoder (one layer, conditional
-    attention).
+    ``"block_plain"`` take the flagship decoder (one layer, conditional
+    attention); for any other the decoder warns and runs ``"step"``
+    (``models.config.decoder_impl``).
     """
     if decode_impl not in DECODE_IMPLS:
         raise ValueError("decode_impl must be one of {}, got {!r}".format(
             DECODE_IMPLS, decode_impl))
-    if decode_impl != "step" and (config.num_decoder_layers != 1
-                                  or not config.conditional_attention):
-        raise ValueError("decode_impl={!r} takes one decoder layer with "
-                         "conditional attention; use 'step'".format(
-                             decode_impl))
+    decode_impl = decoder_impl(config, decode_impl, "decode_impl")
     num_steps = max_decoding_steps + 1  # the reference loops while iter <= max
     block = max(1, min(exit_check_every, num_steps))
     num_blocks = -(-num_steps // block)

@@ -9,9 +9,13 @@ over ``decoder_step``, whose attentions are kernel 1, JAX's ``"xla"``) and
 yardstick of the other two).
 """
 
+import logging
+from typing import NamedTuple
+
 TEACHER_FORCED_IMPLS = ("fused", "step", "plain")
 
-from typing import NamedTuple
+logger = logging.getLogger(__name__)
+_warned = set()
 
 
 class ModelConfig(NamedTuple):
@@ -52,3 +56,27 @@ class ModelConfig(NamedTuple):
     @property
     def cnn_output_dimension(self) -> int:
         return self.cnn_hidden_num_channels * 3
+
+
+def decoder_impl(config: ModelConfig, impl: str, flag: str) -> str:
+    """The one rule that picks how the decoder runs: ``impl`` for the
+    flagship decoder (one layer, conditional attention), whose weights the
+    kernels' packing (``pack_decoder_weights``) takes, and ``"step"`` (a
+    loop over ``decoder_step``) for any other, with a warning once per
+    flag, impl and configuration, as the JAX package falls back from its
+    Pallas kernels (``decode/greedy.py``, ``models/model.py``).
+    ``flag`` names the option: ``"decode_impl"`` or
+    ``"teacher_forced_impl"``."""
+    if impl == "step" or (config.num_decoder_layers == 1
+                          and config.conditional_attention):
+        return impl
+    key = (flag, impl, config.num_decoder_layers,
+           config.conditional_attention)
+    if key not in _warned:
+        _warned.add(key)
+        logger.warning(
+            "%s=%r takes the flagship decoder (one layer, conditional "
+            "attention); this configuration has num_decoder_layers=%d, "
+            "conditional_attention=%s: falling back to 'step'.", flag, impl,
+            config.num_decoder_layers, config.conditional_attention)
+    return "step"

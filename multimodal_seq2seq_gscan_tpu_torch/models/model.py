@@ -12,7 +12,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from multimodal_seq2seq_gscan_tpu_torch.models.config import (
-    TEACHER_FORCED_IMPLS, ModelConfig)
+    TEACHER_FORCED_IMPLS, ModelConfig, decoder_impl)
 from multimodal_seq2seq_gscan_tpu_torch.models.nn import (
     additive_attention, dropout, embed, lstm_cell, masked_lstm_scan,
     reverse_padded, sequence_mask, situation_cnn)
@@ -177,15 +177,19 @@ def decode_teacher_forced(params: ModelParams, config: ModelConfig,
     Returns log-probs [B, T, V] and the visual attention summed over *all*
     T steps, pad steps included (as the reference does) [B, M_v].
     ``config.teacher_forced_impl`` picks the unroll (see
-    ``models/config.py``); all three draw the same dropout mask.
+    ``models/config.py``; without conditional attention ``"fused"`` and
+    ``"plain"`` warn and take ``"step"``, ``decoder_impl``); all three draw
+    the same dropout mask.
     """
     impl = config.teacher_forced_impl
     if impl not in TEACHER_FORCED_IMPLS:
         raise ValueError("teacher_forced_impl must be one of {}, got "
                          "{!r}".format(TEACHER_FORCED_IMPLS, impl))
     if config.num_decoder_layers != 1:
-        raise NotImplementedError("the teacher-forced unroll takes one "
-                                  "decoder layer")
+        raise NotImplementedError(
+            "the teacher-forced unroll of a decoder with {} layers is not "
+            "ported yet (ROADMAP A13)".format(config.num_decoder_layers))
+    impl = decoder_impl(config, impl, "teacher_forced_impl")
     projected_textual, projected_visual = project_keys(params, encoded)
     h, c = initialize_decoder_hidden(params, config, encoded.hidden)
     batch, steps = target_ids.shape

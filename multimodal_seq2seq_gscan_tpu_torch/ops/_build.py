@@ -38,10 +38,11 @@ SIGNATURES = {
     # 7 inputs, 12 weights, 4 outputs, B, T, num_steps, Mt, Mv, H, E, V,
     # stream
     "gscan_teacher_forced_forward": [_P] * 23 + [_I] * 8 + [_P],
-    # 9 inputs, 12 weights, 7 transposed, 5 outputs, the same 8 ints, stream
-    "gscan_teacher_forced_backward": [_P] * 33 + [_I] * 8 + [_P],
-    # stash, h_res, dlogits, 12 outputs, N, H, E, V, stream
-    "gscan_teacher_forced_weight_grads": [_P] * 15 + [_I] * 4 + [_P],
+    # 9 inputs, 12 weights, 5 outputs, the same 8 ints, stream
+    "gscan_teacher_forced_backward": [_P] * 26 + [_I] * 8 + [_P],
+    # stash, h_res, dlogits, 12 outputs, scratch, its floats, N, H, E, V,
+    # stream
+    "gscan_teacher_forced_weight_grads": [_P] * 16 + [_I] * 5 + [_P],
 }
 
 _library: Optional[ctypes.CDLL] = None
@@ -107,6 +108,11 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.gscan_teacher_forced_backward_smem_bytes.argtypes = [_I] * 5
+        lib.gscan_teacher_forced_backward_smem_bytes.restype = \
+            ctypes.c_longlong
+        lib.gscan_max_shared_memory_per_block.argtypes = [_I]
+        lib.gscan_max_shared_memory_per_block.restype = ctypes.c_longlong
         lib.gscan_error_string.argtypes = [ctypes.c_int]
         lib.gscan_error_string.restype = ctypes.c_char_p
         _library = lib

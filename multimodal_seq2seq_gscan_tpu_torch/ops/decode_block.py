@@ -15,7 +15,8 @@ rows per read, and the CTA's other groups mostly hit L1). CTAs never
 communicate, so any grid size runs without deadlock.
 
 ``fused_decode_block`` is the wrapper: the plain version for CPU tensors, the
-kernel for CUDA tensors (or an error; it never falls back).
+kernel for CUDA tensors; for shapes the kernel does not take
+(``attention_limit``) it raises before any launch.
 """
 
 from typing import NamedTuple, Optional, Tuple
@@ -25,7 +26,7 @@ import torch
 from multimodal_seq2seq_gscan_tpu_torch.models.params import ModelParams
 from multimodal_seq2seq_gscan_tpu_torch.ops import _build
 from multimodal_seq2seq_gscan_tpu_torch.ops.additive_attention import (
-    MAX_HIDDEN, MAX_KEYS, additive_attention_plain, check_tensor)
+    additive_attention_plain, attention_limit, check_tensor, refuse_shapes)
 
 launches = 0  # kernel launches, counted by the wrapper
 
@@ -168,12 +169,12 @@ def fused_decode_block(proj_textual: torch.Tensor, cmd_mask: torch.Tensor,
     batch, m_t, hidden = proj_textual.shape
     m_v = proj_visual.shape[1]
     vocab = weights.embedding.shape[0]
-    if not (0 < m_t <= MAX_KEYS and 0 < m_v <= MAX_KEYS
-            and 0 < hidden <= MAX_HIDDEN and num_steps > 0):
-        raise ValueError("decode block kernel takes M <= {}, H <= {} and "
-                         "num_steps > 0, got M_t={} M_v={} H={} K={}".format(
-                             MAX_KEYS, MAX_HIDDEN, m_t, m_v, hidden,
-                             num_steps))
+    if num_steps <= 0:
+        raise ValueError("num_steps must be positive, got {}".format(
+            num_steps))
+    reason = attention_limit(m_t, hidden) or attention_limit(m_v, hidden)
+    if reason is not None:
+        refuse_shapes("fused_decode_block", reason)
     f32 = torch.float32
     for name, tensor, shape, dtype in (
             ("proj_textual", proj_textual, (batch, m_t, hidden), f32),

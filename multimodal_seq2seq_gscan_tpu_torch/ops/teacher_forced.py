@@ -10,37 +10,43 @@ wires together; here :class:`FusedTeacherForced` does. CUDA source:
   teacher's token in place of the argmax, a ``[T, B, E]`` dropout mask on
   the embedded token, the pre-step (h, c) stashed as residuals, logits for
   every step, and the visual attention summed over ``t < num_steps``.
-- Kernel 4 (``teacher_forced_backward``) gives each CTA a set of rows and
-  walks time in reverse, recomputing each step from (h_res, c_res) and
-  backpropagating through the head, the LSTM cell and both attentions. The
-  per-row gradients (``d_proj_textual``, ``d_proj_visual``, ``dh0``, ``dc0``)
-  stay with their CTA. The weight gradients are sums over rows and steps:
-  the kernel writes each row-step's operands (the ``X`` and ``dY`` of every
-  ``X^T dY``) to a stash in device memory, and a helper kernel
-  (``teacher_forced_weight_grads``) forms the twelve sums, each output by one
-  thread in a fixed order. No float atomics: the gradients are
-  bit-identical from run to run.
+- Kernel 4 (``teacher_forced_backward``) gives each thread-block cluster
+  (8 CTAs) a group of 16 rows and walks time in reverse, recomputing each
+  step from (h_res, c_res) and backpropagating through the head, the LSTM
+  cell and both attentions. Each CTA of a cluster keeps the column slices
+  of the decoder weights for its share of the hidden units in shared memory
+  for the whole walk; the CTAs exchange activations and partial sums
+  through distributed shared memory. The weight gradients are sums over
+  rows and steps: the kernel writes each row-step's operands (the ``X`` and
+  ``dY`` of every ``X^T dY``) to a stash in device memory, and a helper
+  kernel (``teacher_forced_weight_grads``) forms the fourteen products,
+  split over chunks of row-steps whose sums a second pass adds in chunk
+  order. No float atomics: the gradients are bit-identical from run to run.
 
 Bound on the H100: operations (a row-step is ~0.5 MFLOP of products with
 ~1 MB of decoder weights; the residuals are ~10 MB at B=200, T=56), but the
 T-step chain makes both recurrent kernels latency-bound in practice.
 
-On CPU tensors each wrapper runs its plain twin: ``teacher_forced_forward_
-plain``, ``teacher_forced_backward_plain`` (a PyTorch port of the TPU
-backward kernel's step math) and ``weight_grads_plain``. The independent
+Before any launch each wrapper decides from the shapes whether its kernel
+takes them (:func:`kernel_limit`); on CUDA tensors it does not take, it
+raises ``ValueError`` naming the limit. On CPU tensors each wrapper runs its
+plain twin: ``teacher_forced_forward_plain``,
+``teacher_forced_backward_plain`` (a PyTorch port of the TPU backward
+kernel's step math) and ``weight_grads_plain``. The independent
 yardstick of all of them is ``teacher_forced_plain``, a Python unroll of the
 step math differentiated by autograd (as ``spec_unroll`` is in the JAX
 tests).
 """
 
+import functools
 from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from multimodal_seq2seq_gscan_tpu_torch.ops import _build
 from multimodal_seq2seq_gscan_tpu_torch.ops.additive_attention import (
-    MAX_HIDDEN, MAX_KEYS, additive_attention_plain, attention_vjp_plain,
-    check_tensor)
+    additive_attention_plain, attention_limit, attention_vjp_plain,
+    check_tensor, refuse_shapes)
 from multimodal_seq2seq_gscan_tpu_torch.ops.decode_block import (
     DecoderWeights)
 
@@ -49,13 +55,17 @@ launches: Dict[str, int] = {"teacher_forced_forward": 0,
                             "teacher_forced_backward": 0,
                             "teacher_forced_weight_grads": 0}
 
+GRAD_SPLITS = 12  # chunks of row-steps the helper's scratch has room for
+
 
 class StashLayout(NamedTuple):
     """Column offsets of one row-step in kernel 4's stash ``[T, B, width]``
     (the same layout as ``csrc/teacher_forced.cu``). The ``X`` operands
-    come first, then the ``dY`` operands."""
+    come first, then the ``dY`` operands. The one-hot segment is padded
+    with zeros to a multiple of 4 columns, so that every later segment
+    starts 16-byte aligned when E and H are multiples of 4."""
 
-    onehot: int   # [V] one-hot teacher token
+    onehot: int   # [V] one-hot teacher token, zeros up to emb
     emb: int      # [E] embedded token, dropout applied
     h_new: int    # [H]
     ctx_cmd: int  # [H]
@@ -73,9 +83,13 @@ class StashLayout(NamedTuple):
     width: int
 
 
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
 def stash_layout(vocab: int, emb_dim: int, hidden: int) -> StashLayout:
-    widths = [vocab, emb_dim] + [hidden] * 6 + [4 * hidden] + [hidden] * 3 \
-        + [emb_dim, hidden, hidden]
+    widths = [_round4(vocab), emb_dim] + [hidden] * 6 + [4 * hidden] \
+        + [hidden] * 3 + [emb_dim, hidden, hidden]
     offsets = [0]
     for w in widths:
         offsets.append(offsets[-1] + w)
@@ -210,10 +224,11 @@ def teacher_forced_backward_plain(proj_txt, cmd_mask, proj_vis, tokens, drop,
         d_emb = (d_e1 + d_e2) * drop[t]
         dh = dh_lstm + d_joint[:, :hidden] + dh_txt
         dc = dct * sf
+        pad = x["onehot"].new_zeros((batch, _round4(vocab) - vocab))
         stash.append(torch.cat(
-            [x["onehot"], x["embedded"], h_new, x["ctx_cmd"], x["ctx_sit"],
-             x["ph"], x["vq"], d_ph, d_gates, d_pq_vis, d_joint_pre,
-             d_pq_txt, d_emb, g_vis_ew, g_txt_ew], dim=-1))
+            [x["onehot"], pad, x["embedded"], h_new, x["ctx_cmd"],
+             x["ctx_sit"], x["ph"], x["vq"], d_ph, d_gates, d_pq_vis,
+             d_joint_pre, d_pq_txt, d_emb, g_vis_ew, g_txt_ew], dim=-1))
     stash = torch.stack(stash[::-1])
     assert stash.shape[-1] == stash_layout(vocab, emb_dim, hidden).width
     return d_proj_txt, d_proj_vis, dh, dc, stash
@@ -223,7 +238,7 @@ def weight_grads_plain(stash, h_res, dlogits) -> DecoderWeights:
     """Plain version of the helper kernel: the twelve weight gradients
     ``sum over (t, b) of X^T dY`` from kernel 4's stash."""
     hidden, vocab = h_res.shape[-1], dlogits.shape[-1]
-    emb_dim = (stash.shape[-1] - vocab - 15 * hidden) // 2
+    emb_dim = (stash.shape[-1] - _round4(vocab) - 15 * hidden) // 2
     lay = stash_layout(vocab, emb_dim, hidden)
     x = stash.reshape(-1, lay.width)
     h = h_res.reshape(-1, hidden)
@@ -241,8 +256,8 @@ def weight_grads_plain(stash, h_res, dlogits) -> DecoderWeights:
         q2k_b=djp.sum(0)[None],
         vis_qw=cols(lay.vq, lay.d_ph).T @ cols(lay.d_pq_vis, lay.d_joint),
         vis_ew=cols(lay.g_vis_ew, lay.g_txt_ew).sum(0)[:, None],
-        embedding=cols(lay.onehot, lay.emb).T @ cols(lay.d_emb,
-                                                     lay.g_vis_ew),
+        embedding=cols(lay.onehot, lay.onehot + vocab).T
+        @ cols(lay.d_emb, lay.g_vis_ew),
         w_ih=torch.cat([cols(lay.emb, lay.h_new),
                         cols(lay.ctx_cmd, lay.ph)], dim=-1).T @ dg,
         w_hh=h.T @ dg,
@@ -263,6 +278,26 @@ def _weight_shapes(hidden, emb_dim, vocab) -> DecoderWeights:
         (1, 4 * hidden), (emb_dim + 3 * hidden, hidden), (hidden, vocab))
 
 
+@functools.lru_cache(maxsize=None)
+def kernel_limit(kernel, m_t, m_v, hidden, emb_dim, vocab, device_index=0):
+    """Why ``kernel`` ("teacher_forced_forward" or
+    "teacher_forced_backward") does not take these shapes on CUDA device
+    ``device_index``, or None. Kernel 4 keeps the decoder's weight slices in
+    shared memory: its need comes from the kernel's own layout and the
+    limit from the device."""
+    reason = attention_limit(m_t, hidden) or attention_limit(m_v, hidden)
+    if reason is None and kernel == "teacher_forced_backward":
+        lib = _build.library()
+        need = lib.gscan_teacher_forced_backward_smem_bytes(
+            hidden, emb_dim, vocab, m_t, m_v)
+        have = lib.gscan_max_shared_memory_per_block(device_index)
+        if need > have:
+            reason = ("H={} E={} V={} need {} bytes of shared memory per "
+                      "CTA, over the device's {}".format(
+                          hidden, emb_dim, vocab, need, have))
+    return reason
+
+
 def _check_inputs(name, device, proj_txt, cmd_mask, proj_vis, tokens, drop,
                   weights, extra=()):
     if device.type != "cuda":
@@ -271,12 +306,8 @@ def _check_inputs(name, device, proj_txt, cmd_mask, proj_vis, tokens, drop,
     batch, m_t, m_v, hidden, emb_dim, vocab = _sizes(proj_txt, proj_vis,
                                                      weights)
     steps = tokens.shape[0]
-    if not (0 < m_t <= MAX_KEYS and 0 < m_v <= MAX_KEYS
-            and 0 < hidden <= MAX_HIDDEN and steps > 0):
-        raise ValueError("{} takes 0 < M <= {}, 0 < H <= {} and T > 0, got "
-                         "M_t={} M_v={} H={} T={}".format(
-                             name, MAX_KEYS, MAX_HIDDEN, m_t, m_v, hidden,
-                             steps))
+    if steps <= 0:
+        raise ValueError("{} takes T > 0, got T={}".format(name, steps))
     f32 = torch.float32
     for arg, tensor, shape, dtype in (
             ("proj_txt", proj_txt, (batch, m_t, hidden), f32),
@@ -289,6 +320,18 @@ def _check_inputs(name, device, proj_txt, cmd_mask, proj_vis, tokens, drop,
                                   _weight_shapes(hidden, emb_dim, vocab)):
         check_tensor(arg, weight, shape, f32, device)
     return batch, m_t, m_v, hidden, emb_dim, vocab, steps
+
+
+def _refuse_over_limit(kernel, device, proj_txt, proj_vis, weights):
+    """Raise, before any launch, if ``kernel`` does not take the shapes."""
+    if device.type != "cuda":
+        raise ValueError("{} runs on cpu or cuda, not {}".format(kernel,
+                                                                 device))
+    reason = kernel_limit(kernel, *_sizes(proj_txt, proj_vis, weights)[1:],
+                          device.index if device.index is not None
+                          else torch.cuda.current_device())
+    if reason is not None:
+        refuse_shapes(kernel, reason)
 
 
 def _stream(device):
@@ -310,6 +353,8 @@ def teacher_forced_forward(proj_txt, cmd_mask, proj_vis, h0, c0, tokens,
         return teacher_forced_forward_plain(
             proj_txt, cmd_mask, proj_vis, h0, c0, tokens, drop, weights,
             num_steps=num_steps)
+    _refuse_over_limit("teacher_forced_forward", device, proj_txt, proj_vis,
+                       weights)
     batch, m_t, m_v, hidden, emb_dim, vocab, steps = _check_inputs(
         "teacher_forced_forward", device, proj_txt, cmd_mask, proj_vis,
         tokens, drop, weights,
@@ -349,6 +394,8 @@ def teacher_forced_backward(proj_txt, cmd_mask, proj_vis, tokens, drop,
         return teacher_forced_backward_plain(
             proj_txt, cmd_mask, proj_vis, tokens, drop, weights, h_res,
             c_res, dlogits, g_asum, num_steps=num_steps)
+    _refuse_over_limit("teacher_forced_backward", device, proj_txt, proj_vis,
+                       weights)
     batch, _, hidden = proj_txt.shape
     m_v = proj_vis.shape[1]
     batch, m_t, m_v, hidden, emb_dim, vocab, steps = _check_inputs(
@@ -362,12 +409,6 @@ def teacher_forced_backward(proj_txt, cmd_mask, proj_vis, tokens, drop,
                 (tokens.shape[0], batch, weights.out_proj.shape[1]),
                 torch.float32),
                ("g_asum", g_asum, (batch, m_v), torch.float32)))
-    w = weights
-    # The transposed weights of the backward's products (as the TPU kernel
-    # takes them), so that every product reads its weights coalesced.
-    transposed = [m.T.contiguous() for m in (w.txt_qw, w.q2k_w, w.vis_qw,
-                                             w.w_ih, w.w_hh, w.out_w,
-                                             w.out_proj)]
     d_proj_txt = torch.zeros_like(proj_txt)
     d_proj_vis = torch.zeros_like(proj_vis)
     dh0 = torch.empty((batch, hidden), device=device)
@@ -381,10 +422,10 @@ def teacher_forced_backward(proj_txt, cmd_mask, proj_vis, tokens, drop,
         tokens.data_ptr(), drop.data_ptr(), proj_txt.data_ptr(),
         cmd_mask.data_ptr(), proj_vis.data_ptr(), h_res.data_ptr(),
         c_res.data_ptr(), dlogits.data_ptr(), g_asum.data_ptr(),
-        *(m.data_ptr() for m in weights), *(m.data_ptr() for m in transposed),
-        d_proj_txt.data_ptr(), d_proj_vis.data_ptr(), dh0.data_ptr(),
-        dc0.data_ptr(), stash.data_ptr(), batch, steps, num_steps, m_t, m_v,
-        hidden, emb_dim, vocab, _stream(device))
+        *(m.data_ptr() for m in weights), d_proj_txt.data_ptr(),
+        d_proj_vis.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+        stash.data_ptr(), batch, steps, num_steps, m_t, m_v, hidden, emb_dim,
+        vocab, _stream(device))
     _build.check(code, "gscan_teacher_forced_backward")
     launches["teacher_forced_backward"] += 1
     return d_proj_txt, d_proj_vis, dh0, dc0, stash
@@ -393,7 +434,7 @@ def teacher_forced_backward(proj_txt, cmd_mask, proj_vis, tokens, drop,
 def teacher_forced_weight_grads(stash, h_res, dlogits) -> DecoderWeights:
     """The helper kernel on CUDA tensors (plain version on CPU tensors): the
     twelve weight gradients from kernel 4's stash, each output summed over
-    all (t, b) by one thread in a fixed order."""
+    all (t, b) in an order fixed by the shapes."""
     device = stash.device
     if device.type == "cpu":
         return weight_grads_plain(stash, h_res, dlogits)
@@ -402,18 +443,22 @@ def teacher_forced_weight_grads(stash, h_res, dlogits) -> DecoderWeights:
                          "not {}".format(device))
     steps, batch, hidden = h_res.shape
     vocab = dlogits.shape[-1]
-    emb_dim = (stash.shape[-1] - vocab - 15 * hidden) // 2
+    emb_dim = (stash.shape[-1] - _round4(vocab) - 15 * hidden) // 2
     width = stash_layout(vocab, emb_dim, hidden).width
     for name, tensor, shape in (("stash", stash, (steps, batch, width)),
                                 ("h_res", h_res, (steps, batch, hidden)),
                                 ("dlogits", dlogits, (steps, batch, vocab))):
         check_tensor(name, tensor, shape, torch.float32, device)
-    grads = DecoderWeights(*(torch.empty(shape, device=device) for shape in
-                             _weight_shapes(hidden, emb_dim, vocab)))
+    shapes = _weight_shapes(hidden, emb_dim, vocab)
+    grads = DecoderWeights(*(torch.empty(shape, device=device)
+                             for shape in shapes))
+    # Each chunk of row-steps' sums, before the second pass adds them.
+    partial = torch.empty(GRAD_SPLITS * sum(r * c for r, c in shapes),
+                          device=device)
     code = _build.library().gscan_teacher_forced_weight_grads(
         stash.data_ptr(), h_res.data_ptr(), dlogits.data_ptr(),
-        *(g.data_ptr() for g in grads), steps * batch, hidden, emb_dim,
-        vocab, _stream(device))
+        *(g.data_ptr() for g in grads), partial.data_ptr(), partial.numel(),
+        steps * batch, hidden, emb_dim, vocab, _stream(device))
     _build.check(code, "gscan_teacher_forced_weight_grads")
     launches["teacher_forced_weight_grads"] += 1
     return grads

@@ -8,10 +8,16 @@ batch, metrics every ``print_every`` steps, a greedy dev evaluation every
 checkpoint and copies it to ``model_best`` on a better exact match, and
 resume from a checkpoint of either package.
 
-Not ported, and refused rather than substituted: the resident trainer
-(``steps_per_execution > 1``, ROADMAP A9), multi-seed campaigns (``seeds``,
-A10), a device mesh (A11), k-shot moves (``k > 0``, A4) and vocabulary
-generation (A4). The dev split is read in file order, and
+Not ported, and refused by name rather than substituted or ignored: the
+resident trainer (``steps_per_execution > 1`` and its ``chunk_layout`` /
+``stratified_*`` options, ROADMAP A9), multi-seed campaigns (``seeds``,
+A10), a device mesh (A11), k-shot moves (``k > 0``, A14), vocabulary
+generation (A14), profiling (``profile_dir``, A12), a device prefetch depth
+(``prefetch_depth``, A12) and the full RGB situation
+(``simple_situation_representation=False``, which the JAX package refuses
+too). Any other keyword raises ``TypeError``; ``test_batch_size`` is taken
+and, as in the JAX ``train``, not used (``evaluation_batch_size`` sets the
+dev decode's batch). The dev split is read in file order, and
 ``max_testing_examples`` takes its first examples (the JAX loop shuffles the
 dev split without a seed before it takes them).
 """
@@ -79,11 +85,17 @@ def train(data_path: str, data_directory: str,
           teacher_forced_impl: str = "fused", seeds: str = "",
           device: Union[str, torch.device] = "cuda",
           callback: Optional[Callable[[str, int, dict], None]] = None,
-          **unused):
+          test_batch_size: Optional[int] = None,
+          simple_situation_representation: bool = True,
+          profile_dir: str = "", prefetch_depth: int = 3,
+          chunk_layout: str = "full", stratified_widths: str = "32",
+          stratified_wide_mix: float = 0.0,
+          stratified_interleave: bool = False):
     """Train (or resume) the model; returns (TrainState, ModelConfig).
 
-    Arguments mirror the JAX ``train`` (other keyword arguments of it are
-    accepted and ignored). ``callback(kind, iteration, values)``, if given,
+    Arguments mirror the JAX ``train``; a value the port does not honour is
+    refused by name (see the module docstring).
+    ``callback(kind, iteration, values)``, if given,
     sees every printed window (``kind == "train"``: loss, accuracy,
     exact_match, aux_accuracy, learning_rate, steps_per_s) and every
     evaluation (``"eval"``: accuracy, exact_match, target_accuracy).
@@ -94,10 +106,22 @@ def train(data_path: str, data_directory: str,
         _not_ported("Multi-seed training (seeds)", "A10")
     if mesh is not None:
         _not_ported("Data-parallel training (mesh)", "A11")
+    if (chunk_layout != "full" or str(stratified_widths) != "32"
+            or stratified_wide_mix or stratified_interleave):
+        _not_ported("The resident trainer's chunk layouts (chunk_layout, "
+                    "stratified_*)", "A9")
     if k:
-        _not_ported("The k-shot split move (k > 0)", "A4")
+        _not_ported("The k-shot split move (k > 0)", "A14")
     if generate_vocabularies:
-        _not_ported("Vocabulary generation", "A4")
+        _not_ported("Vocabulary generation", "A14")
+    if profile_dir:
+        _not_ported("Profiling (profile_dir)", "A12")
+    if prefetch_depth != 3:
+        _not_ported("Device prefetch (prefetch_depth)", "A12")
+    if not simple_situation_representation:
+        raise NotImplementedError(
+            "Full RGB input image not implemented. Implement or set "
+            "simple_situation_representation.")
     if attention_type != "bahdanau":
         raise NotImplementedError(
             "Luong attention not correctly implemented in the reference; "

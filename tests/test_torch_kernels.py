@@ -13,9 +13,13 @@ done and emitted flags equal, attention rtol 1e-5 / atol 1e-6
 teacher-forced logits rtol/atol 1e-5, summed attention rtol 1e-5 / atol
 1e-6 and gradients rtol 2e-4 / atol 2e-5
 (tests/test_pallas_teacher_forced.py), with kernel 4 and its weight-gradient
-helper bit-identical from run to run. Kernel 1's gradients (its backward is
-the plain ``attention_vjp_plain``) match autograd through its plain version
-at rtol 1e-4 / atol 1e-5, the bar of float32 sums in two orders.
+helper bit-identical from run to run (also at ragged shapes: B=203, T=1, a
+row-step count that is not a multiple of the helper's chunks, fewer rows
+than one cluster). Shapes over the kernels' limits (H=136, M_v=81; kernel
+4's shared memory at H=E=128) raise before any launch. Kernel 1's
+gradients (its backward is the plain ``attention_vjp_plain``) match
+autograd through its plain version at rtol 1e-4 / atol 1e-5, the bar of
+float32 sums in two orders.
 """
 
 import numpy as np
@@ -256,3 +260,101 @@ def test_decode_block_refuses_grad(cuda):
             torch.zeros(2, dtype=torch.bool, device=cuda), weights)
     with pytest.raises(RuntimeError):
         k2.fused_decode_block(*args, num_steps=2, eos_idx=2)
+
+
+def kernel4_and_helper(inputs, dlogits, g_asum, num_steps):
+    """Kernel 3's residuals, then kernel 4 and the helper: (the 4 per-row
+    gradients and the stash, the 12 weight gradients, h_res)."""
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    _, h_res, c_res, _ = tf.teacher_forced_forward(*inputs,
+                                                   num_steps=num_steps)
+    raw = tf.teacher_forced_backward(
+        inputs[0], inputs[1], inputs[2], inputs[5], inputs[6], inputs[7],
+        h_res, c_res, dlogits, g_asum, num_steps=num_steps)
+    grads = tf.teacher_forced_weight_grads(raw[4], h_res, dlogits)
+    torch.cuda.synchronize()
+    return list(raw), list(grads), (h_res, c_res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,steps,num_steps", [
+    (203, 13, 11),   # B not a multiple of the rows per cluster
+    (16, 1, 1),      # T = 1
+    (200, 7, 7),     # N = 1400 row-steps, not a multiple of the chunks
+    (5, 3, 2)])      # smaller than one cluster's rows
+def test_kernel4_and_helper_match_plain_twins(cuda, batch, steps, num_steps):
+    """Kernel 4 (one cluster per row group) against its plain twin
+    ``teacher_forced_backward_plain`` and the helper (split over chunks of
+    row-steps) against ``weight_grads_plain``, on the same residuals, at
+    the gradient bar (rtol 2e-4 / atol 2e-5); each run twice, every bit the
+    same."""
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    inputs, (dlogits, g_asum) = teacher_forced_inputs(
+        cuda, batch, steps, num_steps, seed=batch + steps)
+    dlogits[num_steps:] = 0.0
+    raw, grads, (h_res, c_res) = kernel4_and_helper(inputs, dlogits, g_asum,
+                                                    num_steps)
+    plain = tf.teacher_forced_backward_plain(
+        inputs[0], inputs[1], inputs[2], inputs[5], inputs[6], inputs[7],
+        h_res, c_res, dlogits, g_asum, num_steps=num_steps)
+    names = ["d_proj_txt", "d_proj_vis", "dh0", "dc0", "stash"]
+    for name, got, want in zip(names, raw, plain):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5,
+                                   msg=name)
+    plain_grads = tf.weight_grads_plain(raw[4], h_res, dlogits)
+    for name, got, want in zip(k2.DecoderWeights._fields, grads,
+                               plain_grads):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5,
+                                   msg=name)
+    again_raw, again_grads, _ = kernel4_and_helper(inputs, dlogits, g_asum,
+                                                   num_steps)
+    for name, first, second in zip(names + list(k2.DecoderWeights._fields),
+                                   raw + grads, again_raw + again_grads):
+        assert torch.equal(first, second), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,m_v", [(136, 36), (100, 81), (128, 36)])
+def test_shapes_over_the_limits_are_refused(cuda, h, m_v):
+    """H = 136 (over kMaxH = 128), a 9x9 grid (M_v = 81, over kMaxM = 64)
+    and H = E = 128 (kernel 4's weight slices over the card's shared memory
+    per CTA): each wrapper whose kernel does not take the shapes raises,
+    naming the limit, and launches nothing; at H = E = 128 kernels 1-3
+    still run and equal their plain versions."""
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    batch, steps, num_steps = 6, 4, 3
+    inputs, (dlogits, g_asum) = teacher_forced_inputs(
+        cuda, batch, steps, num_steps, m_v=m_v, h=h, seed=7)
+    over = k1.attention_limit(m_v, h) is not None
+    limit = "H={}".format(h) if h != 100 else "M={}".format(m_v)
+    pq = torch.randn(batch, h, device=cuda)
+    block_args = (inputs[0], inputs[1], inputs[2], inputs[3], inputs[4],
+                  torch.ones(batch, dtype=torch.int32, device=cuda),
+                  torch.zeros(batch, dtype=torch.bool, device=cuda),
+                  inputs[7])
+    bwd_args = (inputs[0], inputs[1], inputs[2], inputs[5], inputs[6],
+                inputs[7])
+    res = tf.teacher_forced_forward_plain(*inputs, num_steps=num_steps)
+    before = (k1.launches, k2.launches, dict(tf.launches))
+    with torch.no_grad():
+        calls = [
+            ("additive_attention", lambda: k1.additive_attention(
+                pq, inputs[2], None, inputs[7].vis_ew)),
+            ("fused_decode_block", lambda: k2.fused_decode_block(
+                *block_args, num_steps=3, eos_idx=2)),
+            ("teacher_forced_forward", lambda: tf.teacher_forced_forward(
+                *inputs, num_steps=num_steps))]
+        for name, call in calls:
+            if over:
+                with pytest.raises(ValueError, match=limit):
+                    call()
+        with pytest.raises(ValueError, match=limit if over
+                           else "shared memory"):
+            tf.teacher_forced_backward(*bwd_args, res[1], res[2], dlogits,
+                                       g_asum, num_steps=num_steps)
+        torch.cuda.synchronize()
+        assert (k1.launches, k2.launches, dict(tf.launches)) == before
+        if not over:
+            got = tf.teacher_forced_forward(*inputs, num_steps=num_steps)
+            for a, b in zip(got, res):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
