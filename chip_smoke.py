@@ -16,7 +16,10 @@ on every example, apart from steps that are argmax near-ties in the plain
 path (top-2 logit gap below 1e-4), which are counted and printed. The
 teacher-forced kernels (3, 4 and the weight-gradient helper) are held to
 their plain versions on random inputs at B=200, T=56 and T=53, and, with the
-plain versions, to float64 on the fixture's train batches. The second main
+plain versions, to float64 on the fixture's train batches. Every kernel is
+then held, and timed, at three shapes past the attention's register-resident
+form and past the resident weight slices of kernels 3 and 4 (a 9x9 grid,
+H=E=136, H=E=256 with 72 command keys and a 12x12 grid). The second main
 path resumes training from the fixture checkpoint for 20 steps at batch 200
 through ``train()`` (kernels 3 and 4, then a dev decode through kernel 2),
 round-trips the checkpoint, and compares 5 steps of the kernel path with
@@ -58,6 +61,15 @@ TRAIN_STEPS = 20
 PRINT_EVERY = 5
 COMPARE_STEPS = 5
 SEED = 42
+
+# Shapes past the attention's register-resident form (M <= 64, H <= 128)
+# and past kernels 3 and 4 holding the weight slices in shared memory:
+# (name, H = E, M_t, M_v). W1 is a 9x9 grid; W3 has masks of 1..72 keys and
+# a 12x12 grid. Kernels 1 and 2 run them at the decode's batch, kernels 3, 4
+# and the helper at the training batch, checked at T = WIDE_T and timed at
+# TRAIN_T.
+WIDE_SHAPES = (("W1", 100, 16, 81), ("W2", 136, 16, 36), ("W3", 256, 72, 144))
+WIDE_T = 24
 
 # NVIDIA H100 SXM data sheet, full 700 W power limit: float32 outside the
 # tensor cores, and HBM3 bandwidth. A bound is the larger of operations over
@@ -540,6 +552,204 @@ def plain_unroll(inputs, dlogits, g_asum, num_steps):
     return (logits.detach(), asum.detach()), list(grads)
 
 
+def hold_attention(label, args):
+    """Kernel 1 against its plain version (context atol 1e-5, weights atol
+    1e-6) and against float64; returns the larger max |err|."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.ops import additive_attention as k1
+    kernel = k1.additive_attention(*args)
+    torch.cuda.synchronize()
+    plain = k1.additive_attention_plain(*args)
+    exact = k1.additive_attention_plain(*as_float64(args))
+    err = 0.0
+    for name, got, want, truth, atol in zip(("context", "weights"), kernel,
+                                            plain, exact, (1e-5, 1e-6)):
+        against_float64("{} {}".format(label, name), got, want, truth)
+        err = max(err, check_close("{} {}".format(label, name), got, want,
+                                   0.0, atol))
+    return err
+
+
+def hold_decode_block(label, args, eos_idx):
+    """One K=32 block of kernel 2 against its plain version (tokens equal
+    apart from near-ties; attention, h and c rtol 1e-5 / atol 1e-6) and,
+    on the rows where float64 takes the same tokens, against float64.
+    Returns (the largest excess over the bar's atol part, the emitting
+    row-steps of the block)."""
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    out, ref, same = block_pair(label, args, eos_idx)
+    exact = k2.decode_block_plain(*as_float64(args),
+                                  num_steps=EXIT_CHECK_EVERY, eos_idx=eos_idx)
+    agree = same & (exact.step_tokens == ref.step_tokens).all(dim=0)
+    err = 0.0
+    for name in ("step_attn_cmd", "step_attn_sit", "h", "c"):
+        got, want = rows_of(out, name, same), rows_of(ref, name, same)
+        err = max(err, check_close("{} {}".format(label, name), got, want,
+                                   1e-5, 1e-6))
+        against_float64("{} {}".format(label, name),
+                        rows_of(out, name, agree), rows_of(ref, name, agree),
+                        rows_of(exact, name, agree))
+    return err, int(ref.step_emitted.sum())
+
+
+def hold_teacher_forced(label, inputs, dlogits, g_asum, num_steps):
+    """Kernel 3, kernel 4 and the helper on random inputs against the plain
+    unroll and its autograd gradients at the JAX tests' bars (logits 1e-5,
+    summed attention atol 1e-6, gradients rtol 2e-4 / atol 2e-5), and
+    against a float64 evaluation of the plain version (no further than twice
+    the plain version's distance); the helper also against its plain
+    version; each kernel run twice, every bit the same. Returns the largest
+    error of the forward, of kernel 4 and of the helper."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    (logits, asum), grads, (raw, h_res, c_res) = kernel_unroll(
+        inputs, dlogits, g_asum, num_steps)
+    torch.cuda.synchronize()
+    (ref_logits, ref_asum), ref_grads = plain_unroll(inputs, dlogits, g_asum,
+                                                     num_steps)
+    # The float64 referee: the plain version evaluated in float64 on the
+    # same inputs. At these shapes the plain version's own float32 rounding
+    # is about the atol of the checks below, so each kernel output is also
+    # held to be no further from float64 than twice the plain version's
+    # distance.
+    (exact_logits, exact_asum), exact_grads = plain_unroll(
+        as_float64(inputs), *as_float64((dlogits, g_asum)), num_steps)
+    for name, got, want, truth in zip(
+            ["logits", "summed attention"] + ["d" + n for n in GRAD_NAMES],
+            [logits[:num_steps], asum] + grads,
+            [ref_logits[:num_steps], ref_asum] + ref_grads,
+            [exact_logits[:num_steps], exact_asum] + exact_grads):
+        against_float64("{} {}".format(label, name), got, want, truth)
+    del exact_grads
+    err = {"forward": max(
+        check_close(label + " logits", logits[:num_steps],
+                    ref_logits[:num_steps], 1e-5, 1e-5),
+        check_close(label + " summed attention", asum, ref_asum, 1e-5, 1e-6)),
+        "backward": 0.0, "helper": 0.0}
+    for i, (name, got, want) in enumerate(zip(GRAD_NAMES, grads,
+                                              ref_grads)):
+        key = "backward" if i < 4 else "helper"
+        err[key] = max(err[key], check_close(
+            "{} d{}".format(label, name), got, want, 2e-4, 2e-5))
+    helper_plain = tf.weight_grads_plain(raw[4], h_res, dlogits)
+    for name, got, want in zip(GRAD_NAMES[4:], grads[4:], helper_plain):
+        check_close("{} helper vs its plain version d{}".format(label, name),
+                    got, want, 2e-4, 2e-5)
+    again_out, again_grads, (again_raw, again_h, again_c) = kernel_unroll(
+        inputs, dlogits, g_asum, num_steps)
+    torch.cuda.synchronize()
+    forward_same = all(torch.equal(a, b) for a, b in zip(
+        [logits, asum, h_res, c_res], list(again_out) + [again_h, again_c]))
+    backward_same = all(torch.equal(a, b) for a, b in
+                        zip(list(raw) + grads, list(again_raw) + again_grads))
+    print("{}: run twice, bit-identical: kernel 3 {}, kernel 4 + helper "
+          "{}".format(label, forward_same, backward_same))
+    require(forward_same and backward_same,
+            "{}: a teacher-forced kernel is not bit-identical from run to "
+            "run".format(label))
+    return err
+
+
+def wide_shape_rows(gen, device, vocab, sos_idx, eos_idx):
+    """Every kernel at WIDE_SHAPES: held to its plain version and to float64
+    (hold_attention, hold_decode_block, hold_teacher_forced), then timed
+    beside its plain version and its bound, with the shared-memory plan
+    kernels 3 and 4 take. Returns one row per kernel and shape."""
+    from multimodal_seq2seq_gscan_tpu_torch.ops import _build
+    from multimodal_seq2seq_gscan_tpu_torch.ops import additive_attention as k1
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    wide_rows = []
+    index = _build.device_index(device)
+    for name, h, w_m_t, w_m_v in WIDE_SHAPES:
+        label = "wide {} (H=E={}, M_t={}, M_v={})".format(name, h, w_m_t,
+                                                          w_m_v)
+        calls = [random_attention_inputs(gen, device, BATCH, m, h, masked)
+                 for m, masked in ((w_m_t, True), (w_m_v, False))]
+        for args in calls:
+            hold_attention("{} additive_attention M={}".format(
+                label, args[1].shape[1]), args)
+        block_args = random_block_inputs(gen, device, BATCH, w_m_t, w_m_v,
+                                         h, vocab, sos_idx)
+        _, row_steps = hold_decode_block(label + " decode_block", block_args,
+                                         eos_idx)
+        inputs, (dlogits, g_asum) = random_teacher_forced_inputs(
+            gen, device, TRAIN_BATCH, WIDE_T, WIDE_T - 3, w_m_t, w_m_v,
+            h, vocab, sos_idx)
+        hold_teacher_forced(label + " teacher_forced T={}".format(WIDE_T),
+                            inputs, dlogits, g_asum, WIDE_T - 3)
+        del inputs, dlogits, g_asum
+
+        # Times: kernels 1 and 2 at the decode's batch, kernels 3, 4 and
+        # the helper at the training shapes.
+        def both(fn):
+            return lambda: [fn(*args) for args in calls]
+
+        weights_bytes = sum(w.numel() * 4 for w in block_args[7])
+        times = [
+            ("additive_attention", cuda_ms(both(k1.additive_attention), 20),
+             cuda_ms(both(k1.additive_attention_plain), 3),
+             bound_ms(*(sum(x) for x in zip(
+                 attention_work(BATCH, w_m_t, h, True),
+                 attention_work(BATCH, w_m_v, h, False)))), "-"),
+            ("decode_block", cuda_ms(lambda: k2.fused_decode_block(
+                *block_args, num_steps=EXIT_CHECK_EVERY,
+                eos_idx=eos_idx), 3),
+             cuda_ms(lambda: k2.decode_block_plain(
+                 *block_args, num_steps=EXIT_CHECK_EVERY,
+                 eos_idx=eos_idx), 1, warmup=1),
+             bound_ms(*decode_block_work(
+                 BATCH, w_m_t, w_m_v, h, vocab, EXIT_CHECK_EVERY,
+                 weights_bytes, row_steps)), "-")]
+        del calls, block_args
+        inputs, (dlogits, g_asum) = random_teacher_forced_inputs(
+            gen, device, TRAIN_BATCH, TRAIN_T, TRAIN_T - 3, w_m_t, w_m_v,
+            h, vocab, sos_idx)
+        num_steps = TRAIN_T - 3
+        _, h_res, c_res, _ = tf.teacher_forced_forward(
+            *inputs, num_steps=num_steps)
+        stash = tf.teacher_forced_backward(
+            *inputs[:3], *inputs[5:], h_res, c_res, dlogits, g_asum,
+            num_steps=num_steps)[4]
+        work = teacher_forced_work(TRAIN_BATCH, TRAIN_T, w_m_t, w_m_v, h,
+                                   h, vocab)
+        plans = {kernel: tf.shared_memory_plan(
+            kernel, w_m_t, w_m_v, h, h, vocab, index)
+            for kernel in tf.KERNEL_NUMBERS}
+        times += [
+            ("teacher_forced_forward", cuda_ms(
+                lambda: tf.teacher_forced_forward(
+                    *inputs, num_steps=num_steps), 10),
+             cuda_ms(lambda: tf.teacher_forced_forward_plain(
+                 *inputs, num_steps=num_steps), 1, warmup=1),
+             bound_ms(*work[0]), plans["teacher_forced_forward"]),
+            ("teacher_forced_backward", cuda_ms(
+                lambda: tf.teacher_forced_backward(
+                    *inputs[:3], *inputs[5:], h_res, c_res, dlogits,
+                    g_asum, num_steps=num_steps), 10),
+             cuda_ms(lambda: tf.teacher_forced_backward_plain(
+                 *inputs[:3], *inputs[5:], h_res, c_res, dlogits,
+                 g_asum, num_steps=num_steps), 1, warmup=1),
+             bound_ms(*work[1]), plans["teacher_forced_backward"]),
+            ("teacher_forced_weight_grads", cuda_ms(
+                lambda: tf.teacher_forced_weight_grads(
+                    stash, h_res, dlogits), 10),
+             cuda_ms(lambda: tf.weight_grads_plain(stash, h_res,
+                                                   dlogits), 3),
+             bound_ms(*work[2]), "-")]
+        del inputs, dlogits, g_asum, h_res, c_res, stash
+        for kernel, ms, plain_ms, bound, plan in times:
+            plan_text = plan if plan == "-" else "plan {} ({}, {} bytes " \
+                "per CTA)".format(*plan)
+            print("{} {}: {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms "
+                  "({}); {}".format(label, kernel, ms, plain_ms, *bound,
+                                    plan_text))
+            wide_rows.append(dict(shape=name, kernel=kernel, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=bound[0],
+                                  bound_by=bound[1], plan=plan_text))
+    return wide_rows
+
+
 def check_close_quiet(got, want, rtol, atol, label):
     """Max |err|; fails past atol + rtol|want|."""
     diff = (got - want).abs()
@@ -661,22 +871,11 @@ def main():
         gen = torch.Generator(device=device).manual_seed(0)
         # Kernel 1, (a): the JAX attention test's inputs at a decoder step's
         # two calls (M_t masked, M_v unmasked), with that test's bars.
-        attention_err = 0.0
-        for m, masked in ((m_t, True), (m_v, False)):
-            args = random_attention_inputs(gen, device, BATCH, m, hidden,
-                                           masked)
-            ctx, w = k1.additive_attention(*args)
-            sync()
-            ctx_ref, w_ref = k1.additive_attention_plain(*args)
-            ctx_err = float((ctx - ctx_ref).abs().max())
-            w_err = float((w - w_ref).abs().max())
-            print("additive_attention random M={} masked={}: context max "
-                  "|err| {:.3e} (atol 1e-5), weights max |err| {:.3e} "
-                  "(atol 1e-6)".format(m, masked, ctx_err, w_err))
-            require(ctx_err <= 1e-5 and w_err <= 1e-6,
-                    "additive_attention kernel disagrees with its plain "
-                    "version")
-            attention_err = max(attention_err, ctx_err, w_err)
+        attention_err = max(
+            hold_attention("additive_attention random M={} masked={}".format(
+                m, masked), random_attention_inputs(gen, device, BATCH, m,
+                                                    hidden, masked))
+            for m, masked in ((m_t, True), (m_v, False)))
 
         # Kernel 1, (b): the fixture's inputs of the first decoder step.
         pq_txt = h0 @ weights.txt_qw
@@ -700,22 +899,10 @@ def main():
         # Kernel 2, (a): weights drawn as the JAX package initialises them,
         # one block of K=32 steps from SOS, the JAX decode test's bars (its
         # attention bar applied to the carried h and c as well).
-        random_args = random_block_inputs(gen, device, BATCH, m_t, m_v,
-                                          hidden, vocab,
-                                          config.target_sos_idx)
-        out, ref, same = block_pair("decode_block random", random_args,
-                                    config.target_eos_idx)
-        block_err = 0.0
-        for name in ("step_attn_cmd", "step_attn_sit", "h", "c"):
-            got, want = rows_of(out, name, same), rows_of(ref, name, same)
-            excess = float(((got - want).abs()
-                            - (1e-6 + 1e-5 * want.abs())).max())
-            err = float((got - want).abs().max())
-            print("decode_block random {}: max |err| {:.3e} (rtol 1e-5, "
-                  "atol 1e-6)".format(name, err))
-            require(excess <= 0, "decode_block {} disagrees with its plain "
-                    "version".format(name))
-            block_err = max(block_err, err)
+        block_err, _ = hold_decode_block(
+            "decode_block random", random_block_inputs(
+                gen, device, BATCH, m_t, m_v, hidden, vocab,
+                config.target_sos_idx), config.target_eos_idx)
 
         # Kernel 2, (b): the fixture's first block, K=32 steps from SOS.
         block_args = (proj_txt, cmd_mask, proj_vis, h0, c0, sos, not_done,
@@ -736,61 +923,18 @@ def main():
             torch.no_grad(), full_float32():
         # (a) The JAX tests' input distribution at the training shapes,
         # B=200 with T=56 (3 pad steps past num_steps=53) and T=53, at the
-        # JAX tests' bars; kernel 4 and the helper run twice.
+        # JAX tests' bars; each kernel runs twice.
         tf_err = {"forward": 0.0, "backward": 0.0, "helper": 0.0}
         for steps, num_steps in ((TRAIN_T - 3, TRAIN_T - 3),
                                  (TRAIN_T, TRAIN_T - 3)):
-            label = "teacher_forced random T={} num_steps={}".format(
-                steps, num_steps)
             inputs, (dlogits, g_asum) = random_teacher_forced_inputs(
                 gen, device, TRAIN_BATCH, steps, num_steps, m_t, m_v,
                 hidden, vocab, config.target_sos_idx)
-            (logits, asum), grads, (raw, h_res, c_res) = kernel_unroll(
-                inputs, dlogits, g_asum, num_steps)
-            sync()
-            (ref_logits, ref_asum), ref_grads = plain_unroll(
-                inputs, dlogits, g_asum, num_steps)
-            # The float64 referee: the plain version evaluated in float64
-            # on the same inputs. At these shapes the plain version's own
-            # float32 rounding is about the atol of the checks below, so
-            # each kernel output is also held to be no further from float64
-            # than twice the plain version's distance.
-            (exact_logits, exact_asum), exact_grads = plain_unroll(
-                as_float64(inputs), *as_float64((dlogits, g_asum)),
-                num_steps)
-            for name, got, want, truth in zip(
-                    ["logits", "summed attention"]
-                    + ["d" + n for n in GRAD_NAMES],
-                    [logits[:num_steps], asum] + grads,
-                    [ref_logits[:num_steps], ref_asum] + ref_grads,
-                    [exact_logits[:num_steps], exact_asum] + exact_grads):
-                against_float64("{} {}".format(label, name), got, want,
-                                truth)
-            del exact_grads
-            tf_err["forward"] = max(
-                tf_err["forward"],
-                check_close(label + " logits", logits[:num_steps],
-                            ref_logits[:num_steps], 1e-5, 1e-5),
-                check_close(label + " summed attention", asum, ref_asum,
-                            1e-5, 1e-6))
-            for i, (name, got, want) in enumerate(zip(GRAD_NAMES, grads,
-                                                      ref_grads)):
-                err = check_close("{} d{}".format(label, name), got, want,
-                                  2e-4, 2e-5)
-                key = "backward" if i < 4 else "helper"
+            for key, err in hold_teacher_forced(
+                    "teacher_forced random T={} num_steps={}".format(
+                        steps, num_steps),
+                    inputs, dlogits, g_asum, num_steps).items():
                 tf_err[key] = max(tf_err[key], err)
-            helper_plain = tf.weight_grads_plain(raw[4], h_res, dlogits)
-            for name, got, want in zip(GRAD_NAMES[4:], grads[4:],
-                                       helper_plain):
-                check_close("{} helper vs its plain version d{}".format(
-                    label, name), got, want, 2e-4, 2e-5)
-            again = kernel_unroll(inputs, dlogits, g_asum, num_steps)
-            sync()
-            same = all(torch.equal(a, b) for a, b in
-                       zip(list(raw) + grads, list(again[2][0]) + again[1]))
-            print("{}: kernel 4 + helper run twice, bit-identical: "
-                  "{}".format(label, same))
-            require(same, "kernel 4 is not bit-identical from run to run")
             random_tf = (inputs, dlogits, g_asum, num_steps)
 
         # (b) The fixture's train split against float64, nine witnesses: its
@@ -911,6 +1055,13 @@ def main():
                 del step_in, step_cot, results
         hold_witnesses("teacher_forced fixture, one step:", one_step)
         hold_witnesses("teacher_forced fixture, whole unroll:", unrolled)
+
+    with phase("kernels at wide shapes against their plain versions"), \
+            torch.no_grad(), full_float32():
+        wide_rows = wide_shape_rows(gen, device, vocab,
+                                    config.target_sos_idx,
+                                    config.target_eos_idx)
+        print("wide shapes: {}".format(json.dumps(wide_rows)))
 
     tf32_seen = set()
     with phase("main path: decode {} fixture dev examples".format(BATCH)), \

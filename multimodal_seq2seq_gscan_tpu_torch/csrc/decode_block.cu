@@ -28,7 +28,8 @@
 // to put 16 warps per CTA in flight: measured on the H100, two groups of 8
 // rows took 1.46x the time of four groups of 4 for a K=32 launch
 // (chip_smoke.py, B=4096). Attention
-// rows go one warp per row (attend.cuh); the projected keys are read from
+// rows go one warp per row (attend.cuh, its register-resident form at M <= 64
+// and H <= 128, else its chunked form); the projected keys are read from
 // global memory every step.
 #include "attend.cuh"
 
@@ -100,6 +101,8 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// NH, NM: attend.cuh's form of the two attentions (chosen by the host).
+template <int NH, int NM>
 __global__ void __launch_bounds__(kThreads) decode_block_kernel(
     const float* __restrict__ proj_txt, const float* __restrict__ cmd_mask,
     const float* __restrict__ proj_vis, const float* __restrict__ h_in,
@@ -164,9 +167,10 @@ __global__ void __launch_bounds__(kThreads) decode_block_kernel(
     // Masked textual attention, one warp per row.
     for (int r = warp; r < rows; r += kWarps) {
       const size_t b = b0 + r;
-      gscan::attend_row(s_pq + r, R, proj_txt + b * Mt * H, cmd_mask + b * Mt,
-                        wt.txt_ew, Mt, H, s_ctxc + r, R,
-                        step_attn_cmd + ((size_t)t * B + b) * Mt);
+      gscan::attend_row<NH, NM>(s_pq + r, R, proj_txt + b * Mt * H,
+                                cmd_mask + b * Mt, wt.txt_ew, Mt, H,
+                                s_ctxc + r, R,
+                                step_attn_cmd + ((size_t)t * B + b) * Mt);
     }
     __syncthreads();
 
@@ -196,9 +200,9 @@ __global__ void __launch_bounds__(kThreads) decode_block_kernel(
     // Unmasked visual attention, one warp per row.
     for (int r = warp; r < rows; r += kWarps) {
       const size_t b = b0 + r;
-      gscan::attend_row(s_pq + r, R, proj_vis + b * Mv * H, nullptr,
-                        wt.vis_ew, Mv, H, s_ctxs + r, R,
-                        step_attn_sit + ((size_t)t * B + b) * Mv);
+      gscan::attend_row<NH, NM>(s_pq + r, R, proj_vis + b * Mv * H, nullptr,
+                                wt.vis_ew, Mv, H, s_ctxs + r, R,
+                                step_attn_sit + ((size_t)t * B + b) * Mv);
     }
     __syncthreads();
 
@@ -286,7 +290,16 @@ __global__ void __launch_bounds__(kThreads) decode_block_kernel(
   }
 }
 
+size_t decode_block_smem_bytes(int H, int V) {
+  return ((size_t)kBuffers * H * R + (size_t)R * V + 2 * R) * sizeof(float);
+}
+
 }  // namespace
+
+// Bytes of shared memory kernel 2 needs per CTA at these shapes.
+extern "C" long long gscan_decode_block_smem_bytes(int H, int V) {
+  return static_cast<long long>(decode_block_smem_bytes(H, V));
+}
 
 extern "C" int gscan_decode_block(
     const float* proj_txt, const float* cmd_mask, const float* proj_vis,
@@ -299,20 +312,21 @@ extern "C" int gscan_decode_block(
     unsigned char* done_out, int* step_tokens, float* step_emitted,
     float* step_attn_cmd, float* step_attn_sit, int B, int Mt, int Mv, int H,
     int V, int K, int eos, void* stream) {
-  if (B <= 0 || K <= 0 || V <= 0 || H <= 0 || H > gscan::kMaxH || Mt <= 0 ||
-      Mt > gscan::kMaxM || Mv <= 0 || Mv > gscan::kMaxM)
+  if (B <= 0 || K <= 0 || V <= 0 || H <= 0 || Mt <= 0 || Mv <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      ((size_t)kBuffers * H * R + (size_t)R * V + 2 * R) * sizeof(float);
+  constexpr int NH = gscan::kFitH / 32, NM = gscan::kFitM / 32;
+  auto kernel = gscan::attend_fits(Mt > Mv ? Mt : Mv, H)
+                    ? decode_block_kernel<NH, NM>
+                    : decode_block_kernel<NH, 0>;
+  const size_t smem = decode_block_smem_bytes(H, V);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const DecoderWeights wt{txt_qw, txt_ew, q2k_w, q2k_b, vis_qw, vis_ew,
                           emb,    w_ih,   w_hh,  bias,  out_w,  out_proj};
   const dim3 grid((B + R - 1) / R);
-  decode_block_kernel<<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       proj_txt, cmd_mask, proj_vis, h_in, c_in, tok_in, done_in, wt, h_out,
       c_out, tok_out, done_out, step_tokens, step_emitted, step_attn_cmd,
       step_attn_sit, B, Mt, Mv, H, V, K, eos);

@@ -1,8 +1,10 @@
-"""Build and load the port's CUDA kernels: one ``nvcc`` call, bound by ctypes.
+"""Build and load the port's CUDA kernels with ``nvcc``, bound by ctypes.
 
-All ``csrc/*.cu`` files are compiled for ``sm_90a`` by a single ``nvcc`` call
-into one shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds). The library lands in ``build/torch_kernels/`` at the
+Each ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and one more call links the objects into one
+shared library with a plain C interface (no PyTorch headers, so the build
+takes about a minute, most of it the cluster kernels' variants). The
+library lands in ``build/torch_kernels/`` at the
 root of the checkout, named by a hash of the sources and flags, so a second
 run reuses it. Nothing is built or loaded when a module is imported: the first
 kernel launch calls :func:`library`.
@@ -13,6 +15,7 @@ non-zero code.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -24,8 +27,9 @@ from typing import List, Optional
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,10 +40,10 @@ SIGNATURES = {
     # 7 state inputs, 12 weights, 8 outputs, B, Mt, Mv, H, V, K, eos, stream
     "gscan_decode_block": [_P] * 27 + [_I] * 7 + [_P],
     # 7 inputs, 12 weights, 4 outputs, B, T, num_steps, Mt, Mv, H, E, V,
-    # stream
-    "gscan_teacher_forced_forward": [_P] * 23 + [_I] * 8 + [_P],
-    # 9 inputs, 12 weights, 5 outputs, the same 8 ints, stream
-    "gscan_teacher_forced_backward": [_P] * 26 + [_I] * 8 + [_P],
+    # plan, stream
+    "gscan_teacher_forced_forward": [_P] * 23 + [_I] * 9 + [_P],
+    # 9 inputs, 12 weights, 5 outputs, the same 9 ints, stream
+    "gscan_teacher_forced_backward": [_P] * 26 + [_I] * 9 + [_P],
     # stash, h_res, dlogits, 12 outputs, scratch, its floats, N, H, E, V,
     # stream
     "gscan_teacher_forced_weight_grads": [_P] * 16 + [_I] * 5 + [_P],
@@ -56,7 +60,7 @@ def sources() -> List[Path]:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for path in sorted(SOURCE_DIR.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -84,13 +88,36 @@ def build() -> Path:
         build_seconds = 0.0
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    partial = target.with_name("{}.{}.partial".format(target.name, os.getpid()))
-    command = ([_nvcc()] + NVCC_FLAGS + ["-o", str(partial)]
-               + [str(path) for path in sources()])
+    stem = "{}.{}".format(target.name, os.getpid())
+    nvcc = _nvcc()
     start = time.perf_counter()
+    jobs = []
+    for path in sources():
+        obj = BUILD_DIR / "{}.{}.o".format(stem, path.stem)
+        log = open(BUILD_DIR / "{}.{}.log".format(stem, path.stem), "w+")
+        command = [nvcc] + COMPILE_FLAGS + ["-c", str(path), "-o", str(obj)]
+        jobs.append((command, obj, log, subprocess.Popen(
+            command, stdout=log, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for command, _, log, process in jobs:  # every process ends here
+        code = process.wait()
+        log.seek(0)
+        logs.append(log.read())
+        log.close()
+        os.remove(log.name)
+        if code != 0:
+            failed.append("nvcc failed ({}):\n{}\n{}".format(
+                code, " ".join(command), logs[-1]))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    partial = BUILD_DIR / "{}.partial".format(stem)
+    command = ([nvcc] + ARCH_FLAGS + ["-shared", "-o", str(partial)]
+               + [str(obj) for _, obj, _, _ in jobs])
     result = subprocess.run(command, capture_output=True, text=True)
     build_seconds = time.perf_counter() - start
-    build_log = result.stdout + result.stderr
+    build_log = "".join(logs) + result.stdout + result.stderr
+    for _, obj, _, _ in jobs:
+        os.remove(obj)
     if result.returncode != 0:
         raise RuntimeError("nvcc failed ({}):\n{}\n{}".format(
             result.returncode, " ".join(command), build_log))
@@ -108,9 +135,14 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.gscan_teacher_forced_backward_smem_bytes.argtypes = [_I] * 5
-        lib.gscan_teacher_forced_backward_smem_bytes.restype = \
-            ctypes.c_longlong
+        lib.gscan_decode_block_smem_bytes.argtypes = [_I] * 2
+        lib.gscan_decode_block_smem_bytes.restype = ctypes.c_longlong
+        # kernel, H, E, V, Mt, Mv, the bytes available, the bytes needed (out)
+        lib.gscan_teacher_forced_plan.argtypes = [_I] * 6 + [
+            ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)]
+        lib.gscan_teacher_forced_plan.restype = ctypes.c_int
+        lib.gscan_teacher_forced_plan_name.argtypes = [_I] * 2
+        lib.gscan_teacher_forced_plan_name.restype = ctypes.c_char_p
         lib.gscan_max_shared_memory_per_block.argtypes = [_I]
         lib.gscan_max_shared_memory_per_block.restype = ctypes.c_longlong
         lib.gscan_error_string.argtypes = [ctypes.c_int]
@@ -125,3 +157,25 @@ def check(code: int, name: str):
         message = library().gscan_error_string(code).decode()
         raise RuntimeError("{} failed: CUDA error {} ({})".format(
             name, code, message))
+
+
+def device_index(device) -> int:
+    """The index of a CUDA ``torch.device`` (the current device if unset)."""
+    import torch
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+@functools.lru_cache(maxsize=None)
+def shared_memory_per_block(index: int) -> int:
+    """Bytes of shared memory a CTA may opt in to on CUDA device ``index``,
+    as the device reports them."""
+    return library().gscan_max_shared_memory_per_block(index)
+
+
+def refuse_shared_memory(kernel: str, need: int, have: int):
+    """Raise for a CUDA call whose shapes need more shared memory per CTA
+    than the device has."""
+    raise ValueError(
+        "the {} kernel needs {} bytes of shared memory per CTA at these "
+        "shapes, and the device has {}".format(kernel, need, have))

@@ -11,16 +11,14 @@ row, lanes over H), so only the keys, the query and the two outputs touch
 device memory, and the second read of a row's keys comes from cache.
 
 ``additive_attention`` is the wrapper: the plain version for CPU tensors, the
-kernel for CUDA tensors. Whether the kernel takes the shapes (``M <= 64``,
-``H <= 128``, :func:`attention_limit`) is decided before any launch; on
-CUDA tensors of shapes it does not take, the wrapper raises ``ValueError``
-naming the limit (:func:`refuse_shapes`). On the card, when
-a gradient is wanted, it runs as :class:`AdditiveAttention`, whose backward
-is the plain PyTorch port of the TPU kernel's analytic VJP
-(``_attention_bwd``; the TPU kernel has no backward kernel of its own
-either), so gradients flow through the kernel. Without one (the greedy
-decode) it launches the kernel directly: the call is host-bound, and an
-autograd node costs host time for nothing.
+kernel for CUDA tensors, at any M and H (M <= 64 and H <= 128 take the
+attention's register-resident form, other shapes its chunked form; the host
+picks). On the card, when a gradient is wanted, it runs as
+:class:`AdditiveAttention`, whose backward is the plain PyTorch port of the
+TPU kernel's analytic VJP (``_attention_bwd``; the TPU kernel has no
+backward kernel of its own either), so gradients flow through the kernel.
+Without one (the greedy decode) it launches the kernel directly: the call is
+host-bound, and an autograd node costs host time for nothing.
 """
 
 from typing import Optional, Tuple
@@ -29,31 +27,7 @@ import torch
 
 from multimodal_seq2seq_gscan_tpu_torch.ops import _build
 
-MAX_KEYS = 64     # kMaxM in csrc/attend.cuh
-MAX_HIDDEN = 128  # kMaxH in csrc/attend.cuh
-
 launches = 0  # kernel launches, counted by the wrapper
-
-
-def attention_limit(m: int, h: int) -> Optional[str]:
-    """Why the attention kernel (and the attention rows of kernels 2-4)
-    does not take M keys of width H, or None when it does."""
-    if not 0 < m <= MAX_KEYS:
-        return "M={} keys, over the kernel's limit of {}".format(m, MAX_KEYS)
-    if not 0 < h <= MAX_HIDDEN:
-        return "H={}, over the kernel's limit of {}".format(h, MAX_HIDDEN)
-    return None
-
-
-def refuse_shapes(kernel: str, reason: str):
-    """Raise for a CUDA call whose shapes ``kernel`` does not take. The
-    plain versions take any shapes, on the CPU or, asked for by name, on the
-    card: ``decode_impl="block_plain"`` and ``teacher_forced_impl="plain"``
-    for the flagship decoder."""
-    raise ValueError(
-        "the {} kernel does not take these shapes ({}); run on the CPU, or "
-        "pick the plain path by name (decode_impl='block_plain', "
-        "teacher_forced_impl='plain')".format(kernel, reason))
 
 
 def additive_attention_plain(projected_queries: torch.Tensor,
@@ -137,9 +111,6 @@ def additive_attention(projected_queries: torch.Tensor,
     if device.type != "cuda":
         raise ValueError("additive_attention runs on cpu or cuda, not "
                          "{}".format(device))
-    reason = attention_limit(projected_keys.shape[1], projected_keys.shape[2])
-    if reason is not None:
-        refuse_shapes("additive_attention", reason)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (projected_queries, projected_keys,
                                       energy_w)):

@@ -15,8 +15,9 @@ rows per read, and the CTA's other groups mostly hit L1). CTAs never
 communicate, so any grid size runs without deadlock.
 
 ``fused_decode_block`` is the wrapper: the plain version for CPU tensors, the
-kernel for CUDA tensors; for shapes the kernel does not take
-(``attention_limit``) it raises before any launch.
+kernel for CUDA tensors. The kernel takes any M and H; the wrapper raises,
+before any launch, only where the CTA's shared memory (9 H x 16 floats and
+the logits) exceeds what the device has.
 """
 
 from typing import NamedTuple, Optional, Tuple
@@ -26,7 +27,7 @@ import torch
 from multimodal_seq2seq_gscan_tpu_torch.models.params import ModelParams
 from multimodal_seq2seq_gscan_tpu_torch.ops import _build
 from multimodal_seq2seq_gscan_tpu_torch.ops.additive_attention import (
-    additive_attention_plain, attention_limit, check_tensor, refuse_shapes)
+    additive_attention_plain, check_tensor)
 
 launches = 0  # kernel launches, counted by the wrapper
 
@@ -172,9 +173,6 @@ def fused_decode_block(proj_textual: torch.Tensor, cmd_mask: torch.Tensor,
     if num_steps <= 0:
         raise ValueError("num_steps must be positive, got {}".format(
             num_steps))
-    reason = attention_limit(m_t, hidden) or attention_limit(m_v, hidden)
-    if reason is not None:
-        refuse_shapes("fused_decode_block", reason)
     f32 = torch.float32
     for name, tensor, shape, dtype in (
             ("proj_textual", proj_textual, (batch, m_t, hidden), f32),
@@ -203,6 +201,10 @@ def fused_decode_block(proj_textual: torch.Tensor, cmd_mask: torch.Tensor,
     if batch == 0:
         return out
     lib = _build.library()
+    need = lib.gscan_decode_block_smem_bytes(hidden, vocab)
+    have = _build.shared_memory_per_block(_build.device_index(device))
+    if need > have:
+        _build.refuse_shared_memory("fused_decode_block", need, have)
     code = lib.gscan_decode_block(
         proj_textual.data_ptr(), cmd_mask.data_ptr(), proj_visual.data_ptr(),
         h.data_ptr(), c.data_ptr(), tokens.data_ptr(), done.data_ptr(),

@@ -10,34 +10,40 @@ wires together; here :class:`FusedTeacherForced` does. CUDA source:
   teacher's token in place of the argmax, a ``[T, B, E]`` dropout mask on
   the embedded token, the pre-step (h, c) stashed as residuals, logits for
   every step, and the visual attention summed over ``t < num_steps``.
-- Kernel 4 (``teacher_forced_backward``) gives each thread-block cluster
-  (8 CTAs) a group of 16 rows and walks time in reverse, recomputing each
-  step from (h_res, c_res) and backpropagating through the head, the LSTM
-  cell and both attentions. Each CTA of a cluster keeps the column slices
-  of the decoder weights for its share of the hidden units in shared memory
-  for the whole walk; the CTAs exchange activations and partial sums
-  through distributed shared memory. The weight gradients are sums over
-  rows and steps: the kernel writes each row-step's operands (the ``X`` and
-  ``dY`` of every ``X^T dY``) to a stash in device memory, and a helper
-  kernel (``teacher_forced_weight_grads``) forms the fourteen products,
-  split over chunks of row-steps whose sums a second pass adds in chunk
-  order. No float atomics: the gradients are bit-identical from run to run.
+- Kernel 4 (``teacher_forced_backward``) walks time in reverse,
+  recomputing each step from (h_res, c_res) with kernel 3's step code and
+  backpropagating through the head, the LSTM cell and both attentions. The
+  weight gradients are sums over rows and steps: the kernel writes each
+  row-step's operands (the ``X`` and ``dY`` of every ``X^T dY``) to a
+  stash in device memory, and a helper kernel
+  (``teacher_forced_weight_grads``) forms the fourteen products, split over
+  chunks of row-steps whose sums a second pass adds in chunk order.
+- Both give each thread-block cluster (8 CTAs) a group of 16 rows. Each CTA
+  of a cluster keeps the column slices of the decoder weights for its share
+  of the hidden units in shared memory for the whole walk (kernel 3 also
+  its rows' keys); the CTAs exchange activations and partial sums through
+  distributed shared memory and add them in rank order. No float atomics:
+  the outputs are bit-identical from run to run.
 
 Bound on the H100: operations (a row-step is ~0.5 MFLOP of products with
 ~1 MB of decoder weights; the residuals are ~10 MB at B=200, T=56), but the
 T-step chain makes both recurrent kernels latency-bound in practice.
 
-Before any launch each wrapper decides from the shapes whether its kernel
-takes them (:func:`kernel_limit`); on CUDA tensors it does not take, it
-raises ``ValueError`` naming the limit. On CPU tensors each wrapper runs its
-plain twin: ``teacher_forced_forward_plain``,
-``teacher_forced_backward_plain`` (a PyTorch port of the TPU backward
-kernel's step math) and ``weight_grads_plain``. The independent
-yardstick of all of them is ``teacher_forced_plain``, a Python unroll of the
-step math differentiated by autograd (as ``spec_unroll`` is in the JAX
-tests).
+Kernels 3 and 4 take any M and H. Each runs in one of a few shared-memory
+plans: the decoder's weight slices resident in shared memory or read from
+L2, kernel 3's keys resident or not, 16 or 8 rows per cluster. Before any
+launch the wrapper asks the library for the first plan that fits the
+device's shared memory per CTA (:func:`shared_memory_plan`) and raises
+``ValueError`` only where none does, naming the bytes needed and available.
+On CPU tensors each wrapper runs its plain twin:
+``teacher_forced_forward_plain``, ``teacher_forced_backward_plain`` (a
+PyTorch port of the TPU backward kernel's step math) and
+``weight_grads_plain``. The independent yardstick of all of them is
+``teacher_forced_plain``, a Python unroll of the step math differentiated
+by autograd (as ``spec_unroll`` is in the JAX tests).
 """
 
+import ctypes
 import functools
 from typing import Dict, NamedTuple, Tuple
 
@@ -45,8 +51,7 @@ import torch
 
 from multimodal_seq2seq_gscan_tpu_torch.ops import _build
 from multimodal_seq2seq_gscan_tpu_torch.ops.additive_attention import (
-    additive_attention_plain, attention_limit, attention_vjp_plain,
-    check_tensor, refuse_shapes)
+    additive_attention_plain, attention_vjp_plain, check_tensor)
 from multimodal_seq2seq_gscan_tpu_torch.ops.decode_block import (
     DecoderWeights)
 
@@ -278,24 +283,28 @@ def _weight_shapes(hidden, emb_dim, vocab) -> DecoderWeights:
         (1, 4 * hidden), (emb_dim + 3 * hidden, hidden), (hidden, vocab))
 
 
+# The kernels' numbers in the library's plan tables.
+KERNEL_NUMBERS = {"teacher_forced_forward": 3, "teacher_forced_backward": 4}
+
+
 @functools.lru_cache(maxsize=None)
-def kernel_limit(kernel, m_t, m_v, hidden, emb_dim, vocab, device_index=0):
-    """Why ``kernel`` ("teacher_forced_forward" or
-    "teacher_forced_backward") does not take these shapes on CUDA device
-    ``device_index``, or None. Kernel 4 keeps the decoder's weight slices in
-    shared memory: its need comes from the kernel's own layout and the
-    limit from the device."""
-    reason = attention_limit(m_t, hidden) or attention_limit(m_v, hidden)
-    if reason is None and kernel == "teacher_forced_backward":
-        lib = _build.library()
-        need = lib.gscan_teacher_forced_backward_smem_bytes(
-            hidden, emb_dim, vocab, m_t, m_v)
-        have = lib.gscan_max_shared_memory_per_block(device_index)
-        if need > have:
-            reason = ("H={} E={} V={} need {} bytes of shared memory per "
-                      "CTA, over the device's {}".format(
-                          hidden, emb_dim, vocab, need, have))
-    return reason
+def shared_memory_plan(kernel, m_t, m_v, hidden, emb_dim, vocab,
+                       device_index):
+    """(index, name, bytes per CTA) of the shared-memory plan that
+    ``kernel`` ("teacher_forced_forward" or "teacher_forced_backward")
+    takes at these shapes on CUDA device ``device_index``: the first of its
+    plans (``csrc/teacher_forced.cu``) that fits the shared memory per CTA
+    the device reports. Raises ``ValueError`` where none fits."""
+    number = KERNEL_NUMBERS[kernel]
+    lib = _build.library()
+    have = _build.shared_memory_per_block(device_index)
+    need = ctypes.c_longlong(0)
+    plan = lib.gscan_teacher_forced_plan(number, hidden, emb_dim, vocab, m_t,
+                                         m_v, have, ctypes.byref(need))
+    if plan < 0:
+        _build.refuse_shared_memory(kernel, need.value, have)
+    name = lib.gscan_teacher_forced_plan_name(number, plan).decode()
+    return plan, name, need.value
 
 
 def _check_inputs(name, device, proj_txt, cmd_mask, proj_vis, tokens, drop,
@@ -322,16 +331,15 @@ def _check_inputs(name, device, proj_txt, cmd_mask, proj_vis, tokens, drop,
     return batch, m_t, m_v, hidden, emb_dim, vocab, steps
 
 
-def _refuse_over_limit(kernel, device, proj_txt, proj_vis, weights):
-    """Raise, before any launch, if ``kernel`` does not take the shapes."""
+def _plan(kernel, device, proj_txt, proj_vis, weights):
+    """The index of ``kernel``'s shared-memory plan at these shapes; raises,
+    before any launch, where none fits."""
     if device.type != "cuda":
         raise ValueError("{} runs on cpu or cuda, not {}".format(kernel,
                                                                  device))
-    reason = kernel_limit(kernel, *_sizes(proj_txt, proj_vis, weights)[1:],
-                          device.index if device.index is not None
-                          else torch.cuda.current_device())
-    if reason is not None:
-        refuse_shapes(kernel, reason)
+    return shared_memory_plan(kernel,
+                              *_sizes(proj_txt, proj_vis, weights)[1:],
+                              _build.device_index(device))[0]
 
 
 def _stream(device):
@@ -353,8 +361,8 @@ def teacher_forced_forward(proj_txt, cmd_mask, proj_vis, h0, c0, tokens,
         return teacher_forced_forward_plain(
             proj_txt, cmd_mask, proj_vis, h0, c0, tokens, drop, weights,
             num_steps=num_steps)
-    _refuse_over_limit("teacher_forced_forward", device, proj_txt, proj_vis,
-                       weights)
+    plan = _plan("teacher_forced_forward", device, proj_txt, proj_vis,
+                 weights)
     batch, m_t, m_v, hidden, emb_dim, vocab, steps = _check_inputs(
         "teacher_forced_forward", device, proj_txt, cmd_mask, proj_vis,
         tokens, drop, weights,
@@ -373,7 +381,7 @@ def teacher_forced_forward(proj_txt, cmd_mask, proj_vis, h0, c0, tokens,
         cmd_mask.data_ptr(), proj_vis.data_ptr(), h0.data_ptr(),
         c0.data_ptr(), *(w.data_ptr() for w in weights), logits.data_ptr(),
         h_res.data_ptr(), c_res.data_ptr(), asum.data_ptr(), batch, steps,
-        num_steps, m_t, m_v, hidden, emb_dim, vocab, _stream(device))
+        num_steps, m_t, m_v, hidden, emb_dim, vocab, plan, _stream(device))
     _build.check(code, "gscan_teacher_forced_forward")
     launches["teacher_forced_forward"] += 1
     return logits, h_res, c_res, asum
@@ -394,8 +402,8 @@ def teacher_forced_backward(proj_txt, cmd_mask, proj_vis, tokens, drop,
         return teacher_forced_backward_plain(
             proj_txt, cmd_mask, proj_vis, tokens, drop, weights, h_res,
             c_res, dlogits, g_asum, num_steps=num_steps)
-    _refuse_over_limit("teacher_forced_backward", device, proj_txt, proj_vis,
-                       weights)
+    plan = _plan("teacher_forced_backward", device, proj_txt, proj_vis,
+                 weights)
     batch, _, hidden = proj_txt.shape
     m_v = proj_vis.shape[1]
     batch, m_t, m_v, hidden, emb_dim, vocab, steps = _check_inputs(
@@ -425,7 +433,7 @@ def teacher_forced_backward(proj_txt, cmd_mask, proj_vis, tokens, drop,
         *(m.data_ptr() for m in weights), d_proj_txt.data_ptr(),
         d_proj_vis.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
         stash.data_ptr(), batch, steps, num_steps, m_t, m_v, hidden, emb_dim,
-        vocab, _stream(device))
+        vocab, plan, _stream(device))
     _build.check(code, "gscan_teacher_forced_backward")
     launches["teacher_forced_backward"] += 1
     return d_proj_txt, d_proj_vis, dh0, dc0, stash

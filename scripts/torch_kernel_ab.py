@@ -12,8 +12,9 @@ main path's shapes (B=200, T=56, num_steps=53, M_t=16, M_v=36, H=E=100, V=9;
 random inputs drawn as ``chip_smoke.py`` draws them, seed 0): kernel 3,
 kernel 4 and the weight-gradient helper; the helper and its library call
 (its 14 products as ``torch.matmul`` on staged operands) also as CUDA
-graphs. The measuring code is this checkout's ``chip_smoke.py``, so two
-checkouts are timed the same way.
+graphs; and, at the decode's batch of 4096, kernel 1 (a decoder step's two
+calls) and one 32-step launch of kernel 2. The measuring code is this
+checkout's ``chip_smoke.py``, so two checkouts are timed the same way.
 
 - ``--set NAME=VALUE`` (repeatable) builds a variant: DIR's package is
   copied to ``build/variants/LABEL/`` and each ``constexpr int NAME = ...;``
@@ -154,6 +155,30 @@ def kernel_times(cs, s, repeats):
             stash, h_res, dlogits), repeats))
 
 
+def decode_kernel_times(cs, s, repeats):
+    """Milliseconds of kernel 1 (a decoder step's two calls: M_t masked and
+    M_v unmasked) and of one kernel-2 block of 32 steps from SOS, at the
+    decode main path's batch of 4096 (random inputs as ``chip_smoke.py``
+    draws them, seed 0)."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.ops import additive_attention
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(0)
+    calls = [cs.random_attention_inputs(gen, device, cs.BATCH, m, s["hidden"],
+                                        masked)
+             for m, masked in ((s["m_t"], True), (s["m_v"], False))]
+    block_args = cs.random_block_inputs(gen, device, cs.BATCH, s["m_t"],
+                                        s["m_v"], s["hidden"], s["vocab"], 1)
+    return dict(
+        attention_ms=cs.cuda_ms(lambda: [
+            additive_attention.additive_attention(*args) for args in calls],
+            repeats * 5),
+        block_ms=cs.cuda_ms(lambda: decode_block.fused_decode_block(
+            *block_args, num_steps=cs.EXIT_CHECK_EVERY, eos_idx=2),
+            max(1, repeats // 2)))
+
+
 def end_to_end_times(cs, repeats):
     """Milliseconds of one fused training step (batch 200, from the
     fixture's checkpoint) and of the block decode of 4096 dev examples."""
@@ -230,6 +255,7 @@ def main():
     shapes = dict(SHAPES, hidden=args.hidden, m_v=args.m_v)
     with torch.no_grad(), full_float32():
         times = kernel_times(cs, shapes, args.repeats)
+        times.update(decode_kernel_times(cs, shapes, args.repeats))
     if args.end_to_end:
         times.update(end_to_end_times(cs, args.repeats // 2))
     print(json.dumps(dict(label=args.label, package=str(root), sets=args.set,

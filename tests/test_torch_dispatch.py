@@ -8,10 +8,6 @@
   ``train_step_body`` at the bars of tests/test_torch_train.py and
   tests/test_torch_greedy.py; a teacher-forced unroll of two decoder layers
   is refused, naming ROADMAP A13.
-- Before any launch, each kernel's wrapper decides from the shapes whether
-  the kernel takes them (``attention_limit``, ``kernel_limit``); a CUDA call
-  with shapes it does not take raises, naming the limit and the plain
-  paths that take any shapes.
 - ``train`` refuses, by name, each keyword that the port does not honour.
 """
 
@@ -48,8 +44,6 @@ from multimodal_seq2seq_gscan_tpu_torch.models.config import (
     ModelConfig, decoder_impl)
 from multimodal_seq2seq_gscan_tpu_torch.models.params import (
     leaves, params_from_numpy)
-from multimodal_seq2seq_gscan_tpu_torch.ops import additive_attention as k1
-from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
 from multimodal_seq2seq_gscan_tpu_torch.train.loop import train
 from multimodal_seq2seq_gscan_tpu_torch.train.state import (
     Adam, AdamState, TrainState, create_train_state)
@@ -175,35 +169,6 @@ def test_two_layer_decoder_decodes_as_jax_and_refuses_teacher_forcing():
     state = create_train_state(0, config, Adam(), device="cpu")
     with pytest.raises(NotImplementedError, match="A13"):
         train_step(state, batch, config, Adam())
-
-
-# ---------------------------------------------------------------------------
-# C.5: shapes over the kernels' limits
-# ---------------------------------------------------------------------------
-
-def test_kernel_shape_limits():
-    assert k1.attention_limit(36, 100) is None
-    assert k1.attention_limit(64, 128) is None
-    assert "81" in k1.attention_limit(81, 100)     # a 9x9 grid
-    assert "136" in k1.attention_limit(16, 136)
-    assert k1.attention_limit(0, 100) is not None
-    # Both teacher-forced kernels share the attention rows' limits (kernel
-    # 4's shared memory is read from its library, on the card).
-    for kernel in ("teacher_forced_forward", "teacher_forced_backward"):
-        assert "81" in tf.kernel_limit(kernel, 16, 81, 100, 100, 9)
-        assert "136" in tf.kernel_limit(kernel, 16, 36, 136, 136, 9)
-        assert "65" in tf.kernel_limit(kernel, 65, 36, 100, 100, 9)
-    assert tf.kernel_limit("teacher_forced_forward", 16, 36, 100, 100,
-                           9) is None
-    assert tf.kernel_limit("teacher_forced_forward", 16, 36, 128, 128,
-                           9) is None
-
-
-def test_refuse_shapes_names_the_limit_and_the_plain_paths():
-    with pytest.raises(ValueError, match="M=81 keys") as error:
-        k1.refuse_shapes("additive_attention", k1.attention_limit(81, 100))
-    assert "block_plain" in str(error.value)
-    assert "teacher_forced_impl='plain'" in str(error.value)
 
 
 # ---------------------------------------------------------------------------

@@ -15,11 +15,12 @@ teacher-forced logits rtol/atol 1e-5, summed attention rtol 1e-5 / atol
 (tests/test_pallas_teacher_forced.py), with kernel 4 and its weight-gradient
 helper bit-identical from run to run (also at ragged shapes: B=203, T=1, a
 row-step count that is not a multiple of the helper's chunks, fewer rows
-than one cluster). Shapes over the kernels' limits (H=136, M_v=81; kernel
-4's shared memory at H=E=128) raise before any launch. Kernel 1's
-gradients (its backward is the plain ``attention_vjp_plain``) match
-autograd through its plain version at rtol 1e-4 / atol 1e-5, the bar of
-float32 sums in two orders.
+than one cluster). Every kernel also takes shapes past the
+register-resident attention and past the resident weight slices of kernels
+3 and 4 (a 9x9 grid, H=E=136, H=E=256 with M_t=72 and a 12x12 grid), at the
+same bars. Kernel 1's gradients (its backward is the plain
+``attention_vjp_plain``) match autograd through its plain version at rtol
+1e-4 / atol 1e-5, the bar of float32 sums in two orders.
 """
 
 import numpy as np
@@ -314,47 +315,110 @@ def test_kernel4_and_helper_match_plain_twins(cuda, batch, steps, num_steps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,m_v", [(136, 36), (100, 81), (128, 36)])
-def test_shapes_over_the_limits_are_refused(cuda, h, m_v):
-    """H = 136 (over kMaxH = 128), a 9x9 grid (M_v = 81, over kMaxM = 64)
-    and H = E = 128 (kernel 4's weight slices over the card's shared memory
-    per CTA): each wrapper whose kernel does not take the shapes raises,
-    naming the limit, and launches nothing; at H = E = 128 kernels 1-3
-    still run and equal their plain versions."""
+@pytest.mark.parametrize("steps", [53, 56])
+def test_forward_kernel_matches_plain(cuda, steps):
+    """Kernel 3 at the training shapes (B=200, num_steps=53; T=56 has 3 pad
+    steps) against its plain version: logits rtol/atol 1e-5 and the summed
+    attention rtol 1e-5 / atol 1e-6 (the JAX tests' bars), the residual
+    state at the logits' bar; run twice, every bit the same."""
     from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
-    batch, steps, num_steps = 6, 4, 3
-    inputs, (dlogits, g_asum) = teacher_forced_inputs(
-        cuda, batch, steps, num_steps, m_v=m_v, h=h, seed=7)
-    over = k1.attention_limit(m_v, h) is not None
-    limit = "H={}".format(h) if h != 100 else "M={}".format(m_v)
-    pq = torch.randn(batch, h, device=cuda)
-    block_args = (inputs[0], inputs[1], inputs[2], inputs[3], inputs[4],
-                  torch.ones(batch, dtype=torch.int32, device=cuda),
-                  torch.zeros(batch, dtype=torch.bool, device=cuda),
-                  inputs[7])
-    bwd_args = (inputs[0], inputs[1], inputs[2], inputs[5], inputs[6],
-                inputs[7])
-    res = tf.teacher_forced_forward_plain(*inputs, num_steps=num_steps)
+    num_steps = 53
+    inputs, _ = teacher_forced_inputs(cuda, 200, steps, num_steps, seed=steps)
+    before = tf.launches["teacher_forced_forward"]
+    got = tf.teacher_forced_forward(*inputs, num_steps=num_steps)
+    again = tf.teacher_forced_forward(*inputs, num_steps=num_steps)
+    torch.cuda.synchronize()
+    assert tf.launches["teacher_forced_forward"] == before + 2
+    want = tf.teacher_forced_forward_plain(*inputs, num_steps=num_steps)
+    torch.testing.assert_close(got[0][:num_steps], want[0][:num_steps],
+                               rtol=1e-5, atol=1e-5)
+    for name, a, b in zip(("h_res", "c_res"), got[1:3], want[1:3]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=name)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-6)
+    for first, second in zip(got, again):
+        assert torch.equal(first, second)
+
+
+# Shapes past the attention's register-resident form (M <= 64, H <= 128)
+# and past kernels 3 and 4 holding the weight slices in shared memory.
+WIDE_SHAPES = {
+    "W1": dict(h=100, m_t=16, m_v=81),    # a 9x9 grid
+    "W2": dict(h=136, m_t=16, m_v=36),
+    "W3": dict(h=256, m_t=72, m_v=144),   # masks over 64 keys, a 12x12 grid
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WIDE_SHAPES))
+def test_wide_shapes_match_plain(cuda, name):
+    """Kernels 1-4 and the helper at a wide shape: each wrapper launches its
+    kernel (its count rises) and meets the JAX bars against its plain
+    version (attention context atol 1e-5, weights atol 1e-6; decode-block
+    tokens equal, attention, h and c rtol 1e-5 / atol 1e-6; teacher-forced
+    logits rtol/atol 1e-5, summed attention atol 1e-6, gradients rtol 2e-4
+    / atol 2e-5); kernels 3 and 4 and the helper are bit-identical on a
+    rerun."""
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    shape = WIDE_SHAPES[name]
+    h, m_t, m_v = shape["h"], shape["m_t"], shape["m_v"]
     before = (k1.launches, k2.launches, dict(tf.launches))
-    with torch.no_grad():
-        calls = [
-            ("additive_attention", lambda: k1.additive_attention(
-                pq, inputs[2], None, inputs[7].vis_ew)),
-            ("fused_decode_block", lambda: k2.fused_decode_block(
-                *block_args, num_steps=3, eos_idx=2)),
-            ("teacher_forced_forward", lambda: tf.teacher_forced_forward(
-                *inputs, num_steps=num_steps))]
-        for name, call in calls:
-            if over:
-                with pytest.raises(ValueError, match=limit):
-                    call()
-        with pytest.raises(ValueError, match=limit if over
-                           else "shared memory"):
-            tf.teacher_forced_backward(*bwd_args, res[1], res[2], dlogits,
-                                       g_asum, num_steps=num_steps)
-        torch.cuda.synchronize()
-        assert (k1.launches, k2.launches, dict(tf.launches)) == before
-        if not over:
-            got = tf.teacher_forced_forward(*inputs, num_steps=num_steps)
-            for a, b in zip(got, res):
-                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+    # Kernel 1: the commands (masked, lengths 0..M_t) and the grid.
+    for m, lengths in ((m_t, np.random.RandomState(1).randint(
+            0, m_t + 1, size=96)), (m_v, None)):
+        pq, keys, mask, energy = [
+            None if a is None else torch.from_numpy(a).to(cuda)
+            for a in attention_inputs(2, 96, m, h, lengths)]
+        ctx, w = k1.additive_attention(pq, keys, mask, energy)
+        ctx_ref, w_ref = k1.additive_attention_plain(pq, keys, mask, energy)
+        torch.testing.assert_close(ctx, ctx_ref, rtol=0, atol=1e-5)
+        torch.testing.assert_close(w, w_ref, rtol=0, atol=1e-6)
+
+    # Kernel 2: one block of 8 steps.
+    inputs, (w_log, w_asum) = teacher_forced_inputs(
+        cuda, 37, 6, 5, m_t=m_t, m_v=m_v, h=h, seed=h + m_v)
+    block_args = (inputs[0], inputs[1], inputs[2], inputs[3], inputs[4],
+                  torch.ones(37, dtype=torch.int32, device=cuda),
+                  torch.zeros(37, dtype=torch.bool, device=cuda), inputs[7])
+    out = k2.fused_decode_block(*block_args, num_steps=8, eos_idx=2)
+    ref = k2.decode_block_plain(*block_args, num_steps=8, eos_idx=2)
+    for field in ("tokens", "done", "step_tokens", "step_emitted"):
+        assert torch.equal(getattr(out, field), getattr(ref, field)), field
+    for field in ("step_attn_cmd", "step_attn_sit", "h", "c"):
+        torch.testing.assert_close(getattr(out, field), getattr(ref, field),
+                                   rtol=1e-5, atol=1e-6, msg=field)
+
+    # Kernels 3, 4 and the helper against the plain unroll's autograd.
+    num_steps = 5
+    logits, h_res, c_res, asum = tf.teacher_forced_forward(
+        *inputs, num_steps=num_steps)
+    leaves = [x.clone().requires_grad_(True) for x in
+              (inputs[0], inputs[2], inputs[3], inputs[4], *inputs[7])]
+    ref_logits, ref_asum = tf.teacher_forced_plain(
+        leaves[0], inputs[1], leaves[1], leaves[2], leaves[3], inputs[5],
+        inputs[6], k2.DecoderWeights(*leaves[4:]), num_steps=num_steps)
+    torch.testing.assert_close(logits[:num_steps], ref_logits[:num_steps],
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(asum, ref_asum, rtol=1e-5, atol=1e-6)
+    dlogits = torch.zeros_like(logits)
+    dlogits[:num_steps] = w_log[:num_steps]
+    ref_grads = torch.autograd.grad(
+        (ref_logits * dlogits).sum() + (ref_asum * w_asum).sum(), leaves)
+    raw, grads, _ = kernel4_and_helper(inputs, dlogits, w_asum, num_steps)
+    names = ["proj_txt", "proj_vis", "h0", "c0"] + list(
+        k2.DecoderWeights._fields)
+    for field, got, want in zip(names, raw[:4] + grads, ref_grads):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5,
+                                   msg=field)
+    forward_again = tf.teacher_forced_forward(*inputs, num_steps=num_steps)
+    raw_again, grads_again, _ = kernel4_and_helper(inputs, dlogits, w_asum,
+                                                   num_steps)
+    for first, second in zip(
+            [logits, h_res, c_res, asum] + raw + grads,
+            list(forward_again) + raw_again + grads_again):
+        assert torch.equal(first, second)
+
+    after = (k1.launches, k2.launches, dict(tf.launches))
+    assert after[0] == before[0] + 2 and after[1] == before[1] + 1
+    for kernel, count in after[2].items():
+        assert count > before[2][kernel], kernel
