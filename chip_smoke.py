@@ -4,9 +4,12 @@
     python3 chip_smoke.py        # from the root of a checkout; needs one card
 
 It builds the port's CUDA kernels from ``multimodal_seq2seq_gscan_tpu_torch/
-csrc`` (one ``nvcc`` call into ``build/torch_kernels/``), holds each kernel
-against its plain PyTorch version on the card at the shapes of the main path,
-then drives the main path: the trained fixture checkpoint
+csrc`` (one ``nvcc`` per source, all at once, into ``build/torch_kernels/``),
+holds each kernel against its plain PyTorch version on the card at the shapes
+of the main path (kernel 2 on both launches of the fixture's decode: from
+SOS, and from the state after the first block, most rows done at entry; and
+on random weights from SOS and with 90% of the rows done at entry), then
+drives the main path: the trained fixture checkpoint
 (``data/bench_fixture/model_best.msgpack``) greedily decodes the fixture's
 4096 dev examples at batch 4096 (120-step cap, early exit checked every 32
 steps), once through kernel 2 (the decode block) and once through its plain
@@ -24,7 +27,10 @@ path resumes training from the fixture checkpoint for 20 steps at batch 200
 through ``train()`` (kernels 3 and 4, then a dev decode through kernel 2),
 round-trips the checkpoint, and compares 5 steps of the kernel path with
 the plain path. Then it times each kernel and its plain version with CUDA
-events, the full decode and the train step.
+events (kernel 2 on both of the fixture's blocks, each beside its own bound),
+the full decode and the train step, and profiles one decode and three train
+steps with torch.profiler (device busy share; for the decode, kernel 2's and
+the encoder's device time).
 
 Every phase prints its wall time. Any failure raises, so the exit code is not
 0 and the final line is not printed. The last lines are: the card's name and
@@ -332,6 +338,45 @@ def profile_train_step(step, sync, repeats=3):
             e.key[:90]))
 
 
+def profile_decode(decode, encode, sync):
+    """Device busy share of one greedy decode, by torch.profiler, and where
+    its device time goes: kernel 2, the encoder (``encode``, profiled
+    alone) and the rest; says so if it sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(fn):
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            fn()
+            sync()
+            wall_ms = (time.perf_counter() - start) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        return wall_ms, events, sum(e.self_device_time_total
+                                    for e in events) / 1e3
+
+    wall_ms, events, device_ms = window(decode)
+    if device_ms <= 0:
+        print("profile: torch.profiler saw no device time (not measured)")
+        return
+    block_ms = sum(e.self_device_time_total for e in events
+                   if "decode_block_kernel" in e.key) / 1e3
+    encoder_ms = window(encode)[2]
+    print("profile of one block decode: wall {:.3f} ms, device busy {:.3f} "
+          "ms ({:.1f}%), {} device kernels; device time: kernel 2 {:.3f} "
+          "ms, the encoder {:.3f} ms (profiled alone), the rest {:.3f} "
+          "ms".format(wall_ms, device_ms, 100 * device_ms / wall_ms,
+                      sum(e.count for e in events), block_ms, encoder_ms,
+                      device_ms - block_ms - encoder_ms))
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print("  {:>9.3f} ms  x{:<4d} {}".format(
+            e.self_device_time_total / 1e3, e.count, e.key[:90]))
+
+
 def random_attention_inputs(gen, device, batch, m, h, masked):
     """The JAX attention test's input distribution at the given shape:
     N(0, 1) queries and keys, an N(0, 1/H) energy vector, valid lengths
@@ -349,11 +394,13 @@ def random_attention_inputs(gen, device, batch, m, h, masked):
     return pq, keys, mask, energy
 
 
-def random_block_inputs(gen, device, batch, m_t, m_v, h, vocab, sos):
+def random_block_inputs(gen, device, batch, m_t, m_v, h, vocab, sos,
+                        done_fraction=0.0):
     """Decode-block inputs at the given shape: decoder weights drawn as the
     JAX package initialises them (uniform in +-1/sqrt(fan_in), LSTM
     +-1/sqrt(H), embedding N(0, 1) with the pad row zeroed), N(0, 1) keys,
-    command lengths uniform in 1..M_t, h = c = tanh(N(0, 1)), all at SOS."""
+    command lengths uniform in 1..M_t, h = c = tanh(N(0, 1)), all at SOS;
+    each row done at entry with probability ``done_fraction``."""
     import torch
     from multimodal_seq2seq_gscan_tpu_torch.ops.decode_block import (
         DecoderWeights)
@@ -376,11 +423,41 @@ def random_block_inputs(gen, device, batch, m_t, m_v, h, vocab, sos):
                             device=device)
     mask = (torch.arange(m_t, device=device)[None] < lengths[:, None]).float()
     h0 = torch.tanh(torch.randn(batch, h, generator=gen, device=device))
-    return (torch.randn(batch, m_t, h, generator=gen, device=device), mask,
+    args = (torch.randn(batch, m_t, h, generator=gen, device=device), mask,
             torch.randn(batch, m_v, h, generator=gen, device=device), h0,
             h0.clone(),
-            torch.full((batch,), sos, dtype=torch.int32, device=device),
-            torch.zeros((batch,), dtype=torch.bool, device=device), weights)
+            torch.full((batch,), sos, dtype=torch.int32, device=device))
+    done = torch.zeros((batch,), dtype=torch.bool, device=device)
+    if done_fraction > 0:
+        done = torch.rand(batch, generator=gen, device=device) < done_fraction
+    return args + (done, weights)
+
+
+def fixture_blocks(params, config, batch):
+    """The fixture's two decode blocks as kernel 2 takes them, the arguments
+    of ``fused_decode_block``: block 1 from SOS, and block 2 from the plain
+    version's state after block 1 (most rows done at entry)."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.models import model
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    device = batch.input_ids.device
+    with torch.no_grad():
+        encoded = model.encode_input(params, config, batch.input_ids,
+                                     batch.input_lengths, batch.situations)
+        proj_txt, proj_vis = (x.contiguous() for x in
+                              model.project_keys(params, encoded))
+        h0, c0 = (s[0].contiguous() for s in model.initialize_decoder_hidden(
+            params, config, encoded.hidden))
+        weights = k2.pack_decoder_weights(params, config.target_pad_idx)
+        rows = proj_txt.shape[0]
+        first = (proj_txt, encoded.command_mask.contiguous(), proj_vis, h0,
+                 c0, torch.full((rows,), config.target_sos_idx,
+                                dtype=torch.int32, device=device),
+                 torch.zeros((rows,), dtype=torch.bool, device=device),
+                 weights)
+        state = k2.decode_block_plain(*first, num_steps=EXIT_CHECK_EVERY,
+                                      eos_idx=config.target_eos_idx)
+    return first, first[:3] + tuple(state[:4]) + (weights,)
 
 
 def block_pair(label, args, eos_idx):
@@ -570,12 +647,12 @@ def hold_attention(label, args):
     return err
 
 
-def hold_decode_block(label, args, eos_idx):
+def hold_decode_block(label, args, eos_idx, bars=True):
     """One K=32 block of kernel 2 against its plain version (tokens equal
-    apart from near-ties; attention, h and c rtol 1e-5 / atol 1e-6) and,
-    on the rows where float64 takes the same tokens, against float64.
-    Returns (the largest excess over the bar's atol part, the emitting
-    row-steps of the block)."""
+    apart from near-ties; with ``bars``, attention, h and c rtol 1e-5 /
+    atol 1e-6) and, on the rows where float64 takes the same tokens,
+    against float64. Returns (the largest error against the plain version,
+    the emitting row-steps of the block)."""
     from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
     out, ref, same = block_pair(label, args, eos_idx)
     exact = k2.decode_block_plain(*as_float64(args),
@@ -584,8 +661,9 @@ def hold_decode_block(label, args, eos_idx):
     err = 0.0
     for name in ("step_attn_cmd", "step_attn_sit", "h", "c"):
         got, want = rows_of(out, name, same), rows_of(ref, name, same)
-        err = max(err, check_close("{} {}".format(label, name), got, want,
-                                   1e-5, 1e-6))
+        if bars:
+            err = max(err, check_close("{} {}".format(label, name), got,
+                                       want, 1e-5, 1e-6))
         against_float64("{} {}".format(label, name),
                         rows_of(out, name, agree), rows_of(ref, name, agree),
                         rows_of(exact, name, agree))
@@ -687,11 +765,14 @@ def wide_shape_rows(gen, device, vocab, sos_idx, eos_idx):
 
         weights_bytes = sum(w.numel() * 4 for w in block_args[7])
         times = [
-            ("additive_attention", cuda_ms(both(k1.additive_attention), 20),
+            ("additive_attention",
+             cuda_ms(both(k1.additive_attention), 20),
              cuda_ms(both(k1.additive_attention_plain), 3),
              bound_ms(*(sum(x) for x in zip(
                  attention_work(BATCH, w_m_t, h, True),
-                 attention_work(BATCH, w_m_v, h, False)))), "-"),
+                 attention_work(BATCH, w_m_v, h, False)))),
+             "from a CUDA graph {:.4f} ms".format(
+                 graph_ms(both(k1.additive_attention), 20))),
             ("decode_block", cuda_ms(lambda: k2.fused_decode_block(
                 *block_args, num_steps=EXIT_CHECK_EVERY,
                 eos_idx=eos_idx), 3),
@@ -700,7 +781,9 @@ def wide_shape_rows(gen, device, vocab, sos_idx, eos_idx):
                  eos_idx=eos_idx), 1, warmup=1),
              bound_ms(*decode_block_work(
                  BATCH, w_m_t, w_m_v, h, vocab, EXIT_CHECK_EVERY,
-                 weights_bytes, row_steps)), "-")]
+                 weights_bytes, row_steps)),
+             "plan {}: {} rows per CTA, {}-float weight slots".format(
+                 *k2.block_plan(h, vocab, w_m_t, w_m_v, index)))]
         del calls, block_args
         inputs, (dlogits, g_asum) = random_teacher_forced_inputs(
             gen, device, TRAIN_BATCH, TRAIN_T, TRAIN_T - 3, w_m_t, w_m_v,
@@ -739,8 +822,8 @@ def wide_shape_rows(gen, device, vocab, sos_idx, eos_idx):
              bound_ms(*work[2]), "-")]
         del inputs, dlogits, g_asum, h_res, c_res, stash
         for kernel, ms, plain_ms, bound, plan in times:
-            plan_text = plan if plan == "-" else "plan {} ({}, {} bytes " \
-                "per CTA)".format(*plan)
+            plan_text = plan if isinstance(plan, str) else "plan {} ({}, " \
+                "{} bytes per CTA)".format(*plan)
             print("{} {}: {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms "
                   "({}); {}".format(label, kernel, ms, plain_ms, *bound,
                                     plan_text))
@@ -829,7 +912,8 @@ def main():
         print("library: {}".format(_build.library_path))
         print("build seconds: {:.2f}".format(_build.build_seconds))
         for line in _build.build_log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(word in line for word in ("registers", "spill", "error",
+                                             "compiled in")):
                 print("  ptxas: " + line.strip())
 
     with phase("load fixture"), full_float32():
@@ -847,24 +931,14 @@ def main():
         batch = batch.to(device)
         require(len(indices) == BATCH, "fixture has {} dev examples, "
                 "expected {}".format(len(indices), BATCH))
-        with torch.no_grad():
-            encoded = model.encode_input(params, config, batch.input_ids,
-                                         batch.input_lengths,
-                                         batch.situations)
-            proj_txt, proj_vis = model.project_keys(params, encoded)
-            proj_txt, proj_vis = proj_txt.contiguous(), proj_vis.contiguous()
-            cmd_mask = encoded.command_mask.contiguous()
-            h0, c0 = (s[0].contiguous() for s in
-                      model.initialize_decoder_hidden(params, config,
-                                                      encoded.hidden))
-        weights = k2.pack_decoder_weights(params, config.target_pad_idx)
+        block_args, block2_args = fixture_blocks(params, config, batch)
+        proj_txt, cmd_mask, proj_vis, h0, c0 = block_args[:5]
+        weights = block_args[7]
         m_t, m_v, hidden = proj_txt.shape[1], proj_vis.shape[1], h0.shape[1]
         vocab = weights.embedding.shape[0]
-        sos = torch.full((BATCH,), config.target_sos_idx, dtype=torch.int32,
-                         device=device)
-        not_done = torch.zeros((BATCH,), dtype=torch.bool, device=device)
-        print("examples {}, M_t {}, M_v {}, H {}, V {}".format(
-            len(indices), m_t, m_v, hidden, vocab))
+        print("examples {}, M_t {}, M_v {}, H {}, V {}; done at entry to "
+              "block 2: {}".format(len(indices), m_t, m_v, hidden, vocab,
+                                   int(block2_args[6].sum())))
 
     with phase("kernels against their plain versions"), torch.no_grad(), \
             full_float32():
@@ -897,27 +971,28 @@ def main():
                     args[1].shape[1], name), got, want, truth)
 
         # Kernel 2, (a): weights drawn as the JAX package initialises them,
-        # one block of K=32 steps from SOS, the JAX decode test's bars (its
-        # attention bar applied to the carried h and c as well).
-        block_err, _ = hold_decode_block(
-            "decode_block random", random_block_inputs(
+        # one block of K=32 steps from SOS and one entered with 90% of the
+        # rows done (as a decode's second block is), the JAX decode test's
+        # bars (its attention bar applied to the carried h and c as well).
+        block_err = max(
+            hold_decode_block(label, random_block_inputs(
                 gen, device, BATCH, m_t, m_v, hidden, vocab,
-                config.target_sos_idx), config.target_eos_idx)
+                config.target_sos_idx, done_fraction),
+                config.target_eos_idx)[0]
+            for label, done_fraction in (
+                ("decode_block random", 0.0),
+                ("decode_block random, 90% done at entry", 0.9)))
 
-        # Kernel 2, (b): the fixture's first block, K=32 steps from SOS.
-        block_args = (proj_txt, cmd_mask, proj_vis, h0, c0, sos, not_done,
-                      weights)
-        out, ref, same = block_pair("decode_block fixture", block_args,
-                                    config.target_eos_idx)
-        exact = k2.decode_block_plain(*as_float64(block_args),
-                                      num_steps=EXIT_CHECK_EVERY,
-                                      eos_idx=config.target_eos_idx)
-        same &= (exact.step_tokens == ref.step_tokens).all(dim=0)
-        for name in ("step_attn_cmd", "step_attn_sit", "h", "c"):
-            against_float64("decode_block fixture {}".format(name),
-                            rows_of(out, name, same), rows_of(ref, name, same),
-                            rows_of(exact, name, same))
-        first_block_row_steps = int(ref.step_emitted.sum())
+        # Kernel 2, (b): the fixture's two blocks of K=32 steps, from SOS
+        # and from the plain version's state after the first, held to
+        # float64: on the fixture float32 rounding alone puts the plain
+        # version about ten times the JAX bars from float64.
+        block_row_steps = [
+            hold_decode_block("decode_block fixture block {}".format(i + 1),
+                              args, config.target_eos_idx, bars=False)[1]
+            for i, args in enumerate((block_args, block2_args))]
+        print("emitting row-steps of the fixture's blocks: {}".format(
+            block_row_steps))
 
     with phase("teacher-forced kernels against their plain versions"), \
             torch.no_grad(), full_float32():
@@ -1272,7 +1347,13 @@ def main():
         def both_attention(fn):
             return lambda: [fn(*args) for args in attention_calls]
 
+        # Launched from the host, as every kernel is timed; beside it the
+        # device's time from a CUDA graph (a call takes less device time
+        # than the wrapper's host time, so the host-timed figure is partly
+        # the host's).
         attention_ms = cuda_ms(both_attention(k1.additive_attention), 50)
+        attention_graph_ms = graph_ms(both_attention(k1.additive_attention),
+                                      50)
         # The same launches through the autograd.Function, the wrapper's
         # path when a gradient is wanted: its host cost beside the direct
         # launch's.
@@ -1280,12 +1361,20 @@ def main():
             both_attention(k1.AdditiveAttention.apply), 50)
         attention_plain_ms = cuda_ms(
             both_attention(k1.additive_attention_plain), 20)
-        block_ms = cuda_ms(lambda: k2.fused_decode_block(
-            *block_args, num_steps=EXIT_CHECK_EVERY,
-            eos_idx=config.target_eos_idx), 10)
-        block_plain_ms = cuda_ms(lambda: k2.decode_block_plain(
-            *block_args, num_steps=EXIT_CHECK_EVERY,
-            eos_idx=config.target_eos_idx), 3, warmup=1)
+        weights_bytes = sum(w.numel() * 4 for w in weights)
+        block_times = []  # (ms, plain ms, bound) of the fixture's blocks
+        for args, row_steps in zip((block_args, block2_args),
+                                   block_row_steps):
+            block_times.append((
+                cuda_ms(lambda: k2.fused_decode_block(
+                    *args, num_steps=EXIT_CHECK_EVERY,
+                    eos_idx=config.target_eos_idx), 10),
+                cuda_ms(lambda: k2.decode_block_plain(
+                    *args, num_steps=EXIT_CHECK_EVERY,
+                    eos_idx=config.target_eos_idx), 3, warmup=1),
+                bound_ms(*decode_block_work(
+                    BATCH, m_t, m_v, hidden, vocab, EXIT_CHECK_EVERY,
+                    weights_bytes, row_steps))))
         decode_ms = cuda_ms(lambda: decode_kernel(params, *inputs), 5,
                             warmup=1)
         decode_plain_ms = cuda_ms(lambda: decode_plain(params, *inputs), 2,
@@ -1297,23 +1386,24 @@ def main():
             model.initialize_decoder_hidden(params, config, encoded.hidden)
 
         encode_ms = cuda_ms(encode, 5, warmup=1)
+        profile_decode(lambda: decode_kernel(params, *inputs), encode, sync)
         attention_bytes, attention_flops = (
             sum(x) for x in zip(attention_work(BATCH, m_t, hidden, True),
                                 attention_work(BATCH, m_v, hidden, False)))
         attention_bound = bound_ms(attention_bytes, attention_flops)
-        weights_bytes = sum(w.numel() * 4 for w in weights)
-        block_bound = bound_ms(*decode_block_work(
-            BATCH, m_t, m_v, hidden, vocab, EXIT_CHECK_EVERY, weights_bytes,
-            first_block_row_steps))
         print("additive_attention (M={} masked + M={} unmasked, B={}): "
-              "{:.4f} ms, plain {:.4f} ms, bound {:.4f} ms ({}); through "
-              "its autograd.Function {:.4f} ms".format(
+              "{:.4f} ms, plain {:.4f} ms, bound {:.4f} ms ({}); from a "
+              "CUDA graph {:.4f} ms, through its autograd.Function {:.4f} "
+              "ms".format(
                   m_t, m_v, BATCH, attention_ms, attention_plain_ms,
-                  *attention_bound, attention_function_ms))
-        print("decode_block (K={}, B={}, {} emitting row-steps): {:.4f} ms, "
-              "plain {:.4f} ms, bound {:.4f} ms ({})".format(
-                  EXIT_CHECK_EVERY, BATCH, first_block_row_steps, block_ms,
-                  block_plain_ms, *block_bound))
+                  *attention_bound, attention_graph_ms,
+                  attention_function_ms))
+        for index, (ms, plain_ms, bound) in enumerate(block_times):
+            print("decode_block, the fixture's block {} (K={}, B={}, {} "
+                  "emitting row-steps): {:.4f} ms, plain {:.4f} ms, bound "
+                  "{:.4f} ms ({})".format(index + 1, EXIT_CHECK_EVERY, BATCH,
+                                          block_row_steps[index], ms,
+                                          plain_ms, *bound))
         print("full decode of {} examples: kernel path {:.3f} ms = {:.1f} "
               "ex/s; plain path {:.3f} ms = {:.1f} ex/s".format(
                   BATCH, decode_ms, BATCH / decode_ms * 1e3, decode_plain_ms,
@@ -1404,14 +1494,17 @@ def main():
          "launches": launches_step["additive_attention"],
          "max_abs_err": attention_err, "ms": attention_ms,
          "plain_ms": attention_plain_ms, "bound_ms": attention_bound[0],
-         "bound_by": attention_bound[1], "library_ms": None},
+         "bound_by": attention_bound[1], "library_ms": None,
+         "graph_ms": attention_graph_ms},
         {"name": "decode_block", "route": "cuda",
          "source": "multimodal_seq2seq_gscan_tpu_torch/csrc/decode_block.cu",
          "replaces": "multimodal_seq2seq_gscan_tpu/ops/pallas_decoder.py:149",
          "launches": launches_block["decode_block"],
-         "max_abs_err": block_err, "ms": block_ms,
-         "plain_ms": block_plain_ms, "bound_ms": block_bound[0],
-         "bound_by": block_bound[1], "library_ms": None},
+         "max_abs_err": block_err, "ms": block_times[0][0],
+         "plain_ms": block_times[0][1], "bound_ms": block_times[0][2][0],
+         "bound_by": block_times[0][2][1], "library_ms": None,
+         "block2_ms": block_times[1][0], "block2_plain_ms": block_times[1][1],
+         "block2_bound_ms": block_times[1][2][0]},
     ]
     tf_source = "multimodal_seq2seq_gscan_tpu_torch/csrc/teacher_forced.cu"
     tf_replaces = "multimodal_seq2seq_gscan_tpu/ops/pallas_teacher_forced.py"

@@ -35,10 +35,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: every pointer and the stream as c_void_p, every int as c_int.
 SIGNATURES = {
-    # pq, keys, mask (nullable), energy_w, ctx, weights, B, M, H, stream
-    "gscan_additive_attention": [_P] * 6 + [_I] * 3 + [_P],
-    # 7 state inputs, 12 weights, 8 outputs, B, Mt, Mv, H, V, K, eos, stream
-    "gscan_decode_block": [_P] * 27 + [_I] * 7 + [_P],
+    # pq, keys, mask (nullable), energy_w, ctx, weights, B, M, H, vec,
+    # stream
+    "gscan_additive_attention": [_P] * 6 + [_I] * 4 + [_P],
+    # 7 state inputs, 12 weights, 8 outputs, B, Mt, Mv, H, V, K, eos, plan,
+    # vec, stream
+    "gscan_decode_block": [_P] * 27 + [_I] * 9 + [_P],
     # 7 inputs, 12 weights, 4 outputs, B, T, num_steps, Mt, Mv, H, E, V,
     # plan, stream
     "gscan_teacher_forced_forward": [_P] * 23 + [_I] * 9 + [_P],
@@ -98,16 +100,20 @@ def build() -> Path:
         command = [nvcc] + COMPILE_FLAGS + ["-c", str(path), "-o", str(obj)]
         jobs.append((command, obj, log, subprocess.Popen(
             command, stdout=log, stderr=subprocess.STDOUT, text=True)))
-    logs, failed = [], []
-    for command, _, log, process in jobs:  # every process ends here
-        code = process.wait()
-        log.seek(0)
-        logs.append(log.read())
-        log.close()
-        os.remove(log.name)
-        if code != 0:
-            failed.append("nvcc failed ({}):\n{}\n{}".format(
-                code, " ".join(command), logs[-1]))
+    logs, failed, pending = [], [], list(jobs)
+    while pending:  # every process ends here
+        for job in [job for job in pending if job[3].poll() is not None]:
+            pending.remove(job)
+            command, _, log, process = job
+            log.seek(0)
+            logs.append("{}: compiled in {:.1f} s\n{}".format(
+                command[-3], time.perf_counter() - start, log.read()))
+            log.close()
+            os.remove(log.name)
+            if process.returncode != 0:
+                failed.append("nvcc failed ({}):\n{}\n{}".format(
+                    process.returncode, " ".join(command), logs[-1]))
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("\n".join(failed))
     partial = BUILD_DIR / "{}.partial".format(stem)
@@ -135,8 +141,14 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.gscan_decode_block_smem_bytes.argtypes = [_I] * 2
-        lib.gscan_decode_block_smem_bytes.restype = ctypes.c_longlong
+        # H, V, M_t, M_v, the bytes available, the bytes needed (out)
+        lib.gscan_decode_block_plan.argtypes = [_I] * 4 + [
+            ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)]
+        lib.gscan_decode_block_plan.restype = ctypes.c_int
+        for name in ("gscan_decode_block_plan_rows",
+                     "gscan_decode_block_plan_slot_floats"):
+            getattr(lib, name).argtypes = [_I]
+            getattr(lib, name).restype = ctypes.c_int
         # kernel, H, E, V, Mt, Mv, the bytes available, the bytes needed (out)
         lib.gscan_teacher_forced_plan.argtypes = [_I] * 6 + [
             ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)]

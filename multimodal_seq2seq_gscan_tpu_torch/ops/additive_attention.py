@@ -4,16 +4,17 @@ Replaces the TPU kernel ``multimodal_seq2seq_gscan_tpu/ops/pallas_attention.py``
 (``fused_additive_attention``). CUDA source: ``csrc/additive_attention.cu``,
 whose per-row body (``csrc/attend.cuh``) kernel 2 shares.
 
-On the H100 the function is bound by bytes: each projected key is read for
-its score and again for the context, with a handful of flops in between. The
-kernel keeps the ``[B, M, H]`` tanh intermediate in registers (one warp per
-row, lanes over H), so only the keys, the query and the two outputs touch
-device memory, and the second read of a row's keys comes from cache.
+On the H100 the function is bound by bytes: each projected key element
+takes a handful of flops. The kernel reads each key row from device memory
+once, 16 bytes per lane: one warp per row computes the scores and the
+context in the same pass by an online softmax (a running maximum and sum,
+the context rescaled when the maximum grows), keeping the ``[B, M, H]``
+tanh intermediate in registers, with many rows and keys in flight. Past
+H = 1024 the query and context no longer fit a lane's registers, and a row
+takes two passes over its keys instead (``attend_row_wide``).
 
 ``additive_attention`` is the wrapper: the plain version for CPU tensors, the
-kernel for CUDA tensors, at any M and H (M <= 64 and H <= 128 take the
-attention's register-resident form, other shapes its chunked form; the host
-picks). On the card, when a gradient is wanted, it runs as
+kernel for CUDA tensors, at any M and H. On the card, when a gradient is wanted, it runs as
 :class:`AdditiveAttention`, whose backward is the plain PyTorch port of the
 TPU kernel's analytic VJP (``_attention_bwd``; the TPU kernel has no
 backward kernel of its own either), so gradients flow through the kernel.
@@ -130,6 +131,7 @@ def _launch(projected_queries, projected_keys, mask, energy_w):
         tensors.append(("mask", mask, (batch, m)))
     for name, tensor, shape in tensors:
         check_tensor(name, tensor, shape, torch.float32, device)
+    vec = h % 4 == 0 and projected_keys.data_ptr() % 16 == 0
     context = torch.empty((batch, h), device=device, dtype=torch.float32)
     weights = torch.empty((batch, m), device=device, dtype=torch.float32)
     if batch == 0:
@@ -138,7 +140,7 @@ def _launch(projected_queries, projected_keys, mask, energy_w):
     code = lib.gscan_additive_attention(
         projected_queries.data_ptr(), projected_keys.data_ptr(),
         mask.data_ptr() if mask is not None else None, energy_w.data_ptr(),
-        context.data_ptr(), weights.data_ptr(), batch, m, h,
+        context.data_ptr(), weights.data_ptr(), batch, m, h, int(vec),
         torch.cuda.current_stream(device).cuda_stream)
     _build.check(code, "gscan_additive_attention")
     global launches

@@ -3,23 +3,44 @@
 Replaces the TPU kernel ``multimodal_seq2seq_gscan_tpu/ops/pallas_decoder.py``
 (``fused_decode_block``), with ``pack_decoder_weights`` from the same file.
 CUDA source: ``csrc/decode_block.cu`` (attention rows from
-``csrc/attend.cuh``).
+``csrc/attend.cuh``, shared with kernel 1).
 
-On the H100 a block launch is bound by operations: every row-step does about
-0.5 MFLOP of f32 products with ~1 MB of decoder weights, against ~21 KB of
-projected keys. The kernel gives each CTA 16 batch rows for all K steps, keeps
-their state and activations in shared memory, and runs threads over output
-features (never one thread per row), in four groups of 4 rows so that enough
-warps hide the latency of the weight loads from L2 (each element serves 4
-rows per read, and the CTA's other groups mostly hit L1). CTAs never
-communicate, so any grid size runs without deadlock.
+On the H100 a block launch is bound by operations: every emitting row-step
+does about 0.5 MFLOP of f32 products with ~1 MB of decoder weights, against
+~21 KB of projected keys, and a row that is done needs none of it. The
+kernel's design (the source note has the details):
+
+- the done-row rule: a done row's outputs are fixed (token and emitted 0,
+  h and c frozen, and both attention rows a function of the frozen h and the
+  keys), so it takes the attention part of one step, at its first done step
+  (step 0 if done at entry), and those two rows are copied to the rest of
+  the block, bit for bit what every step would compute; it never runs the
+  LSTM, the head or the argmax, and a CTA whose rows are all done stops;
+- rows are dealt to the CTAs emitting-first, round robin, so the few rows
+  still emitting in a decode's second block spread over every SM, and each
+  CTA keeps its emitting rows in the first slots (compacted every step);
+- the products run as register tiles (8 rows x 4 columns, each tile's
+  weight rows split over up to 16 threads and their sums added by shuffles)
+  over weight tiles streamed from L2 through a ring of 3 slots in shared
+  memory, filled by every thread's ``cp.async`` (16 bytes, or 4 where
+  H % 4 != 0 or a weight is not 16-byte aligned) two tiles ahead;
+- each attention row is one pass over its keys (the score and the context
+  together, by an online softmax), on one warp, or on several warps that
+  split the keys when few rows attend.
+
+A plan (``block_plan``, the source's plan table) picks 32, 16 or 8 rows per
+CTA and 32 or 16 KB ring slots: the first that fits the device's shared
+memory per CTA at these shapes.
 
 ``fused_decode_block`` is the wrapper: the plain version for CPU tensors, the
-kernel for CUDA tensors. The kernel takes any M and H; the wrapper raises,
-before any launch, only where the CTA's shared memory (9 H x 16 floats and
-the logits) exceeds what the device has.
+kernel for CUDA tensors. The kernel takes any M and V, and H up to where its
+shared memory fits (on the H100, H <= 448 at V = 9 and M <= 52); the
+wrapper raises, before any launch, where no plan fits the device's shared
+memory per CTA, or past H = 512 (one CTA's threads per gate unit).
 """
 
+import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -30,6 +51,7 @@ from multimodal_seq2seq_gscan_tpu_torch.ops.additive_attention import (
     additive_attention_plain, check_tensor)
 
 launches = 0  # kernel launches, counted by the wrapper
+MAX_HIDDEN = 512  # H a plan takes (8 rows a CTA, a thread per gate unit)
 
 
 class DecoderWeights(NamedTuple):
@@ -142,6 +164,29 @@ def decode_block_plain(proj_textual: torch.Tensor, cmd_mask: torch.Tensor,
                        torch.stack(step_attn_sit))
 
 
+@functools.lru_cache(maxsize=None)
+def block_plan(hidden: int, vocab: int, m_t: int, m_v: int,
+               device_index: int) -> Tuple[int, int, int]:
+    """(index, batch rows per CTA, floats per weight-ring slot) of the plan
+    kernel 2 takes at these shapes on CUDA device ``device_index``: the
+    first of its plans (``csrc/decode_block.cu``, 32 rows a CTA and 32 KB
+    slots first) whose shared memory fits what the device allows a CTA.
+    Raises ``ValueError`` where none fits (naming the bytes needed and
+    available), or past ``MAX_HIDDEN``."""
+    have = _build.shared_memory_per_block(device_index)
+    need = ctypes.c_longlong(0)
+    lib = _build.library()
+    plan = lib.gscan_decode_block_plan(hidden, vocab, m_t, m_v, have,
+                                       ctypes.byref(need))
+    if plan < 0 and need.value > have:
+        _build.refuse_shared_memory("fused_decode_block", need.value, have)
+    if plan < 0:
+        raise ValueError("the fused_decode_block kernel takes H <= {}, got "
+                         "{}".format(MAX_HIDDEN, hidden))
+    return (plan, lib.gscan_decode_block_plan_rows(plan),
+            lib.gscan_decode_block_plan_slot_floats(plan))
+
+
 def fused_decode_block(proj_textual: torch.Tensor, cmd_mask: torch.Tensor,
                        proj_visual: torch.Tensor, h: torch.Tensor,
                        c: torch.Tensor, tokens: torch.Tensor,
@@ -200,17 +245,16 @@ def fused_decode_block(proj_textual: torch.Tensor, cmd_mask: torch.Tensor,
         empty((num_steps, batch, m_t)), empty((num_steps, batch, m_v)))
     if batch == 0:
         return out
-    lib = _build.library()
-    need = lib.gscan_decode_block_smem_bytes(hidden, vocab)
-    have = _build.shared_memory_per_block(_build.device_index(device))
-    if need > have:
-        _build.refuse_shared_memory("fused_decode_block", need, have)
-    code = lib.gscan_decode_block(
+    plan = block_plan(hidden, vocab, m_t, m_v,
+                      _build.device_index(device))[0]
+    vec = hidden % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (proj_textual, proj_visual, *weights))
+    code = _build.library().gscan_decode_block(
         proj_textual.data_ptr(), cmd_mask.data_ptr(), proj_visual.data_ptr(),
         h.data_ptr(), c.data_ptr(), tokens.data_ptr(), done.data_ptr(),
         *(weight.data_ptr() for weight in weights),
         *(tensor.data_ptr() for tensor in out),
-        batch, m_t, m_v, hidden, vocab, num_steps, eos_idx,
+        batch, m_t, m_v, hidden, vocab, num_steps, eos_idx, plan, int(vec),
         torch.cuda.current_stream(device).cuda_stream)
     _build.check(code, "gscan_decode_block")
     global launches

@@ -13,19 +13,27 @@ random inputs drawn as ``chip_smoke.py`` draws them, seed 0): kernel 3,
 kernel 4 and the weight-gradient helper; the helper and its library call
 (its 14 products as ``torch.matmul`` on staged operands) also as CUDA
 graphs; and, at the decode's batch of 4096, kernel 1 (a decoder step's two
-calls) and one 32-step launch of kernel 2. The measuring code is this
-checkout's ``chip_smoke.py``, so two checkouts are timed the same way.
+calls), one 32-step launch of kernel 2 from SOS on random inputs, and
+kernel 2 on the fixture's two blocks (``chip_smoke.fixture_blocks``: from
+SOS, and from the state after the first, most rows done). The measuring
+code is this checkout's ``chip_smoke.py``, so two checkouts are timed the
+same way.
 
 - ``--set NAME=VALUE`` (repeatable) builds a variant: DIR's package is
   copied to ``build/variants/LABEL/`` and each ``constexpr int NAME = ...;``
   of its CUDA sources is set to VALUE (for example ``kClusterThreads=256``
   or ``kHelperMinBlocks=2``).
+- ``--build-only`` builds and stops; a later run of the same checkout or
+  variant (same ``--label`` and ``--set``) reuses the build, so several
+  can build at once before they are timed in turns.
 - ``--hidden`` and ``--m-v`` change H (= E) and M_v. Where a kernel does not
   take the shapes, its plain version is timed instead (the cost of the plain
   path at those shapes).
 - ``--end-to-end`` also times one fused training step at batch 200 from the
   fixture's checkpoint and the block decode of the fixture's 4096 dev
-  examples, as ``chip_smoke.py`` does.
+  examples, as ``chip_smoke.py`` does, and prints the decode's profile
+  (``chip_smoke.profile_decode``: device busy share, kernel 2's and the
+  encoder's device time).
 
 Prints one JSON line, with the card's name and power limit. Compare two
 checkouts in one call, one process each, in turns: parent, change, change,
@@ -71,8 +79,8 @@ def variant_checkout(root, label, sets=(), patch=None):
     CUDA constants set (``NAME=VALUE``) and a patch of
     ``csrc/teacher_forced.cu`` applied; returns the copy's root."""
     dest = HERE / "build" / "variants" / label
-    if dest.exists():
-        shutil.rmtree(dest)
+    if (dest / PACKAGE).exists():  # its build/ stays: named by the sources
+        shutil.rmtree(dest / PACKAGE)
     shutil.copytree(Path(root) / PACKAGE, dest / PACKAGE,
                     ignore=shutil.ignore_patterns("__pycache__"))
     for assignment in sets:
@@ -157,9 +165,11 @@ def kernel_times(cs, s, repeats):
 
 def decode_kernel_times(cs, s, repeats):
     """Milliseconds of kernel 1 (a decoder step's two calls: M_t masked and
-    M_v unmasked) and of one kernel-2 block of 32 steps from SOS, at the
-    decode main path's batch of 4096 (random inputs as ``chip_smoke.py``
-    draws them, seed 0)."""
+    M_v unmasked; launched from the host, as ``chip_smoke.py``'s ``ms``,
+    and replayed from a CUDA graph)
+    and of one kernel-2 block of 32 steps from SOS, at the decode main
+    path's batch of 4096 (random inputs as ``chip_smoke.py`` draws them,
+    seed 0)."""
     import torch
     from multimodal_seq2seq_gscan_tpu_torch.ops import additive_attention
     from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block
@@ -170,29 +180,27 @@ def decode_kernel_times(cs, s, repeats):
              for m, masked in ((s["m_t"], True), (s["m_v"], False))]
     block_args = cs.random_block_inputs(gen, device, cs.BATCH, s["m_t"],
                                         s["m_v"], s["hidden"], s["vocab"], 1)
+    def attention():
+        return [additive_attention.additive_attention(*args)
+                for args in calls]
+
     return dict(
-        attention_ms=cs.cuda_ms(lambda: [
-            additive_attention.additive_attention(*args) for args in calls],
-            repeats * 5),
+        attention_ms=cs.cuda_ms(attention, repeats * 5),
+        attention_graph_ms=cs.graph_ms(attention, repeats * 5),
         block_ms=cs.cuda_ms(lambda: decode_block.fused_decode_block(
             *block_args, num_steps=cs.EXIT_CHECK_EVERY, eos_idx=2),
             max(1, repeats // 2)))
 
 
-def end_to_end_times(cs, repeats):
-    """Milliseconds of one fused training step (batch 200, from the
-    fixture's checkpoint) and of the block decode of 4096 dev examples."""
-    import numpy as np
+def fixture(cs):
+    """(params, config, the first 4096 dev examples as one batch, the train
+    split) of the fixture, on the card."""
     import torch
     from multimodal_seq2seq_gscan_tpu_torch.data.dataset import (
         GroundedScanDataset)
-    from multimodal_seq2seq_gscan_tpu_torch.decode import greedy
     from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
     from multimodal_seq2seq_gscan_tpu_torch.train.checkpoint import (
         load_checkpoint)
-    from multimodal_seq2seq_gscan_tpu_torch.train.loop import epoch_stream
-    from multimodal_seq2seq_gscan_tpu_torch.train.state import Adam
-    from multimodal_seq2seq_gscan_tpu_torch.train.step import train_step
     device = torch.device("cuda")
     data = str(cs.FIXTURE / "dataset.txt")
     train_set = GroundedScanDataset(data, str(cs.FIXTURE), split="train")
@@ -209,22 +217,59 @@ def end_to_end_times(cs, repeats):
         target_eos_idx=train_set.target_vocabulary.eos_idx)
     state, _ = load_checkpoint(str(cs.FIXTURE / "model_best.msgpack"),
                                device=device)
+    dev_batch, _ = next(dev_set.get_data_iterator(batch_size=cs.BATCH,
+                                                  pad_to_full_batch=True))
+    return state, config, dev_batch.to(device), train_set
+
+
+def fixture_block_times(cs, fix, repeats):
+    """Milliseconds of kernel 2 on the fixture's two decode blocks (from
+    SOS, and from the plain version's state after the first)."""
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block
+    state, config, dev_batch, _ = fix
+    blocks = cs.fixture_blocks(state.params, config, dev_batch)
+    return {"fixture_block{}_ms".format(i + 1): cs.cuda_ms(
+        lambda: decode_block.fused_decode_block(
+            *args, num_steps=cs.EXIT_CHECK_EVERY,
+            eos_idx=config.target_eos_idx), max(1, repeats // 2))
+        for i, args in enumerate(blocks)}
+
+
+def end_to_end_times(cs, fix, repeats):
+    """Milliseconds of one fused training step (batch 200, from the
+    fixture's checkpoint) and of the block decode of 4096 dev examples, and
+    the decode's profile (printed)."""
+    import numpy as np
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.decode import greedy
+    from multimodal_seq2seq_gscan_tpu_torch.models import model
+    from multimodal_seq2seq_gscan_tpu_torch.train.loop import epoch_stream
+    from multimodal_seq2seq_gscan_tpu_torch.train.state import Adam
+    from multimodal_seq2seq_gscan_tpu_torch.train.step import train_step
+    device = torch.device("cuda")
+    state, config, dev_batch, train_set = fix
     batch = next(epoch_stream(train_set, cs.TRAIN_BATCH,
                               np.random.default_rng(cs.SEED)))[0].to(device)
     optimizer = Adam()
     step_ms = cs.cuda_ms(lambda: train_step(state, batch, config, optimizer),
                          repeats, warmup=2)
-    dev_batch, _ = next(dev_set.get_data_iterator(batch_size=cs.BATCH,
-                                                  pad_to_full_batch=True))
-    dev_batch = dev_batch.to(device)
     decode = greedy.make_greedy_decoder(config, cs.MAX_DECODING_STEPS,
                                         cs.EXIT_CHECK_EVERY,
                                         decode_impl="block")
     inputs = (dev_batch.input_ids, dev_batch.input_lengths,
               dev_batch.situations, dev_batch.target_positions)
+
+    def encode():
+        encoded = model.encode_input(state.params, config, *inputs[:3])
+        model.project_keys(state.params, encoded)
+        model.initialize_decoder_hidden(state.params, config,
+                                        encoded.hidden)
+
     with torch.no_grad():
         decode_ms = cs.cuda_ms(lambda: decode(state.params, *inputs),
                                max(1, repeats // 2), warmup=1)
+        cs.profile_decode(lambda: decode(state.params, *inputs), encode,
+                          torch.cuda.synchronize)
     return dict(train_step_ms=step_ms, train_step_t=batch.target_ids.shape[1],
                 decode_ms=decode_ms)
 
@@ -238,6 +283,9 @@ def main():
     parser.add_argument("--hidden", type=int, default=SHAPES["hidden"])
     parser.add_argument("--m-v", type=int, default=SHAPES["m_v"])
     parser.add_argument("--end-to-end", action="store_true")
+    parser.add_argument("--build-only", action="store_true",
+                        help="build the checkout's (or variant's) kernels "
+                             "and stop, so that several build at once")
     args = parser.parse_args()
     root = Path(args.root).resolve()
     if args.set:
@@ -252,12 +300,22 @@ def main():
     from multimodal_seq2seq_gscan_tpu_torch.utils.precision import (
         full_float32)
     _build.library()
+    if args.build_only:
+        print("{}: built in {:.1f} s".format(args.label or root,
+                                             _build.build_seconds))
+        for line in _build.build_log.splitlines():
+            if any(word in line for word in ("compiled in", "Compiling entry",
+                                             "spill", "registers")):
+                print("  " + line.strip()[:150])
+        return 0
     shapes = dict(SHAPES, hidden=args.hidden, m_v=args.m_v)
+    fix = fixture(cs)
     with torch.no_grad(), full_float32():
         times = kernel_times(cs, shapes, args.repeats)
         times.update(decode_kernel_times(cs, shapes, args.repeats))
+        times.update(fixture_block_times(cs, fix, args.repeats))
     if args.end_to_end:
-        times.update(end_to_end_times(cs, args.repeats // 2))
+        times.update(end_to_end_times(cs, fix, args.repeats // 2))
     print(json.dumps(dict(label=args.label, package=str(root), sets=args.set,
                           shapes=shapes, card=card(), **times)))
     return 0

@@ -1,7 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of kernels 3 and 4 goes, phase by phase, on the card.
+"""Where the time of kernels 3 and 4, or of kernel 2, goes, phase by phase,
+on the card.
 
-    python3 scripts/torch_kernel_phases.py [--repeats R]
+    python3 scripts/torch_kernel_phases.py [--repeats R] [--kernel 2]
+
+With ``--kernel 2``: builds a copy with ``kPhaseTiming = 1`` in
+``csrc/decode_block.cu`` (``build/variants/decode-phase-timing``), in which
+thread 0 of every CTA of kernel 2 adds each phase's clock cycles to a
+counter (a phase ends at a barrier), and runs kernel 2 on the fixture's two
+decode blocks (``chip_smoke.fixture_blocks``) and on one 32-step block from
+SOS on random inputs, printing each phase's cycles per CTA-step and share.
+
+Without it:
 
 Builds a timed copy of the port's kernels in ``build/variants/phase-timing``
 (``scripts/kernel_phase_timing.patch`` applied to
@@ -46,14 +56,80 @@ KERNEL3 = {**STEP_FORWARD, **{
     8: "summed attention, logits' partial sums to the owners"}}
 
 
+DECODE_BLOCK = ("embedding, textual query", "textual attention",
+                "visual query, projected visual query", "visual attention",
+                "gate product and cell", "head product, carried h",
+                "logits", "argmax, retiring rows, compaction")
+
+
+def decode_block_phases(repeats):
+    """Kernel 2's phases (kPhaseTiming) on the fixture's blocks and on a
+    random block from SOS."""
+    import torch
+    from torch_kernel_ab import fixture, load_chip_smoke, variant_checkout
+    sys.path.insert(0, str(variant_checkout(ROOT, "decode-phase-timing",
+                                            ["kPhaseTiming=1"])))
+    cs = load_chip_smoke()
+    from multimodal_seq2seq_gscan_tpu_torch.ops import _build
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    from multimodal_seq2seq_gscan_tpu_torch.utils.precision import (
+        full_float32)
+    lib = _build.library()
+    lib.gscan_decode_block_phase_cycles.argtypes = [ctypes.c_void_p]
+    counters = (ctypes.c_ulonglong * (len(DECODE_BLOCK) + 4))()
+    device = torch.device("cuda")
+    state, config, dev_batch, _ = fixture(cs)
+    eos = config.target_eos_idx
+    with torch.no_grad(), full_float32():
+        gen = torch.Generator(device=device).manual_seed(0)
+        cases = [("fixture block {}".format(i + 1), args) for i, args in
+                 enumerate(cs.fixture_blocks(state.params, config,
+                                             dev_batch))]
+        cases.append(("random block from SOS", cs.random_block_inputs(
+            gen, device, cs.BATCH, 16, 36, 100, 9, 1)))
+        for label, args in cases:
+            def run():
+                k2.fused_decode_block(*args, num_steps=cs.EXIT_CHECK_EVERY,
+                                      eos_idx=eos)
+            run()
+            torch.cuda.synchronize()
+            _build.check(lib.gscan_decode_block_phase_cycles(counters),
+                         "phase read")
+            ms = cs.cuda_ms(run, repeats, warmup=0)
+            _build.check(lib.gscan_decode_block_phase_cycles(counters),
+                         "phase read")
+            cta_steps = counters[len(DECODE_BLOCK)]
+            total = sum(counters[:len(DECODE_BLOCK)])
+            print("{}; kernel 2, {} (timed build): {:.4f} ms per launch, "
+                  "{:.1f} CTA-steps per launch, {:.0f} cycles per "
+                  "CTA-step".format(cs.nvidia_smi_line(), label, ms,
+                                    cta_steps / repeats,
+                                    total / max(cta_steps, 1)))
+            for i, name in enumerate(DECODE_BLOCK):
+                print("  {:10.0f} cycles/CTA-step {:5.1f}%  {}".format(
+                    counters[i] / max(cta_steps, 1),
+                    100 * counters[i] / max(total, 1), name))
+            n = len(DECODE_BLOCK)
+            print("  of the products: {:.0f} cycles/CTA-step waiting for "
+                  "weight tiles, {:.0f} in the ring's barriers, {:.0f} "
+                  "issuing copies".format(
+                      *(counters[n + i] / max(cta_steps, 1)
+                        for i in (1, 2, 3))))
+    return 0
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--repeats", type=int, default=5)
+    parser.add_argument("--kernel", type=int, choices=(2, 3), default=3,
+                        help="2: kernel 2; 3 (default): kernels 3 and 4")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("torch_kernel_phases: needs a CUDA device", file=sys.stderr)
         return 1
+    if args.kernel == 2:
+        return decode_block_phases(args.repeats)
     from torch_kernel_ab import load_chip_smoke, variant_checkout
     sys.path.insert(0, str(variant_checkout(ROOT, "phase-timing",
                                             patch=PATCH)))

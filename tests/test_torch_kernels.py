@@ -18,7 +18,9 @@ row-step count that is not a multiple of the helper's chunks, fewer rows
 than one cluster). Every kernel also takes shapes past the
 register-resident attention and past the resident weight slices of kernels
 3 and 4 (a 9x9 grid, H=E=136, H=E=256 with M_t=72 and a 12x12 grid), at the
-same bars. Kernel 1's gradients (its backward is the plain
+same bars, and kernels 1 and 2 also where 16-byte loads do not apply
+(H % 4 != 0, or inputs 4 bytes past a 16-byte boundary) and kernel 1 past
+H = 1024. Kernel 1's gradients (its backward is the plain
 ``attention_vjp_plain``) match autograd through its plain version at rtol
 1e-4 / atol 1e-5, the bar of float32 sums in two orders.
 """
@@ -82,15 +84,16 @@ def test_attention_kernel_rejects_bad_input(cuda):
         k1.additive_attention(pq, keys, None, energy.cpu())
 
 
-@pytest.mark.cuda
-def test_decode_block_kernel_matches_plain(cuda):
-    """Flagship widths, random weights, B not a multiple of the CTA rows."""
-    batch, m_t, m_v, h, vocab, steps = 1000, 16, 36, 100, 9, 12
-    rng = np.random.RandomState(5)
+def block_inputs(device, batch, done_fraction, seed=5, h=100):
+    """Flagship widths (M_t=16, M_v=36, H=100, V=9; or another H), random
+    weights, command lengths in 1..M_t, all rows at SOS, each row done at
+    entry with probability ``done_fraction``."""
+    m_t, m_v, vocab = 16, 36, 9
+    rng = np.random.RandomState(seed)
 
     def t(*shape, scale=1.0):
         return torch.from_numpy(
-            (rng.randn(*shape) * scale).astype(np.float32)).to(cuda)
+            (rng.randn(*shape) * scale).astype(np.float32)).to(device)
 
     weights = k2.DecoderWeights(
         t(h, h, scale=0.1), t(h, 1, scale=0.1), t(2 * h, h, scale=0.07),
@@ -99,22 +102,130 @@ def test_decode_block_kernel_matches_plain(cuda):
         t(1, 4 * h, scale=0.1), t(4 * h, h, scale=0.05),
         t(h, vocab, scale=0.3))
     weights.embedding[0] = 0.0
-    lengths = torch.from_numpy(rng.randint(1, m_t + 1, size=batch)).to(cuda)
-    mask = (torch.arange(m_t, device=cuda)[None] < lengths[:, None]).float()
-    args = (t(batch, m_t, h), mask, t(batch, m_v, h), t(batch, h, scale=0.5),
+    lengths = torch.from_numpy(rng.randint(1, m_t + 1, size=batch)).to(device)
+    mask = (torch.arange(m_t, device=device)[None] < lengths[:, None]).float()
+    return (t(batch, m_t, h), mask, t(batch, m_v, h), t(batch, h, scale=0.5),
             t(batch, h, scale=0.5),
-            torch.full((batch,), 1, dtype=torch.int32, device=cuda),
-            torch.from_numpy(rng.rand(batch) < 0.1).to(cuda), weights)
+            torch.full((batch,), 1, dtype=torch.int32, device=device),
+            torch.from_numpy(rng.rand(batch) < done_fraction).to(device),
+            weights)
+
+
+def assert_block_matches(out, ref):
+    """The JAX decode test's bars: tokens, done and emitted flags equal;
+    attention (and here h and c) rtol 1e-5 / atol 1e-6."""
+    for name in ("tokens", "done", "step_tokens", "step_emitted"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    for name in ("step_attn_cmd", "step_attn_sit", "h", "c"):
+        torch.testing.assert_close(getattr(out, name), getattr(ref, name),
+                                   rtol=1e-5, atol=1e-6, msg=name)
+
+
+@pytest.mark.cuda
+def test_decode_block_kernel_matches_plain(cuda):
+    """Flagship widths, random weights, B not a multiple of the CTA rows."""
+    args = block_inputs(cuda, 1000, 0.1)
+    before = k2.launches
+    out = k2.fused_decode_block(*args, num_steps=12, eos_idx=2)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    ref = k2.decode_block_plain(*args, num_steps=12, eos_idx=2)
+    assert_block_matches(out, ref)
+
+
+def misaligned(tensor):
+    """A contiguous copy of ``tensor`` 4 bytes past a 16-byte boundary."""
+    storage = torch.empty(tensor.numel() + 4, dtype=tensor.dtype,
+                          device=tensor.device)
+    view = storage[1:1 + tensor.numel()].view(tensor.shape)
+    view.copy_(tensor)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["h102", "misaligned"])
+def test_kernels_1_and_2_without_16_byte_loads(cuda, case):
+    """Kernels 1 and 2 where 16-byte loads do not apply: H % 4 != 0
+    (H = 102, M_t = 16, M_v = 36), or keys and weights passed 4 bytes past
+    a 16-byte boundary (H = 100). Kernel 1 then reads its keys a float at a
+    time, and kernel 2 also fills its weight ring by 4-byte copies and reads
+    its tiles a column at a time. The JAX bars against the plain versions,
+    and the launch counts rise."""
+    h = 102 if case == "h102" else 100
+    move = misaligned if case == "misaligned" else (lambda t: t)
+    for m, lengths in ((16, np.random.RandomState(1).randint(
+            0, 17, size=300)), (36, None)):
+        pq, keys, mask, energy = [
+            None if a is None else torch.from_numpy(a).to(cuda)
+            for a in attention_inputs(4, 300, m, h, lengths)]
+        keys = move(keys)
+        before = k1.launches
+        ctx, w = k1.additive_attention(pq, keys, mask, energy)
+        torch.cuda.synchronize()
+        assert k1.launches == before + 1
+        ctx_ref, w_ref = k1.additive_attention_plain(pq, keys, mask, energy)
+        torch.testing.assert_close(ctx, ctx_ref, rtol=0, atol=1e-5)
+        torch.testing.assert_close(w, w_ref, rtol=0, atol=1e-6)
+
+    args = list(block_inputs(cuda, 300, 0.5, seed=7, h=h))
+    args[0], args[2] = move(args[0]), move(args[2])
+    args[7] = k2.DecoderWeights(*(move(w) for w in args[7]))
+    before = k2.launches
+    out = k2.fused_decode_block(*args, num_steps=12, eos_idx=2)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    assert_block_matches(out, k2.decode_block_plain(*args, num_steps=12,
+                                                    eos_idx=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [1030, 2048])
+def test_attention_kernel_past_register_form(cuda, h):
+    """Kernel 1 past H = 1024, where a row's query and context leave the
+    registers and it takes two passes over its keys: masked (lengths
+    0..M, so some rows have no valid key) and unmasked, at the JAX bars."""
+    for m, lengths in ((16, np.random.RandomState(2).randint(
+            0, 17, size=64)), (36, None)):
+        pq, keys, mask, energy = [
+            None if a is None else torch.from_numpy(a).to(cuda)
+            for a in attention_inputs(5, 64, m, h, lengths)]
+        before = k1.launches
+        ctx, w = k1.additive_attention(pq, keys, mask, energy)
+        torch.cuda.synchronize()
+        assert k1.launches == before + 1
+        ctx_ref, w_ref = k1.additive_attention_plain(pq, keys, mask, energy)
+        torch.testing.assert_close(ctx, ctx_ref, rtol=0, atol=1e-5)
+        torch.testing.assert_close(w, w_ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_decode_block_kernel_mostly_done(cuda):
+    """A block entered with 90% of the rows done, as a decode's second block
+    is: the kernel meets the bars against its plain version, and each done
+    row's attention rows repeat bit for bit from its first done step (the
+    done-row rule: computed once, then copied), also for rows that emit EOS
+    inside the block."""
+    args = block_inputs(cuda, 1000, 0.9, seed=6)
+    steps = 16
     before = k2.launches
     out = k2.fused_decode_block(*args, num_steps=steps, eos_idx=2)
     torch.cuda.synchronize()
     assert k2.launches == before + 1
     ref = k2.decode_block_plain(*args, num_steps=steps, eos_idx=2)
-    for name in ("tokens", "done", "step_tokens", "step_emitted"):
-        assert torch.equal(getattr(out, name), getattr(ref, name)), name
-    for name in ("step_attn_cmd", "step_attn_sit", "h", "c"):
-        torch.testing.assert_close(getattr(out, name), getattr(ref, name),
-                                   rtol=1e-5, atol=1e-6)
+    assert_block_matches(out, ref)
+    emitted = out.step_emitted.cpu().numpy()
+    done_at_entry = args[6].cpu().numpy()
+    finished = 0
+    for row in range(emitted.shape[1]):
+        count = int(emitted[:, row].sum())
+        if not done_at_entry[row] and count == steps:
+            continue  # still emitting at the end of the block
+        finished += not done_at_entry[row]
+        for attn in (out.step_attn_cmd, out.step_attn_sit):
+            rows = attn[count:, row]
+            assert torch.equal(rows, rows[:1].expand_as(rows)), row
+    assert finished > 0  # some rows emit EOS inside the block
 
 
 def teacher_forced_inputs(device, batch, steps, num_steps, m_t=16, m_v=36,

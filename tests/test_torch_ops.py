@@ -141,6 +141,83 @@ def test_decode_block_plain_matches_pallas(decoder_setup):
     assert k2.launches == before  # CPU tensors take the plain version
 
 
+def first_done_steps(done_at_entry, step_emitted):
+    """Per row, the first step (over the concatenated blocks) at which it is
+    done: 0 if done at entry, else the step after its last emitting one, or
+    None if it never finishes."""
+    steps = []
+    for row in range(step_emitted.shape[1]):
+        emitted = np.nonzero(step_emitted[:, row])[0]
+        if done_at_entry[row]:
+            steps.append(0)
+        elif len(emitted) < step_emitted.shape[0]:
+            steps.append(int(emitted[-1]) + 1 if len(emitted) else 0)
+        else:
+            steps.append(None)
+    return steps
+
+
+@pytest.mark.parametrize("eos_idx", [2, 5])
+def test_decode_block_done_rows_repeat_their_attention(decoder_setup,
+                                                       eos_idx):
+    """The done-row rule, on JAX's kernel and the port's plain version: two
+    chained 8-step blocks with rows 3 and 6 done at entry and row 0 emitting
+    EOS inside the first block (step 2 for EOS 2, step 1 for EOS 5; with
+    EOS 2 the other rows finish at step 0, with EOS 5 they never do). The
+    two agree at the JAX bars, and in both each done row's attention rows
+    are bit-identical from its first done step on, across the block
+    boundary too: the rows the CUDA kernel computes once and copies."""
+    config, jparams, tparams, txt, mask, vis, h, c = decoder_setup
+    batch = txt.shape[0]
+    done0 = np.zeros(batch, bool)
+    done0[[3, 6]] = True
+    jweights = pallas_decoder.pack_decoder_weights(jparams,
+                                                   config.target_pad_idx)
+    tweights = k2.pack_decoder_weights(tparams, config.target_pad_idx)
+    jstate = (jnp.asarray(h), jnp.asarray(c),
+              jnp.full((batch,), 1, jnp.int32), jnp.asarray(done0))
+    tstate = (torch.from_numpy(h), torch.from_numpy(c),
+              torch.full((batch,), 1, dtype=torch.int32),
+              torch.from_numpy(done0))
+    jblocks, tblocks = [], []
+    for _ in range(2):
+        ref = pallas_decoder.fused_decode_block(
+            jnp.asarray(txt), jnp.asarray(mask), jnp.asarray(vis), *jstate,
+            jweights, num_steps=8, sos_idx=1, eos_idx=eos_idx,
+            interpret=True)
+        out = k2.fused_decode_block(
+            torch.from_numpy(txt), torch.from_numpy(mask),
+            torch.from_numpy(vis), *tstate, tweights, num_steps=8,
+            eos_idx=eos_idx)
+        jblocks.append([np.asarray(x) for x in ref])
+        tblocks.append([x.numpy() for x in out])
+        jstate, tstate = ref[:4], out[:4]
+    for index, name in enumerate(k2.BlockOutput._fields):
+        for got, want in zip([b[index] for b in tblocks],
+                             [b[index] for b in jblocks]):
+            if name in ("tokens", "done", "step_tokens", "step_emitted"):
+                np.testing.assert_array_equal(got, want, err_msg=name)
+            else:
+                np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6,
+                                           err_msg=name)
+
+    emitted = np.concatenate([b[5] for b in jblocks])
+    first_done = first_done_steps(done0, emitted)
+    assert first_done[3] == first_done[6] == 0
+    assert first_done[0] == {2: 3, 5: 2}[eos_idx]  # EOS inside block 1
+    # With EOS 5 the rows that keep emitting 2 never finish.
+    assert (None in first_done) == (eos_idx == 5)
+    for blocks in (jblocks, tblocks):
+        for index in (6, 7):  # step_attn_cmd, step_attn_sit
+            attn = np.concatenate([b[index] for b in blocks])
+            for row, step in enumerate(first_done):
+                for later in range(attn.shape[0] if step is None
+                                   else step + 1, attn.shape[0]):
+                    np.testing.assert_array_equal(
+                        attn[later, row], attn[step, row],
+                        err_msg="row {} step {}".format(row, later))
+
+
 def test_decode_block_records_top2_gap(decoder_setup):
     config, _, tparams, txt, mask, vis, h, c = decoder_setup
     batch = txt.shape[0]
