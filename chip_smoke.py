@@ -22,11 +22,18 @@ their plain versions on random inputs at B=200, T=56 and T=53, and, with the
 plain versions, to float64 on the fixture's train batches. Every kernel is
 then held, and timed, at three shapes past the attention's register-resident
 form and past the resident weight slices of kernels 3 and 4 (a 9x9 grid,
-H=E=136, H=E=256 with 72 command keys and a 12x12 grid). The second main
-path resumes training from the fixture checkpoint for 20 steps at batch 200
-through ``train()`` (kernels 3 and 4, then a dev decode through kernel 2),
-round-trips the checkpoint, and compares 5 steps of the kernel path with
-the plain path. Then it times each kernel and its plain version with CUDA
+H=E=136, H=E=256 with 72 command keys and a 12x12 grid), and kernel 2 past
+its ring plans (H=E=449, 640, 1024). The decode's examples are also
+written as ``predict.json`` (``predict_and_save``), held to the decode's
+tokens and exact match. The second main path resumes training from the
+fixture checkpoint for 20 steps at batch 200 through ``train()``, streamed
+(kernels 3 and 4, then a dev decode through kernel 2), round-trips the
+checkpoint, and compares 5 steps of the kernel path with the plain path;
+the third trains on the resident path: chunks of 10 steps replayed from
+CUDA graphs, held to as many eager steps (full and stratified layouts),
+timed against the streamed step with the device busy share of each, then
+``train(steps_per_execution=10)`` to step 200020 with its dev evaluation.
+Then it times each kernel and its plain version with CUDA
 events (kernel 2 on both of the fixture's blocks, each beside its own bound),
 the full decode and the train step, and profiles one decode and three train
 steps with torch.profiler (device busy share; for the decode, kernel 2's and
@@ -76,6 +83,16 @@ SEED = 42
 # TRAIN_T.
 WIDE_SHAPES = (("W1", 100, 16, 81), ("W2", 136, 16, 36), ("W3", 256, 72, 144))
 WIDE_T = 24
+# Kernel 2 past the plans that keep a step's gate items one per thread and
+# its buffers in shared memory (H <= 448 before them): (name, H = E), at
+# M_t = 16, M_v = 36, V = 9, K = 32 steps and batch PAST_448_BATCH (one
+# wave of the 8-row plans; each launch well under 2 s).
+PAST_448 = (("W4", 449), ("W5", 640), ("W6", 1024))
+PAST_448_BATCH = 1024
+# The resident trainer: chunks of RESIDENT_K steps held against single
+# steps; chunk time also at the JAX default of 50 steps.
+RESIDENT_K = 10
+RESIDENT_K_DEFAULT = 50
 
 # NVIDIA H100 SXM data sheet, full 700 W power limit: float32 outside the
 # tensor cores, and HBM3 bandwidth. A bound is the larger of operations over
@@ -307,24 +324,31 @@ def encoder_precision(seen):
             module.encode_input = fn
 
 
-def profile_train_step(step, sync, repeats=3):
-    """Device busy share of ``repeats`` steps and the kernels that take the
-    most device time, by torch.profiler; says so if it sees no device
-    time."""
+def device_window(fn, sync):
+    """(wall ms, device kernel events, device busy ms) of ``fn()``, run once
+    before, under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    step()
+    fn()
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        for _ in range(repeats):
-            step()
+        fn()
         sync()
         wall_ms = (time.perf_counter() - start) * 1e3
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    return wall_ms, events, sum(e.self_device_time_total
+                                for e in events) / 1e3
+
+
+def profile_train_step(step, sync, repeats=3):
+    """Device busy share of ``repeats`` steps and the kernels that take the
+    most device time, by torch.profiler; says so if it sees no device
+    time."""
+    wall_ms, events, device_ms = device_window(
+        lambda: [step() for _ in range(repeats)], sync)
     if device_ms <= 0:
         print("profile: torch.profiler saw no device time (not measured)")
         return
@@ -342,30 +366,13 @@ def profile_decode(decode, encode, sync):
     """Device busy share of one greedy decode, by torch.profiler, and where
     its device time goes: kernel 2, the encoder (``encode``, profiled
     alone) and the rest; says so if it sees no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    def window(fn):
-        fn()
-        sync()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            start = time.perf_counter()
-            fn()
-            sync()
-            wall_ms = (time.perf_counter() - start) * 1e3
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        return wall_ms, events, sum(e.self_device_time_total
-                                    for e in events) / 1e3
-
-    wall_ms, events, device_ms = window(decode)
+    wall_ms, events, device_ms = device_window(decode, sync)
     if device_ms <= 0:
         print("profile: torch.profiler saw no device time (not measured)")
         return
     block_ms = sum(e.self_device_time_total for e in events
                    if "decode_block_kernel" in e.key) / 1e3
-    encoder_ms = window(encode)[2]
+    encoder_ms = device_window(encode, sync)[2]
     print("profile of one block decode: wall {:.3f} ms, device busy {:.3f} "
           "ms ({:.1f}%), {} device kernels; device time: kernel 2 {:.3f} "
           "ms, the encoder {:.3f} ms (profiled alone), the rest {:.3f} "
@@ -647,12 +654,13 @@ def hold_attention(label, args):
     return err
 
 
-def hold_decode_block(label, args, eos_idx, bars=True):
+def hold_decode_block(label, args, eos_idx, bars=True, state_bars=True):
     """One K=32 block of kernel 2 against its plain version (tokens equal
-    apart from near-ties; with ``bars``, attention, h and c rtol 1e-5 /
-    atol 1e-6) and, on the rows where float64 takes the same tokens,
-    against float64. Returns (the largest error against the plain version,
-    the emitting row-steps of the block)."""
+    apart from near-ties; with ``bars``, attention, and with
+    ``state_bars`` also h and c, rtol 1e-5 / atol 1e-6) and, on the rows
+    where float64 takes the same tokens, against float64. Returns (the
+    largest error against the plain version, the emitting row-steps of
+    the block)."""
     from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
     out, ref, same = block_pair(label, args, eos_idx)
     exact = k2.decode_block_plain(*as_float64(args),
@@ -661,7 +669,7 @@ def hold_decode_block(label, args, eos_idx, bars=True):
     err = 0.0
     for name in ("step_attn_cmd", "step_attn_sit", "h", "c"):
         got, want = rows_of(out, name, same), rows_of(ref, name, same)
-        if bars:
+        if bars and (state_bars or name.startswith("step_")):
             err = max(err, check_close("{} {}".format(label, name), got,
                                        want, 1e-5, 1e-6))
         against_float64("{} {}".format(label, name),
@@ -782,8 +790,7 @@ def wide_shape_rows(gen, device, vocab, sos_idx, eos_idx):
              bound_ms(*decode_block_work(
                  BATCH, w_m_t, w_m_v, h, vocab, EXIT_CHECK_EVERY,
                  weights_bytes, row_steps)),
-             "plan {}: {} rows per CTA, {}-float weight slots".format(
-                 *k2.block_plan(h, vocab, w_m_t, w_m_v, index)))]
+             k2.block_plan(h, vocab, w_m_t, w_m_v, index).describe())]
         del calls, block_args
         inputs, (dlogits, g_asum) = random_teacher_forced_inputs(
             gen, device, TRAIN_BATCH, TRAIN_T, TRAIN_T - 3, w_m_t, w_m_v,
@@ -831,6 +838,293 @@ def wide_shape_rows(gen, device, vocab, sos_idx, eos_idx):
                                   plain_ms=plain_ms, bound_ms=bound[0],
                                   bound_by=bound[1], plan=plan_text))
     return wide_rows
+
+
+def past_448_rows(gen, device, vocab, sos_idx, eos_idx):
+    """Kernel 2 at PAST_448 (H = 449, 640, 1024; M_t = 16, M_v = 36, random
+    weights from SOS): held to its plain version at the JAX bars (tokens
+    and attention) and to float64 (attention, h and c;
+    ``hold_decode_block``), then timed beside its plain version and its
+    bound, with the plan it takes. Returns one row per shape."""
+    from multimodal_seq2seq_gscan_tpu_torch.ops import _build
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    rows = []
+    index = _build.device_index(device)
+    batch, m_t, m_v = PAST_448_BATCH, 16, 36
+    for name, h in PAST_448:
+        label = "wide {} (H=E={}, M_t={}, M_v={}, B={})".format(
+            name, h, m_t, m_v, batch)
+        args = random_block_inputs(gen, device, batch, m_t, m_v, h, vocab,
+                                   sos_idx)
+        plan = k2.block_plan(h, vocab, m_t, m_v, index).describe()
+        print("{} decode_block: {}".format(label, plan))
+        before = k2.launches
+        # The JAX bars on the tokens and the attention; h and c, which the
+        # plain version itself carries that far from float64 at these
+        # widths (printed), are held to float64.
+        _, row_steps = hold_decode_block(label + " decode_block", args,
+                                         eos_idx, state_bars=False)
+        require(k2.launches > before, "{}: kernel 2 was not launched".format(
+            label))
+
+        def kernel():
+            return k2.fused_decode_block(*args, num_steps=EXIT_CHECK_EVERY,
+                                         eos_idx=eos_idx)
+
+        ms = cuda_ms(kernel, 2, warmup=1)
+        plain_ms = cuda_ms(lambda: k2.decode_block_plain(
+            *args, num_steps=EXIT_CHECK_EVERY, eos_idx=eos_idx), 1,
+            warmup=1)
+        bound = bound_ms(*decode_block_work(
+            batch, m_t, m_v, h, vocab, EXIT_CHECK_EVERY,
+            sum(w.numel() * 4 for w in args[7]), row_steps))
+        print("{} decode_block: {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms "
+              "({}); {}".format(label, ms, plain_ms, *bound, plan))
+        rows.append(dict(shape=name, kernel="decode_block", ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound[0],
+                         bound_by=bound[1], plan=plan, batch=batch))
+        del args
+    return rows
+
+
+def predict_checks(dataset, params, config, decoded, em_decoded, inputs,
+                   decode, sync):
+    """``predict_and_save`` over the fixture's dev examples at batch BATCH
+    (kernel 2), into a temporary predict.json: as many records as examples,
+    every prediction the decode phase's tokens, as many exact matches as
+    the decode phase's exact match, each attention row summing to 1 within
+    1e-5, the textual rows as long as the input. Prints the decode's
+    milliseconds apart from the host's (records, then the JSON file), and
+    the file's size."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.decode.greedy import (
+        strip_output_sequences)
+    from multimodal_seq2seq_gscan_tpu_torch.decode.predict import (
+        predict, predict_and_save)
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    out_dir = tempfile.mkdtemp(prefix="gscan_chip_smoke_predict_")
+    try:
+        path = os.path.join(out_dir, "predict.json")
+        k2.launches = 0
+        start = time.perf_counter()
+        predict_and_save(dataset, params, config, path, MAX_DECODING_STEPS,
+                         batch_size=BATCH, device=DEVICE)
+        save_ms = (time.perf_counter() - start) * 1e3
+        launches = k2.launches
+        start = time.perf_counter()
+        records = list(predict(dataset, params, config, MAX_DECODING_STEPS,
+                               batch_size=BATCH, device=DEVICE))
+        records_ms = (time.perf_counter() - start) * 1e3
+        with torch.no_grad():
+            decode(params, *inputs)
+            sync()
+            start = time.perf_counter()
+            decode(params, *inputs)
+            sync()
+            decode_ms = (time.perf_counter() - start) * 1e3
+        size = os.path.getsize(path)
+        with open(path) as f:
+            written = json.load(f)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print("predict.json: {} records, {} bytes; kernel 2 launches {}".format(
+        len(written), size, launches))
+    print("predict: decode {:.3f} ms (one decode of the {} examples, wall "
+          "clock), records on the host {:.3f} ms, JSON file {:.3f} ms "
+          "(predict_and_save {:.3f} ms in all)".format(
+              decode_ms, BATCH, records_ms - decode_ms,
+              save_ms - records_ms, save_ms))
+    require(launches > 0, "predict did not launch kernel 2")
+    require(len(written) == len(records) == BATCH,
+            "predict.json holds {} records".format(len(written)))
+    sequences, _ = strip_output_sequences(decoded, config.target_eos_idx)
+    words = [dataset.array_to_sentence(seq, "target") for seq in sequences]
+    same = sum(record["prediction"] == w for record, w in zip(written,
+                                                                words))
+    exact = sum(record["exact_match"] for record in written)
+    print("predict.json against the decode phase: {} of {} predictions "
+          "equal, exact match {:.4f}% (decode phase {:.4f}%)".format(
+              same, BATCH, 100.0 * exact / BATCH, em_decoded))
+    require(same == BATCH, "predictions differ from the decode phase")
+    require(100.0 * exact / BATCH == em_decoded,
+            "predict.json's exact match differs from the decode phase's")
+    worst, wrong_length = 0.0, 0
+    for record in written:
+        for row in record["attention_weights_input"]:
+            worst = max(worst, abs(sum(row[0]) - 1.0))
+            wrong_length += len(row[0]) != len(record["input"]) + 2
+        for row in record["attention_weights_situation"]:
+            worst = max(worst, abs(sum(row[0]) - 1.0))
+    print("predict.json attention rows: largest |sum - 1| {:.3e} (bar "
+          "1e-5); textual rows not as long as the input: {}".format(
+              worst, wrong_length))
+    require(worst <= 1e-5 and wrong_length == 0,
+            "predict.json's attention rows are not distributions over the "
+            "input")
+
+
+def hold_chunk(label, chunk_state, chunk_metrics, step_state, step_metrics):
+    """A chunk's state and metrics against single steps': metrics
+    bit-identical or within rtol 2e-5 / atol 1e-6 (JAX's chunk test's
+    bars), params and Adam moments within atol 1e-6. Prints the largest
+    differences."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.models.params import leaves
+    metric_err, metric_same = 0.0, True
+    for name, values in chunk_metrics.items():
+        want = torch.stack([m[name] for m in step_metrics])
+        metric_same &= torch.equal(values, want)
+        metric_err = max(metric_err, check_close_quiet(
+            values, want, 2e-5, 1e-6, "{} {}".format(label, name)))
+    errors = {}
+    for tree in ("params", "mu", "nu"):
+        get = (lambda s: s.params) if tree == "params" else (
+            lambda s, t=tree: getattr(s.opt_state, t))
+        errors[tree] = max(check_close_quiet(a, b, 0.0, 1e-6, "{} {}".format(
+            label, tree)) for a, b in zip(leaves(get(chunk_state)),
+                                          leaves(get(step_state))))
+    require(chunk_state.step == step_state.step
+            and chunk_state.opt_state[0::3] == step_state.opt_state[0::3],
+            "{}: the counts differ".format(label))
+    print("{}: losses {}; metrics {} (max |err| {:.3e}); params, mu, nu "
+          "max |err| {:.3e}, {:.3e}, {:.3e} (atol 1e-6)".format(
+              label, ["{:.6f}".format(float(x))
+                      for x in chunk_metrics["loss"]],
+              "bit-identical" if metric_same else "not bit-identical",
+              metric_err, errors["params"], errors["mu"], errors["nu"]))
+
+
+def resident_checks(train_set, config, events, streamed_batch, sync):
+    """The resident trainer on the card, from the fixture checkpoint
+    (step 200000): (a) a graphed chunk of RESIDENT_K steps, full layout,
+    against as many eager single steps on the same index rows, dropout on
+    (``hold_chunk``); (b) the same for a stratified chunk (cuts (32,)),
+    its single steps at their segments' widths; (c) ms per step of the
+    graphed chunk (K = RESIDENT_K and RESIDENT_K_DEFAULT) against the
+    streamed step and an eager step on the resident batch, with the device
+    busy share of each; (d) ``train(steps_per_execution=RESIDENT_K)`` to
+    step 200020 with a dev evaluation of STEP_EXAMPLES examples at 200020."""
+    import numpy as np
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    from multimodal_seq2seq_gscan_tpu_torch.train import resident
+    from multimodal_seq2seq_gscan_tpu_torch.train.checkpoint import (
+        load_checkpoint)
+    from multimodal_seq2seq_gscan_tpu_torch.train.loop import train
+    from multimodal_seq2seq_gscan_tpu_torch.train.state import Adam
+    from multimodal_seq2seq_gscan_tpu_torch.train.step import train_step
+    optimizer = Adam()
+    start, _ = load_checkpoint(str(FIXTURE / "model_best.msgpack"),
+                               device=DEVICE)
+    data = resident.build_resident_data(train_set, DEVICE)
+    host = resident.host_resident_data(train_set)
+    print("resident data: {} examples, {} bytes on the card (input {}, "
+          "targets {}, grids {} uint8)".format(
+              data.num_examples, data.nbytes, tuple(data.input_ids.shape),
+              tuple(data.target_ids.shape), tuple(data.situations.shape)))
+    chunk = resident.make_train_chunk(config, optimizer)
+
+    def single_steps(block, widths):
+        state, metrics = start, []
+        for row, width in zip(block, widths):
+            batch = resident.gather_batch(data, row)
+            batch = batch._replace(target_ids=batch.target_ids[:, :width])
+            state, step_metrics = train_step(state, batch, config, optimizer)
+            metrics.append(step_metrics)
+        return state, metrics
+
+    # (a) The full layout.
+    t_full = data.target_ids.shape[1]
+    block = next(resident.index_block_stream(
+        data.num_examples, TRAIN_BATCH, RESIDENT_K,
+        np.random.default_rng(SEED)))
+    graphed = chunk(start, data, block)
+    hold_chunk("resident chunk, full layout (K={}, T={})".format(
+        RESIDENT_K, t_full), *graphed,
+        *single_steps(block, [t_full] * RESIDENT_K))
+    # (b) The stratified layout.
+    s_block, spec = next(resident.stratified_index_block_stream(
+        host.target_lengths, TRAIN_BATCH, RESIDENT_K,
+        np.random.default_rng(SEED), cuts=(32,)))
+    widths = [min(w, t_full) for count, w in spec for _ in range(count)]
+    graphed = chunk(start, data, s_block, spec)
+    hold_chunk("resident chunk, stratified layout (K={}, segments {})".format(
+        RESIDENT_K, spec), *graphed, *single_steps(s_block, widths))
+    del graphed
+
+    # (c) Times: per step, by CUDA events, and the device's busy share.
+    block_default = next(resident.index_block_stream(
+        data.num_examples, TRAIN_BATCH, RESIDENT_K_DEFAULT,
+        np.random.default_rng(SEED + 1)))
+    resident_batch = resident.gather_batch(data, block[0])
+    streamed_batch = streamed_batch.to(DEVICE)
+    runs = (
+        ("graphed chunk, K={}".format(RESIDENT_K),
+         lambda: chunk(start, data, block), RESIDENT_K),
+        ("graphed chunk, K={}".format(RESIDENT_K_DEFAULT),
+         lambda: chunk(start, data, block_default), RESIDENT_K_DEFAULT),
+        ("eager steps on the resident batch (T={})".format(t_full),
+         lambda: [train_step(start, resident_batch, config, optimizer)
+                  for _ in range(RESIDENT_K)], RESIDENT_K),
+        ("streamed steps (T={})".format(streamed_batch.target_ids.shape[1]),
+         lambda: [train_step(start, streamed_batch, config, optimizer)
+                  for _ in range(RESIDENT_K)], RESIDENT_K))
+    for label, fn, steps in runs:
+        ms = cuda_ms(fn, 3, warmup=1) / steps
+        wall_ms, events, busy_ms = device_window(fn, sync)
+        print("{}: {:.3f} ms a step; profiled: wall {:.3f} ms, device busy "
+              "{} a step, {} device kernels a step".format(
+                  label, ms, wall_ms / steps,
+                  "{:.3f} ms ({:.1f}%)".format(busy_ms / steps,
+                                               100 * busy_ms / wall_ms)
+                  if busy_ms > 0 else "not measured",
+                  sum(e.count for e in events) // steps))
+
+    # (d) train() end to end on the resident path.
+    out_dir = tempfile.mkdtemp(prefix="gscan_chip_smoke_resident_")
+    before = len(events)
+    try:
+        k2.launches = 0
+        tf.launches.update({name: 0 for name in tf.launches})
+        state, _ = train(
+            str(FIXTURE / "dataset.txt"), str(FIXTURE),
+            training_batch_size=TRAIN_BATCH,
+            resume_from_file=str(FIXTURE / "model_best.msgpack"),
+            max_training_iterations=200020, print_every=RESIDENT_K,
+            evaluate_every=2 * RESIDENT_K, output_directory=out_dir,
+            max_testing_examples=STEP_EXAMPLES, seed=SEED,
+            steps_per_execution=RESIDENT_K, device=DEVICE,
+            callback=lambda *event: events.append(event))
+        sync()
+        launches = dict(tf.launches, decode_block=k2.launches)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    seen = events[before:]
+    for kind, iteration, values in seen:
+        print("resident train {} {}: {}".format(kind, iteration, ", ".join(
+            "{} {:.6g}".format(k, v) for k, v in values.items())))
+    print("launches, resident training (kernels 3, 4 and the helper: "
+          "warm-up, capture and single steps; replays are not counted): "
+          "{}".format(launches))
+    require(all(count > 0 for count in launches.values()),
+            "a kernel of the resident path was not launched")
+    # Logged at every multiple of RESIDENT_K, evaluated at every multiple
+    # of 2 RESIDENT_K, from 200000 (the single step before the chunks) on.
+    losses = [v["loss"] for kind, _, v in seen if kind == "train"]
+    evaluations = [(it, v) for kind, it, v in seen if kind == "eval"]
+    require(state.step == 200021
+            and len(losses) == len(range(200000, 200021, RESIDENT_K))
+            and all(math.isfinite(x) and x < 1.0 for x in losses),
+            "resident training: step {}, losses {}".format(state.step,
+                                                           losses))
+    require([it for it, _ in evaluations]
+            == list(range(200000, 200021, 2 * RESIDENT_K))
+            and evaluations[-1][1]["exact_match"] > 90.0,
+            "resident training's dev evaluations: {}".format(evaluations))
+    print("resident training: dev exact match {:.4f}% on {} examples at "
+          "{}".format(evaluations[-1][1]["exact_match"], STEP_EXAMPLES,
+                      evaluations[-1][0]))
 
 
 def check_close_quiet(got, want, rtol, atol, label):
@@ -926,8 +1220,9 @@ def main():
             num_cnn_channels=dataset.image_channels)
         params = load_params(str(FIXTURE / "model_best.msgpack"),
                              device=device)
-        batch, indices = next(dataset.get_data_iterator(
-            batch_size=BATCH, pad_to_full_batch=True))
+        batch, indices, _, _ = next(dataset.get_data_iterator(
+            batch_size=BATCH, pad_to_full_batch=True,
+            with_representations=False))
         batch = batch.to(device)
         require(len(indices) == BATCH, "fixture has {} dev examples, "
                 "expected {}".format(len(indices), BATCH))
@@ -1029,8 +1324,9 @@ def main():
         unrolled, one_step = {}, {}
         names = ["d" + n for n in GRAD_NAMES]
         pad_idx = config.target_pad_idx
-        for train_batch, _ in train_set.get_data_iterator(
-                batch_size=TRAIN_BATCH, pad_to_full_batch=True):
+        for train_batch, _, _, _ in train_set.get_data_iterator(
+                batch_size=TRAIN_BATCH, pad_to_full_batch=True,
+                with_representations=False):
             train_batch = train_batch.to(device)
             encoded = model.encode_input(
                 params, config, train_batch.input_ids,
@@ -1136,6 +1432,8 @@ def main():
         wide_rows = wide_shape_rows(gen, device, vocab,
                                     config.target_sos_idx,
                                     config.target_eos_idx)
+        wide_rows += past_448_rows(gen, device, vocab, config.target_sos_idx,
+                                   config.target_eos_idx)
         print("wide shapes: {}".format(json.dumps(wide_rows)))
 
     tf32_seen = set()
@@ -1201,6 +1499,11 @@ def main():
             int(kernel_out.emitted_mask.sum(0).gt(0).sum()),
             MAX_DECODING_STEPS + 1, int(kernel_out.lengths.sum())))
 
+    with phase("main path: predict {} fixture dev examples".format(BATCH)), \
+            encoder_precision(tf32_seen):
+        predict_checks(dataset, params, config, kernel_out, em_kernel,
+                       inputs, decode_kernel, sync)
+
     with phase("main path: train {} steps at batch {} from the fixture "
                "checkpoint".format(TRAIN_STEPS, TRAIN_BATCH)), \
             encoder_precision(tf32_seen):
@@ -1224,7 +1527,7 @@ def main():
                 max_training_iterations=last, print_every=PRINT_EVERY,
                 evaluate_every=last, output_directory=out_dir,
                 max_testing_examples=STEP_EXAMPLES, seed=SEED,
-                device=device, callback=report)
+                steps_per_execution=1, device=device, callback=report)
             sync()
             launches_train = dict(tf.launches, decode_block=k2.launches,
                                   additive_attention=k1.launches)
@@ -1336,6 +1639,10 @@ def main():
                   and leaves_equal(again[1], params_1["fused"])
                   else "differs"))
         require(rel <= 1e-5, "per-step losses differ")
+    with phase("main path: resident training from the fixture "
+               "checkpoint"), encoder_precision(tf32_seen):
+        resident_checks(train_set, train_config, events, batches[0], sync)
+
     print("TF32 flags (matmul, cuDNN) inside the entry points on the main "
           "paths: {}; outside: ({}, {})".format(
               sorted(tf32_seen), torch.backends.cuda.matmul.allow_tf32,

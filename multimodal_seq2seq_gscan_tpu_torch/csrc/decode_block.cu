@@ -52,6 +52,17 @@
 //   (attend.cuh, shared with kernel 1), and only rows in the attention set
 //   read them. The keys of 4096 rows (85 MB) exceed L2, so they come from
 //   device memory every step; as rows finish, fewer are read.
+// - Any H. The plans above keep a product's items one per thread and the
+//   [H][R + 4] buffers in shared memory, and a gate item's slices sum up to
+//   4H / S terms, too many past H = 256 (kMaxRingSum). Past them two plans
+//   read the weights straight from L2 (no ring): every item summed by 16
+//   threads, every product as many passes of items over the CTA's threads
+//   as it needs, a barrier before each product instead of the ring's, and
+//   each attention row in two passes over its keys (attend_row_wide, any
+//   H). One keeps the buffers in shared memory, the last in a per-CTA
+//   scratch in global memory (scratch, sized by the host), which L2 holds
+//   while the CTA runs; it needs only the logits, the row lists and the
+//   staged scores in shared memory, so it takes any H.
 // f32 on the CUDA cores only (TF32 would move the numbers off the JAX bars).
 #include "attend.cuh"
 
@@ -64,13 +75,24 @@ constexpr int kRT = 8;             // rows per register tile
 // took 1.11x as long on the fixture's first block; PERF.md).
 constexpr int kCT = 4;
 constexpr int kStages = 3;         // ring slots
-// Plans, in order of preference: rows per CTA and floats per ring slot
-// (32 KB slots measured faster than 16 KB ones: half the tiles per step).
+// Plans, in order of preference: rows per CTA, floats per ring slot (32 KB
+// slots measured faster than 16 KB ones: half the tiles per step; 0: no
+// ring, the weights read from L2) and whether the buffers live in a
+// per-CTA scratch in global memory.
 struct Plan {
   int rows, slot_floats;
+  bool global;
 };
-constexpr Plan kPlans[] = {{32, 8192}, {32, 4096}, {16, 8192},
-                           {16, 4096}, {8, 8192},  {8, 4096}};
+constexpr Plan kPlans[] = {
+    {32, 8192, false}, {32, 4096, false}, {16, 8192, false},
+    {16, 4096, false}, {8, 8192, false},  {8, 4096, false},
+    {8, 0, false},     {8, 0, true}};
+// The longest sum of one slice of a ring plan's gate item (4H / S terms at
+// the plan's rows). Longer ones left the kernel's c further from float64
+// than the plain version's (twice that distance, PERF.md: H = 449 at 1796
+// terms); at W3's 1024 (H = 256) it is as close. Past it a plan without a
+// ring, whose slices sum 4H / 16 terms, takes H.
+constexpr int kMaxRingSum = 1024;
 constexpr int kNumPlans = sizeof(kPlans) / sizeof(kPlans[0]);
 constexpr int kBuffers = 7;        // [H][R + kPad] shared buffers
 constexpr int kPad = 4;  // rows of a buffer 16 bytes apart in the banks
@@ -290,7 +312,10 @@ __device__ __forceinline__ void mac_tile(float (&acc)[kCT][kRT],
 // the sum. kGate: hidden unit u = c, columns u + gH of the 4H gate
 // columns for gates g = 0..3 (cols[g]); else columns 4c .. 4c + 3 of H.
 // Columns past the last are clamped to it (or, read as a float4, read past
-// it) and never stored.
+// it) and never stored. The plans without a ring (kDirect) always take
+// S = kMaxSlices, which keeps each slice's sum short (4H / 16 terms for the
+// gates) however wide H is, and run the items in passes: pass p takes items
+// p * kThreads / S, ... (a ring plan's items take one pass).
 template <bool kGate>
 struct Item {
   bool busy, half;  // half: at most 4 rows (mac_tile's kHalf)
@@ -298,13 +323,27 @@ struct Item {
   int cols[kCT];
   float acc[kCT][kRT];
 
-  __device__ Item(int rows, int H) {
+  // The product's items n and the threads S summing each.
+  __host__ __device__ static void shape(int rows, int H, bool direct, int& n,
+                                        int& S) {
     const int per_tile = kGate ? H : (H + kCT - 1) / kCT;
-    const int n = (rows + kRT - 1) / kRT * per_tile;
-    half = rows <= 4;
+    n = (rows + kRT - 1) / kRT * per_tile;
     S = 1;
-    while (S < kMaxSlices && 2 * S * n <= kThreads) S *= 2;
-    const int item = threadIdx.x / S;
+    while (S < kMaxSlices && (direct || 2 * S * n <= kThreads)) S *= 2;
+  }
+
+  __device__ static int passes(int rows, int H, bool direct) {
+    int n, S;
+    shape(rows, H, direct, n, S);
+    return (n + kThreads / S - 1) / (kThreads / S);
+  }
+
+  __device__ Item(int rows, int H, bool direct, int pass) {
+    const int per_tile = kGate ? H : (H + kCT - 1) / kCT;
+    int n;
+    shape(rows, H, direct, n, S);
+    half = rows <= 4;
+    const int item = threadIdx.x / S + pass * (kThreads / S);
     s = threadIdx.x % S;
     busy = item < n;
     rt = item / per_tile;
@@ -316,24 +355,37 @@ struct Item {
     }
   }
 
+  // The item's sums over kt weight rows w (N columns) against the inputs
+  // xs (leading dim ld); quad: the columns read as a float4.
+  __device__ void mac(const float* w, int N, int kt, const float* xs,
+                      int ld, bool quad) {
+    if (quad && half)
+      mac_tile<true, true>(acc, w, N, kt, xs, ld, cols, s, S);
+    else if (quad)
+      mac_tile<true, false>(acc, w, N, kt, xs, ld, cols, s, S);
+    else if (half)
+      mac_tile<false, true>(acc, w, N, kt, xs, ld, cols, s, S);
+    else
+      mac_tile<false, false>(acc, w, N, kt, xs, ld, cols, s, S);
+  }
+
   // Consume the `tiles` tiles of one segment, whose inputs are x [H][ld].
   __device__ void segment(Ring& ring, const DecoderWeights& wt,
                           const float* x, int ld, int kt, int tiles) {
     const int N = kGate ? 4 * ring.H : ring.H;
-    const bool quad = !kGate && ring.vec;
     for (int i = 0; i < tiles; ++i) {
       const float* w = ring.acquire(wt);
-      if (!busy) continue;
-      const float* xs = x + (size_t)i * kt * ld + rt * kRT;
-      if (quad && half)
-        mac_tile<true, true>(acc, w, N, kt, xs, ld, cols, s, S);
-      else if (quad)
-        mac_tile<true, false>(acc, w, N, kt, xs, ld, cols, s, S);
-      else if (half)
-        mac_tile<false, true>(acc, w, N, kt, xs, ld, cols, s, S);
-      else
-        mac_tile<false, false>(acc, w, N, kt, xs, ld, cols, s, S);
+      if (busy)
+        mac(w, N, kt, x + (size_t)i * kt * ld + rt * kRT, ld,
+            !kGate && ring.vec);
     }
+  }
+
+  // The whole of one segment's weights w [H][N], read from L2 (the plans
+  // without a ring), against inputs x [H][ld].
+  __device__ void direct(const float* w, const float* x, int ld, int H,
+                         bool vec) {
+    if (busy) mac(w, kGate ? 4 * H : H, H, x + rt * kRT, ld, !kGate && vec);
   }
 
   // Adds the slices' partial sums (every thread of the CTA calls this).
@@ -371,6 +423,27 @@ struct Item {
     }
   }
 };
+
+// One product over `rows` rows: feed(item) consumes its segments, the
+// slices' sums are added, finish(item) stores them. With the ring, one pass
+// (its tiles' barriers order the product after the writes it reads);
+// without (kDirect), a barrier first, then as many passes as the items
+// need. Every thread of the CTA calls this.
+template <bool kGate, bool kDirect, typename Feed, typename Finish>
+__device__ __forceinline__ void product(int rows, int H, Feed&& feed,
+                                        Finish&& finish) {
+  int passes = 1;
+  if constexpr (kDirect) {
+    __syncthreads();
+    passes = Item<kGate>::passes(rows, H, true);
+  }
+  for (int p = 0; p < passes; ++p) {
+    Item<kGate> item(rows, H, kDirect, p);
+    feed(item);
+    item.reduce();
+    finish(item);
+  }
+}
 
 // Keys per warp of the scores' shared-memory rows (0: staged in the
 // weights output).
@@ -436,7 +509,9 @@ __device__ int select_rows(const unsigned char* __restrict__ done_in, int B,
 // keys (attend.cuh, AttendPass) and the chunks are combined through shared
 // memory (parts, [kWarps][H + 2]), so that few rows still keep many loads
 // in flight. ctx and pq are [H][ld] buffers; scores: [kWarps][m_s] (m_s = 0:
-// the weights output). Every thread of the CTA calls this.
+// the weights output). NC = 0 (the plans without a ring, any H): one warp
+// a row, two passes over its keys (attend_row_wide). Every thread of the
+// CTA calls this.
 template <int NC>
 __device__ void attend_rows(int n, const int* s_row, const float* pq,
                             int ld, const float* __restrict__ keys,
@@ -445,39 +520,53 @@ __device__ void attend_rows(int n, const int* s_row, const float* pq,
                             float* ctx, float* weights, float* scores,
                             int m_s, float* parts, bool vec) {
   const int warp = threadIdx.x >> 5;
-  int W = 1;
-  while (2 * W * n <= kWarps) W *= 2;
-  for (int task = warp; task < n * W; task += kWarps) {
-    const int s = task / W, w = task % W;
-    const size_t b = s_row[s];
-    float* row_weights = weights + b * M;
-    float* row_scores =
-        m_s ? scores + (W == 1 ? warp : s * W) * m_s : row_weights;
-    const float* row_mask = mask != nullptr ? mask + b * M : nullptr;
-    if (W == 1) {
-      gscan::attend_row<NC>(pq + s, ld, keys + b * M * H, row_mask, ew, M,
-                            H, ctx + s, ld, row_weights, row_scores, vec);
-      continue;
+  if constexpr (NC == 0) {
+    for (int s = warp; s < n; s += kWarps) {
+      const size_t b = s_row[s];
+      float* row_weights = weights + b * M;
+      gscan::attend_row_wide(pq + s, ld, keys + b * M * H,
+                             mask != nullptr ? mask + b * M : nullptr, ew, M,
+                             H, ctx + s, ld, row_weights,
+                             m_s ? scores + warp * m_s : row_weights, vec);
     }
-    const int chunk = (M + W - 1) / W;
-    const int m_begin = min(M, w * chunk);
-    const gscan::AttendPass<NC> pass(pq + s, ld, keys + b * M * H, row_mask,
-                                     ew, m_begin, min(M, m_begin + chunk), M,
-                                     H, row_scores, vec);
-    pass.save(parts + task * (H + 2), H);
-  }
-  if (W == 1) return;
-  __syncthreads();
-  if (warp < n) {
-    const size_t b = s_row[warp];
-    gscan::attend_combine(parts + warp * W * (H + 2), W, M, H, ctx + warp,
-                          ld, weights + b * M,
-                          m_s ? scores + warp * W * m_s : weights + b * M);
+  } else {
+    int W = 1;
+    while (2 * W * n <= kWarps) W *= 2;
+    for (int task = warp; task < n * W; task += kWarps) {
+      const int s = task / W, w = task % W;
+      const size_t b = s_row[s];
+      float* row_weights = weights + b * M;
+      float* row_scores =
+          m_s ? scores + (W == 1 ? warp : s * W) * m_s : row_weights;
+      const float* row_mask = mask != nullptr ? mask + b * M : nullptr;
+      if (W == 1) {
+        gscan::attend_row<NC>(pq + s, ld, keys + b * M * H, row_mask, ew, M,
+                              H, ctx + s, ld, row_weights, row_scores, vec);
+        continue;
+      }
+      const int chunk = (M + W - 1) / W;
+      const int m_begin = min(M, w * chunk);
+      const gscan::AttendPass<NC> pass(pq + s, ld, keys + b * M * H, row_mask,
+                                       ew, m_begin, min(M, m_begin + chunk), M,
+                                       H, row_scores, vec);
+      pass.save(parts + task * (H + 2), H);
+    }
+    if (W == 1) return;
+    __syncthreads();
+    if (warp < n) {
+      const size_t b = s_row[warp];
+      gscan::attend_combine(parts + warp * W * (H + 2), W, M, H, ctx + warp,
+                            ld, weights + b * M,
+                            m_s ? scores + warp * W * m_s : weights + b * M);
+    }
   }
 }
 
-// NC: attend.cuh's chunks of 128 features (chosen by the host from H).
-template <int NC>
+// NC: attend.cuh's chunks of 128 features (chosen by the host from H; 0:
+// attend_row_wide). kDirect: a plan without a ring (slot_floats 0), the
+// weights read from L2; its buffers in scratch ([gridDim.x][kBuffers][H]
+// [R + kPad] floats) where that is not null, else in shared memory.
+template <int NC, bool kDirect>
 __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
     const float* __restrict__ proj_txt, const float* __restrict__ cmd_mask,
     const float* __restrict__ proj_vis, const float* __restrict__ h_in,
@@ -488,7 +577,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
     int* __restrict__ step_tokens, float* __restrict__ step_emitted,
     float* step_attn_cmd, float* step_attn_sit, int B, int Mt, int Mv, int H,
     int V, int K, int eos, int R, int slot_floats, int kt_h, int kt_4h,
-    bool vec) {
+    bool vec, float* __restrict__ scratch) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -496,6 +585,11 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
   const int HR = H * LD;
   float* ring_base = smem;
   float* buf = ring_base + kStages * slot_floats;
+  float* tail = buf + kBuffers * HR;  // what follows the buffers in smem
+  if (kDirect && scratch != nullptr) {
+    buf = scratch + (size_t)blockIdx.x * kBuffers * HR;
+    tail = ring_base;
+  }
   // The carried state (h, c) and the two scratch buffers (A: a projected
   // query, then the head's hidden layer; B: the visual query, then the new
   // hidden state) trade places at every step's compaction.
@@ -506,7 +600,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
   float* s_ctxs = buf + 4 * HR;  // visual context
   float* s_a = buf + 5 * HR;
   float* s_b = buf + 6 * HR;
-  float* s_logits = buf + kBuffers * HR;  // [R][V]
+  float* s_logits = tail;  // [R][V]
   int* s_row = reinterpret_cast<int*>(s_logits + R * V);  // batch row
   int* s_tok = s_row + R;                                 // last token
   int* s_row_next = s_tok + R;  // the same two after the compaction
@@ -520,7 +614,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
   float* s_parts = s_scores + kWarps * m_s;
 
   Ring ring{ring_base, slot_floats, H, kt_h, kt_4h, vec};
-  ring.prologue(wt);
+  if (!kDirect) ring.prologue(wt);
 
   for (int i = tid; i < kBuffers * HR; i += kThreads) buf[i] = 0.f;
   int n_emit;
@@ -537,6 +631,17 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
   __syncthreads();
 
   const int th = H / kt_h, t4 = H / kt_4h;  // tiles per segment
+  // Segment seg of a step's weights (see Ring) into an item's sums, against
+  // the inputs x: through the ring, or read from L2 (kDirect).
+  auto feed = [&](auto& item, int seg, const float* x) {
+    if constexpr (kDirect) {
+      item.direct(segment_base(wt, seg, H), x, LD, H, vec);
+    } else {
+      const bool gate = seg >= 4 && seg < 8;
+      item.segment(ring, wt, x, LD, gate ? kt_4h : kt_h, gate ? t4 : th);
+    }
+  };
+  const auto same = [](int, float v) { return v; };
   PhaseClock clock;
   for (int t = 0; t < K; ++t) {
     const int n_attn = n_emit + n_done;
@@ -550,33 +655,32 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
       s_emb[u * LD + s] = __ldg(wt.emb + (size_t)s_tok[s] * H + u);
     }
 
-    {  // Textual query h W_q.
-      Item<false> item(n_attn, H);
-      item.segment(ring, wt, s_h, LD, kt_h, th);
-      item.reduce();
-      item.store(s_a, LD, H, [](int, float v) { return v; });
-    }
+    // Textual query h W_q.
+    product<false, kDirect>(
+        n_attn, H, [&](auto& item) { feed(item, 0, s_h); },
+        [&](auto& item) { item.store(s_a, LD, H, same); });
     __syncthreads();
     clock.mark(0);
     attend_rows<NC>(n_attn, s_row, s_a, LD, proj_txt, cmd_mask, wt.txt_ew,
                     Mt, H, s_ctxc, step_attn_cmd + (size_t)t * B * Mt,
                     s_scores, m_s, s_parts, vec);
     clock.mark(1);
-    {  // Conditional visual query tanh([h; ctx_cmd] W + b).
-      Item<false> item(n_attn, H);
-      item.segment(ring, wt, s_h, LD, kt_h, th);
-      item.segment(ring, wt, s_ctxc, LD, kt_h, th);
-      item.reduce();
-      item.store(s_b, LD, H, [&](int col, float v) {
-        return tanhf(v + __ldg(wt.q2k_b + col));
-      });
-    }
-    {  // Projected visual query.
-      Item<false> item(n_attn, H);
-      item.segment(ring, wt, s_b, LD, kt_h, th);
-      item.reduce();
-      item.store(s_a, LD, H, [](int, float v) { return v; });
-    }
+    // Conditional visual query tanh([h; ctx_cmd] W + b).
+    product<false, kDirect>(
+        n_attn, H,
+        [&](auto& item) {
+          feed(item, 1, s_h);
+          feed(item, 2, s_ctxc);
+        },
+        [&](auto& item) {
+          item.store(s_b, LD, H, [&](int col, float v) {
+            return tanhf(v + __ldg(wt.q2k_b + col));
+          });
+        });
+    // Projected visual query.
+    product<false, kDirect>(
+        n_attn, H, [&](auto& item) { feed(item, 3, s_b); },
+        [&](auto& item) { item.store(s_a, LD, H, same); });
     __syncthreads();
     clock.mark(2);
     attend_rows<NC>(n_attn, s_row, s_a, LD, proj_vis, nullptr, wt.vis_ew,
@@ -585,52 +689,56 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
     clock.mark(3);
 
     if (n_emit > 0) {
-      {  // LSTM gates [emb; ctx_cmd; ctx_sit] W_ih + h W_hh + b, and the
-         // cell; c and the new h for the emitting rows only.
-        Item<true> item(n_emit, H);
-        item.segment(ring, wt, s_emb, LD, kt_4h, t4);
-        item.segment(ring, wt, s_ctxc, LD, kt_4h, t4);
-        item.segment(ring, wt, s_ctxs, LD, kt_4h, t4);
-        item.segment(ring, wt, s_h, LD, kt_4h, t4);
-        item.reduce();
-        if (item.owner()) {
-          const int u = item.c;  // acc[g]: gate g of unit u
-          const float bi = __ldg(wt.bias + u), bf = __ldg(wt.bias + H + u);
-          const float bg = __ldg(wt.bias + 2 * H + u);
-          const float bo = __ldg(wt.bias + 3 * H + u);
-          const auto& a = item.acc;
+      // LSTM gates [emb; ctx_cmd; ctx_sit] W_ih + h W_hh + b, and the cell;
+      // c and the new h for the emitting rows only.
+      product<true, kDirect>(
+          n_emit, H,
+          [&](auto& item) {
+            feed(item, 4, s_emb);
+            feed(item, 5, s_ctxc);
+            feed(item, 6, s_ctxs);
+            feed(item, 7, s_h);
+          },
+          [&](auto& item) {
+            if (!item.owner()) return;
+            const int u = item.c;  // acc[g]: gate g of unit u
+            const float bi = __ldg(wt.bias + u), bf = __ldg(wt.bias + H + u);
+            const float bg = __ldg(wt.bias + 2 * H + u);
+            const float bo = __ldg(wt.bias + 3 * H + u);
+            const auto& a = item.acc;
 #pragma unroll
-          for (int i = 0; i < kRT; ++i) {
-            const int s = item.rt * kRT + i;
-            if (s >= n_emit) break;
-            const float c_new =
-                sigmoidf(a[1][i] + bf) * s_c[u * LD + s] +
-                sigmoidf(a[0][i] + bi) * tanhf(a[2][i] + bg);
-            s_b[u * LD + s] = sigmoidf(a[3][i] + bo) * tanhf(c_new);
-            s_c[u * LD + s] = c_new;
-          }
-        }
-      }
-      clock.mark(4);
-      {  // Head's hidden layer [emb; h_new; ctx_cmd; ctx_sit] W_out, and
-         // the carried h. Nothing here reads s_h.
-        Item<false> item(n_emit, H);
-        item.segment(ring, wt, s_emb, LD, kt_h, th);
-        item.segment(ring, wt, s_b, LD, kt_h, th);
-        item.segment(ring, wt, s_ctxc, LD, kt_h, th);
-        item.segment(ring, wt, s_ctxs, LD, kt_h, th);
-        item.reduce();
-        item.store(s_a, LD, H, [](int, float v) { return v; });
-        if (item.owner()) {
-          for (int j = 0; j < kCT; ++j) {
-            const int col = item.column(j, H);
-            for (int i = 0; col >= 0 && i < kRT; ++i) {
+            for (int i = 0; i < kRT; ++i) {
               const int s = item.rt * kRT + i;
-              if (s < n_emit) s_h[col * LD + s] = s_b[col * LD + s];
+              if (s >= n_emit) break;
+              const float c_new =
+                  sigmoidf(a[1][i] + bf) * s_c[u * LD + s] +
+                  sigmoidf(a[0][i] + bi) * tanhf(a[2][i] + bg);
+              s_b[u * LD + s] = sigmoidf(a[3][i] + bo) * tanhf(c_new);
+              s_c[u * LD + s] = c_new;
             }
-          }
-        }
-      }
+          });
+      clock.mark(4);
+      // Head's hidden layer [emb; h_new; ctx_cmd; ctx_sit] W_out, and the
+      // carried h. Nothing here reads s_h.
+      product<false, kDirect>(
+          n_emit, H,
+          [&](auto& item) {
+            feed(item, 8, s_emb);
+            feed(item, 9, s_b);
+            feed(item, 10, s_ctxc);
+            feed(item, 11, s_ctxs);
+          },
+          [&](auto& item) {
+            item.store(s_a, LD, H, same);
+            if (!item.owner()) return;
+            for (int j = 0; j < kCT; ++j) {
+              const int col = item.column(j, H);
+              for (int i = 0; col >= 0 && i < kRT; ++i) {
+                const int s = item.rt * kRT + i;
+                if (s < n_emit) s_h[col * LD + s] = s_b[col * LD + s];
+              }
+            }
+          });
       __syncthreads();
       clock.mark(5);
       // Logits, one (row, token) pair per thread.
@@ -731,7 +839,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
     p = s_row, s_row = s_row_next, s_row_next = p;
     p = s_tok, s_tok = s_tok_next, s_tok_next = p;
   }
-  ring.drain();
+  if (!kDirect) ring.drain();
 
   // Slots [0, n_emit) are still emitting; the rest are done.
   for (int i = tid; i < rows * H; i += kThreads) {
@@ -746,14 +854,26 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
   }
 }
 
+// A plan without a ring takes any H: its attentions are attend_row_wide's
+// (kernel NC = 0), which stage no chunk states.
+bool direct(Plan plan) { return plan.slot_floats == 0; }
+
 size_t decode_block_smem_bytes(int H, int V, int Mt, int Mv, Plan plan) {
   const size_t R = plan.rows;
   return ((size_t)kStages * plan.slot_floats +
-          (size_t)kBuffers * H * (R + kPad) +
+          (plan.global ? 0 : (size_t)kBuffers * H * (R + kPad)) +
           (size_t)R * V + (size_t)kWarps * staged_keys(Mt, Mv) +
-          (size_t)kWarps * (H + 2)) *
+          (direct(plan) ? 0 : (size_t)kWarps * (H + 2))) *
              sizeof(float) +
          (5 * R + 2 * kWarps) * sizeof(int);
+}
+
+// Floats of the per-CTA scratch of a plan whose buffers are in global
+// memory (0 for the others).
+size_t decode_block_scratch_floats(int B, int H, Plan plan) {
+  if (!plan.global) return 0;
+  const size_t ctas = (B + plan.rows - 1) / plan.rows;
+  return ctas * kBuffers * H * (plan.rows + kPad);
 }
 
 // The largest divisor of H whose tile of that many rows of N columns fills
@@ -765,12 +885,17 @@ int tile_rows(int H, int N, int slot_floats) {
   return best;
 }
 
-// Whether a plan takes these shapes: every product's items one per thread
-// (R / 8 x H <= 512 for the gates), a gate tile row in a slot, H <= 512.
+// Whether a plan takes these shapes. A ring plan: every product's items one
+// per thread (ceil(R / 8) x H <= 512 for the gates), a gate slice's sum of
+// at most kMaxRingSum terms, a gate tile row in a slot, attend_row's
+// registers (H <= 512). A plan without a ring: any H.
 bool plan_takes(Plan plan, int H) {
+  if (direct(plan)) return true;
+  int n, S;
+  Item<true>::shape(plan.rows, H, false, n, S);
   const int attend = gscan::attend_chunks(H);
-  return attend > 0 && attend <= 4 && plan.rows / kRT * H <= kThreads &&
-         4 * H <= plan.slot_floats;
+  return attend > 0 && attend <= 4 && n <= kThreads &&
+         4 * H <= kMaxRingSum * S && 4 * H <= plan.slot_floats;
 }
 
 }  // namespace
@@ -804,16 +929,29 @@ extern "C" int gscan_decode_block_plan(int H, int V, int Mt, int Mv,
   return -1;
 }
 
-// Rows per CTA and floats per ring slot of a plan.
+// Rows per CTA, floats per ring slot (0: the weights read from L2) and
+// whether the buffers are in global memory, of a plan.
 extern "C" int gscan_decode_block_plan_rows(int plan) {
   return plan >= 0 && plan < kNumPlans ? kPlans[plan].rows : 0;
 }
 extern "C" int gscan_decode_block_plan_slot_floats(int plan) {
   return plan >= 0 && plan < kNumPlans ? kPlans[plan].slot_floats : 0;
 }
+extern "C" int gscan_decode_block_plan_global(int plan) {
+  return plan >= 0 && plan < kNumPlans && kPlans[plan].global;
+}
+
+// Floats of the scratch gscan_decode_block needs at batch B (0: none).
+extern "C" long long gscan_decode_block_scratch_floats(int plan, int B,
+                                                       int H) {
+  if (plan < 0 || plan >= kNumPlans || B <= 0 || H <= 0) return 0;
+  return static_cast<long long>(
+      decode_block_scratch_floats(B, H, kPlans[plan]));
+}
 
 // plan from gscan_decode_block_plan; vec: H % 4 == 0 and the keys and
-// weights 16-byte aligned (checked by the wrapper).
+// weights 16-byte aligned (checked by the wrapper); scratch: the plan's
+// gscan_decode_block_scratch_floats, or null where that is 0.
 extern "C" int gscan_decode_block(
     const float* proj_txt, const float* cmd_mask, const float* proj_vis,
     const float* h_in, const float* c_in, const int* tok_in,
@@ -823,17 +961,20 @@ extern "C" int gscan_decode_block(
     const float* w_hh, const float* bias, const float* out_w,
     const float* out_proj, float* h_out, float* c_out, int* tok_out,
     unsigned char* done_out, int* step_tokens, float* step_emitted,
-    float* step_attn_cmd, float* step_attn_sit, int B, int Mt, int Mv, int H,
-    int V, int K, int eos, int plan_index, int vec, void* stream) {
+    float* step_attn_cmd, float* step_attn_sit, float* scratch, int B,
+    int Mt, int Mv, int H, int V, int K, int eos, int plan_index, int vec,
+    void* stream) {
   if (B <= 0 || K <= 0 || V <= 0 || H <= 0 || Mt <= 0 || Mv <= 0 ||
       plan_index < 0 || plan_index >= kNumPlans ||
-      !plan_takes(kPlans[plan_index], H))
+      !plan_takes(kPlans[plan_index], H) ||
+      (kPlans[plan_index].global != (scratch != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Plan plan = kPlans[plan_index];
   const int attend = gscan::attend_chunks(H);
-  auto kernel = attend == 1   ? decode_block_kernel<1>
-                : attend == 2 ? decode_block_kernel<2>
-                              : decode_block_kernel<4>;
+  auto kernel = direct(plan)  ? decode_block_kernel<0, true>
+                : attend == 1 ? decode_block_kernel<1, false>
+                : attend == 2 ? decode_block_kernel<2, false>
+                              : decode_block_kernel<4, false>;
   const size_t smem = decode_block_smem_bytes(H, V, Mt, Mv, plan);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -842,11 +983,14 @@ extern "C" int gscan_decode_block(
   const DecoderWeights wt{txt_qw, txt_ew, q2k_w, q2k_b, vis_qw, vis_ew,
                           emb,    w_ih,   w_hh,  bias,  out_w,  out_proj};
   const dim3 grid((B + plan.rows - 1) / plan.rows);
+  // Without a ring a segment is one tile of H rows.
+  const int kt_h = direct(plan) ? H : tile_rows(H, H, plan.slot_floats);
+  const int kt_4h =
+      direct(plan) ? H : tile_rows(H, 4 * H, plan.slot_floats);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       proj_txt, cmd_mask, proj_vis, h_in, c_in, tok_in, done_in, wt, h_out,
       c_out, tok_out, done_out, step_tokens, step_emitted, step_attn_cmd,
       step_attn_sit, B, Mt, Mv, H, V, K, eos, plan.rows, plan.slot_floats,
-      tile_rows(H, H, plan.slot_floats), tile_rows(H, 4 * H, plan.slot_floats),
-      vec != 0);
+      kt_h, kt_4h, vec != 0, scratch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,6 +8,13 @@ same optional zero-row padding of a short final batch, and the same
 file and one numpy seed. It reads the split straight from the
 JSON and carries neither the dataset engine nor the C++ scanner; the k-shot
 split moves are not supported.
+
+Each example's situation dict and derivation string are kept for
+``predict.json`` (the JAX dataset's ``situation_representation`` and
+``derivation_representation``), and the split is also held as packed
+columns (``_ensure_packed``: ``[N, T_in]`` and ``[N, T_out]`` id matrices,
+the uint8 situation stack, the length and position vectors), which batch
+assembly slices and the resident trainer puts on the device whole.
 """
 
 import json
@@ -64,7 +71,10 @@ class GroundedScanDataset:
         self._target_lengths = np.zeros((0,), np.int32)
         self._agent_positions = np.zeros((0,), np.int32)
         self._target_positions = np.zeros((0,), np.int32)
+        self._situation_representations: List[dict] = []
+        self._derivation_representations: List[Optional[str]] = []
         self._order = np.zeros((0,), np.int64)
+        self._packed = False
 
     def read_dataset(self, max_examples: Optional[int] = None):
         """Tokenize and encode the split's examples once into numpy columns."""
@@ -92,6 +102,9 @@ class GroundedScanDataset:
                 _flat_position(rep["agent_position"], grid_size))
             target_positions.append(
                 _flat_position(rep["target_object"]["position"], grid_size))
+            self._situation_representations.append(rep)
+            self._derivation_representations.append(
+                example.get("derivation"))
         self._situations = np.stack(situations)
         self.image_channels = int(self._situations.shape[-1])
         self._input_lengths = np.array([len(a) for a in self.input_ids],
@@ -101,6 +114,7 @@ class GroundedScanDataset:
         self._agent_positions = np.asarray(agent_positions, np.int32)
         self._target_positions = np.asarray(target_positions, np.int32)
         self._order = np.arange(len(self.input_ids), dtype=np.int64)
+        self._packed = False
         logger.info("Read %d %s examples.", len(self.input_ids), self.split)
 
     def shuffle_data(self, rng: Optional[np.random.Generator] = None,
@@ -132,30 +146,53 @@ class GroundedScanDataset:
     def _bucketed_length(self, length: int) -> int:
         return _round_up(max(int(length), 2), LENGTH_BUCKET_SIZE)
 
-    @staticmethod
-    def _padded_matrix(rows: List[np.ndarray], width: int) -> np.ndarray:
-        matrix = np.zeros((len(rows), width), np.int32)
-        for i, row in enumerate(rows):
-            matrix[i, :len(row)] = row
-        return matrix
+    def _ensure_packed(self):
+        """Build the packed columns once: ``_input_matrix`` [N, T_in] and
+        ``_target_matrix`` [N, T_out] (int32, zero-padded to the split's
+        longest sequence) and ``_situation_stack`` [N, H, W, C] uint8."""
+        if self._packed:
+            return
+        n = len(self.input_ids)
+        max_in = int(self._input_lengths.max()) if n else 0
+        max_out = int(self._target_lengths.max()) if n else 0
+        self._input_matrix = np.zeros((n, max_in), np.int32)
+        self._target_matrix = np.zeros((n, max_out), np.int32)
+        for i in range(n):
+            self._input_matrix[i, :self._input_lengths[i]] = self.input_ids[i]
+            self._target_matrix[i, :self._target_lengths[i]] = \
+                self.target_ids[i]
+        self._situation_stack = self._situations
+        self._packed = True
 
     def get_data_iterator(self, batch_size: int = 10,
-                          pad_to_full_batch: bool = False
-                          ) -> Iterator[Tuple[Batch, np.ndarray]]:
-        """Yield (Batch on the CPU, example indices) in the current order
-        (file order until ``shuffle_data``).
+                          pad_to_full_batch: bool = False,
+                          with_representations: bool = True
+                          ) -> Iterator[Tuple[Batch, np.ndarray, List[dict],
+                                              List[Optional[str]]]]:
+        """Yield (Batch on the CPU, example indices, situation dicts,
+        derivation strings) in the current order (file order until
+        ``shuffle_data``), as the JAX loader does.
 
         Sequence dims are padded to the bucketed max length of the batch;
         with ``pad_to_full_batch`` a short final batch gets zero rows up to
         ``batch_size`` (rows beyond ``len(example_indices)``).
+        ``with_representations=False`` yields empty lists for the last two
+        (training does not need them).
         """
+        self._ensure_packed()
         n = len(self._order)
         for start in range(0, n, batch_size):
             idx = self._order[start:start + batch_size]
             rows = batch_size if pad_to_full_batch else len(idx)
             pad_rows = rows - len(idx)
 
-            def pad(block: np.ndarray) -> torch.Tensor:
+            def gather(column: np.ndarray, width: Optional[int] = None
+                       ) -> torch.Tensor:
+                block = column[idx] if width is None else \
+                    column[idx, :width]
+                if width is not None and block.shape[1] < width:
+                    block = np.pad(block, ((0, 0),
+                                           (0, width - block.shape[1])))
                 if pad_rows:
                     block = np.concatenate(
                         [block, np.zeros((pad_rows,) + block.shape[1:],
@@ -164,16 +201,30 @@ class GroundedScanDataset:
 
             max_in = self._bucketed_length(self._input_lengths[idx].max())
             max_out = self._bucketed_length(self._target_lengths[idx].max())
-            yield Batch(
-                input_ids=pad(self._padded_matrix(
-                    [self.input_ids[i] for i in idx], max_in)),
-                input_lengths=pad(self._input_lengths[idx]),
-                situations=pad(self._situations[idx].astype(np.float32)),
-                target_ids=pad(self._padded_matrix(
-                    [self.target_ids[i] for i in idx], max_out)),
-                target_lengths=pad(self._target_lengths[idx]),
-                agent_positions=pad(self._agent_positions[idx]),
-                target_positions=pad(self._target_positions[idx])), idx
+            batch = Batch(
+                input_ids=gather(self._input_matrix, max_in),
+                input_lengths=gather(self._input_lengths),
+                situations=gather(self._situation_stack).float(),
+                target_ids=gather(self._target_matrix, max_out),
+                target_lengths=gather(self._target_lengths),
+                agent_positions=gather(self._agent_positions),
+                target_positions=gather(self._target_positions))
+            if with_representations:
+                yield (batch, idx,
+                       [self._situation_representations[i] for i in idx],
+                       [self._derivation_representations[i] for i in idx])
+            else:
+                yield batch, idx, [], []
+
+    def array_to_sentence(self, sentence_array: List[int],
+                          vocabulary: str) -> List[str]:
+        """Token ids to words with the ``"input"`` or ``"target"``
+        vocabulary."""
+        if vocabulary not in ("input", "target"):
+            raise ValueError("Specified unknown vocabulary in "
+                             "array_to_sentence: {}".format(vocabulary))
+        return getattr(self, vocabulary + "_vocabulary").array_to_sentence(
+            sentence_array)
 
     @property
     def num_examples(self) -> int:

@@ -38,9 +38,9 @@ SIGNATURES = {
     # pq, keys, mask (nullable), energy_w, ctx, weights, B, M, H, vec,
     # stream
     "gscan_additive_attention": [_P] * 6 + [_I] * 4 + [_P],
-    # 7 state inputs, 12 weights, 8 outputs, B, Mt, Mv, H, V, K, eos, plan,
-    # vec, stream
-    "gscan_decode_block": [_P] * 27 + [_I] * 9 + [_P],
+    # 7 state inputs, 12 weights, 8 outputs, scratch (nullable), B, Mt, Mv,
+    # H, V, K, eos, plan, vec, stream
+    "gscan_decode_block": [_P] * 28 + [_I] * 9 + [_P],
     # 7 inputs, 12 weights, 4 outputs, B, T, num_steps, Mt, Mv, H, E, V,
     # plan, stream
     "gscan_teacher_forced_forward": [_P] * 23 + [_I] * 9 + [_P],
@@ -146,9 +146,13 @@ def library() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)]
         lib.gscan_decode_block_plan.restype = ctypes.c_int
         for name in ("gscan_decode_block_plan_rows",
-                     "gscan_decode_block_plan_slot_floats"):
+                     "gscan_decode_block_plan_slot_floats",
+                     "gscan_decode_block_plan_global"):
             getattr(lib, name).argtypes = [_I]
             getattr(lib, name).restype = ctypes.c_int
+        # plan, B, H
+        lib.gscan_decode_block_scratch_floats.argtypes = [_I] * 3
+        lib.gscan_decode_block_scratch_floats.restype = ctypes.c_longlong
         # kernel, H, E, V, Mt, Mv, the bytes available, the bytes needed (out)
         lib.gscan_teacher_forced_plan.argtypes = [_I] * 6 + [
             ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)]

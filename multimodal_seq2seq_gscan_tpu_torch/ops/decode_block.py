@@ -29,19 +29,30 @@ kernel's design (the source note has the details):
   split the keys when few rows attend.
 
 A plan (``block_plan``, the source's plan table) picks 32, 16 or 8 rows per
-CTA and 32 or 16 KB ring slots: the first that fits the device's shared
-memory per CTA at these shapes.
+CTA and 32 or 16 KB ring slots: the first that takes H and fits the
+device's shared memory per CTA at these shapes. The ring plans take H up to
+256: past it a gate item's sum runs over more than 1024 terms in one
+thread, and the kernel's c drifted further from float64 than the plain
+version's (PERF.md). Past them, two plans of 8 rows read the weights
+straight from L2, each item summed by 16 threads, each product in as many
+passes of items over the CTA's threads as it needs, and each attention row
+in two passes over its keys: the first keeps the buffers in shared memory
+(to H of about 680 on the H100), the last in a per-CTA scratch in global
+memory that the wrapper allocates (``7 H (R + 4)`` floats a CTA). That last
+plan holds only the logits, the row lists and the staged attention scores
+in shared memory (``4 (8 V + 16 m) + 288`` bytes, m = max(M_t, M_v), or 0
+past 256 keys, whose scores are staged in the output), so on the H100
+(232,448 bytes a CTA) it takes every H and M at every V up to 6,743.
 
 ``fused_decode_block`` is the wrapper: the plain version for CPU tensors, the
-kernel for CUDA tensors. The kernel takes any M and V, and H up to where its
-shared memory fits (on the H100, H <= 448 at V = 9 and M <= 52); the
-wrapper raises, before any launch, where no plan fits the device's shared
-memory per CTA, or past H = 512 (one CTA's threads per gate unit).
+kernel for CUDA tensors. The kernel takes any M and H, and the wrapper
+raises, before any launch, only where no plan fits the device's shared
+memory per CTA (naming the bytes needed and available).
 """
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -51,7 +62,6 @@ from multimodal_seq2seq_gscan_tpu_torch.ops.additive_attention import (
     additive_attention_plain, check_tensor)
 
 launches = 0  # kernel launches, counted by the wrapper
-MAX_HIDDEN = 512  # H a plan takes (8 rows a CTA, a thread per gate unit)
 
 
 class DecoderWeights(NamedTuple):
@@ -164,27 +174,41 @@ def decode_block_plain(proj_textual: torch.Tensor, cmd_mask: torch.Tensor,
                        torch.stack(step_attn_sit))
 
 
+class BlockPlan(NamedTuple):
+    """A plan of kernel 2 (``csrc/decode_block.cu``'s plan table)."""
+
+    index: int
+    rows: int         # batch rows per CTA
+    slot_floats: int  # floats per weight-ring slot; 0: weights from L2
+    global_buffers: bool  # the [H][rows + 4] buffers in global scratch
+
+    def describe(self) -> str:
+        if self.slot_floats:
+            return "plan {}: {} rows per CTA, {}-float weight slots".format(
+                self.index, self.rows, self.slot_floats)
+        return "plan {}: {} rows per CTA, weights from L2, buffers in " \
+            "{}".format(self.index, self.rows, "global scratch"
+                        if self.global_buffers else "shared memory")
+
+
 @functools.lru_cache(maxsize=None)
 def block_plan(hidden: int, vocab: int, m_t: int, m_v: int,
-               device_index: int) -> Tuple[int, int, int]:
-    """(index, batch rows per CTA, floats per weight-ring slot) of the plan
-    kernel 2 takes at these shapes on CUDA device ``device_index``: the
-    first of its plans (``csrc/decode_block.cu``, 32 rows a CTA and 32 KB
-    slots first) whose shared memory fits what the device allows a CTA.
-    Raises ``ValueError`` where none fits (naming the bytes needed and
-    available), or past ``MAX_HIDDEN``."""
+               device_index: int) -> BlockPlan:
+    """The plan kernel 2 takes at these shapes on CUDA device
+    ``device_index``: the first of its plans (32 rows a CTA and 32 KB slots
+    first) that takes H and whose shared memory fits what the device allows
+    a CTA. Raises ``ValueError`` where none fits (naming the bytes needed
+    and available)."""
     have = _build.shared_memory_per_block(device_index)
     need = ctypes.c_longlong(0)
     lib = _build.library()
     plan = lib.gscan_decode_block_plan(hidden, vocab, m_t, m_v, have,
                                        ctypes.byref(need))
-    if plan < 0 and need.value > have:
-        _build.refuse_shared_memory("fused_decode_block", need.value, have)
     if plan < 0:
-        raise ValueError("the fused_decode_block kernel takes H <= {}, got "
-                         "{}".format(MAX_HIDDEN, hidden))
-    return (plan, lib.gscan_decode_block_plan_rows(plan),
-            lib.gscan_decode_block_plan_slot_floats(plan))
+        _build.refuse_shared_memory("fused_decode_block", need.value, have)
+    return BlockPlan(plan, lib.gscan_decode_block_plan_rows(plan),
+                     lib.gscan_decode_block_plan_slot_floats(plan),
+                     bool(lib.gscan_decode_block_plan_global(plan)))
 
 
 def fused_decode_block(proj_textual: torch.Tensor, cmd_mask: torch.Tensor,
@@ -245,17 +269,21 @@ def fused_decode_block(proj_textual: torch.Tensor, cmd_mask: torch.Tensor,
         empty((num_steps, batch, m_t)), empty((num_steps, batch, m_v)))
     if batch == 0:
         return out
-    plan = block_plan(hidden, vocab, m_t, m_v,
-                      _build.device_index(device))[0]
+    plan = block_plan(hidden, vocab, m_t, m_v, _build.device_index(device))
+    lib = _build.library()
+    scratch_floats = lib.gscan_decode_block_scratch_floats(plan.index, batch,
+                                                           hidden)
+    scratch = empty((scratch_floats,)) if scratch_floats else None
     vec = hidden % 4 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (proj_textual, proj_visual, *weights))
-    code = _build.library().gscan_decode_block(
+    code = lib.gscan_decode_block(
         proj_textual.data_ptr(), cmd_mask.data_ptr(), proj_visual.data_ptr(),
         h.data_ptr(), c.data_ptr(), tokens.data_ptr(), done.data_ptr(),
         *(weight.data_ptr() for weight in weights),
         *(tensor.data_ptr() for tensor in out),
-        batch, m_t, m_v, hidden, vocab, num_steps, eos_idx, plan, int(vec),
-        torch.cuda.current_stream(device).cuda_stream)
+        None if scratch is None else scratch.data_ptr(),
+        batch, m_t, m_v, hidden, vocab, num_steps, eos_idx, plan.index,
+        int(vec), torch.cuda.current_stream(device).cuda_stream)
     _build.check(code, "gscan_decode_block")
     global launches
     launches += 1

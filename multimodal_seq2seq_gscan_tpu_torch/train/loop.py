@@ -1,18 +1,25 @@
-"""The streamed training loop: data, steps, periodic dev decode, checkpoints.
+"""The training loop: data, steps, periodic dev decode, checkpoints.
 
-The port of ``train`` in the JAX package's ``train/loop.py``, streamed path
-only: shuffle each epoch (length-bucketed, from ``np.random.default_rng(
-seed)``, so the batches equal the JAX loader's), one ``train_step`` per
-batch, metrics every ``print_every`` steps, a greedy dev evaluation every
-``evaluate_every`` steps (kernel 2 on the card) that writes the running
-checkpoint and copies it to ``model_best`` on a better exact match, and
-resume from a checkpoint of either package.
+The port of ``train`` in the JAX package's ``train/loop.py``. Metrics every
+``print_every`` steps, a greedy dev evaluation every ``evaluate_every``
+steps (kernel 2 on the card) that writes the running checkpoint and copies
+it to ``model_best`` on a better exact match, resume from a checkpoint of
+either package, and a torch.profiler trace of ten steps with
+``profile_dir``. Two paths, as in JAX:
 
-Not ported, and refused by name rather than substituted or ignored: the
-resident trainer (``steps_per_execution > 1`` and its ``chunk_layout`` /
-``stratified_*`` options, ROADMAP A9), multi-seed campaigns (``seeds``,
-A10), a device mesh (A11), k-shot moves (``k > 0``, A14), vocabulary
-generation (A14), profiling (``profile_dir``, A12), a device prefetch depth
+- resident (``steps_per_execution > 1``, the default 50): the training
+  split on the device, chunks of K steps fed by ``[K, B]`` index blocks
+  (``chunk_layout`` ``"full"`` or ``"stratified"``, with the
+  ``stratified_*`` options), a CUDA graph per chunk on the card
+  (``train/resident.py``); K divides both logging periods, and a
+  misaligned start and the last partial chunk run as single steps;
+- streamed (``steps_per_execution=1``): shuffle each epoch
+  (length-bucketed, from ``np.random.default_rng(seed)``, so the batches
+  equal the JAX loader's), one ``train_step`` per batch.
+
+Not ported, and refused by name rather than substituted or ignored:
+multi-seed campaigns (``seeds``, ROADMAP A10), a device mesh (A11), k-shot
+moves (``k > 0``, A14), vocabulary generation (A14), a device prefetch depth
 (``prefetch_depth``, A12) and the full RGB situation
 (``simple_situation_representation=False``, which the JAX package refuses
 too). Any other keyword raises ``TypeError``; ``test_batch_size`` is taken
@@ -36,28 +43,124 @@ from multimodal_seq2seq_gscan_tpu_torch.decode.predict import evaluate
 from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
 from multimodal_seq2seq_gscan_tpu_torch.models.params import count_parameters
 from multimodal_seq2seq_gscan_tpu_torch.train import checkpoint as ckpt
+from multimodal_seq2seq_gscan_tpu_torch.train.resident import (
+    build_resident_data, gather_batch, host_resident_data, index_block_stream,
+    make_train_chunk, resolve_chunk_size, stratified_index_block_stream)
 from multimodal_seq2seq_gscan_tpu_torch.train.state import (
     Adam, create_train_state)
 from multimodal_seq2seq_gscan_tpu_torch.train.step import train_step
+from multimodal_seq2seq_gscan_tpu_torch.utils.not_ported import not_ported
+from multimodal_seq2seq_gscan_tpu_torch.utils.profiling import StepProfiler
 
 logger = logging.getLogger(__name__)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError("{} is not ported yet (ROADMAP {})".format(
-        what, item))
-
-
 def epoch_stream(training_set: GroundedScanDataset, batch_size: int,
                  rng: np.random.Generator
-                 ) -> Iterator[Tuple[Batch, np.ndarray]]:
-    """Endless stream of (CPU batch, example indices): one length-bucketed
-    shuffle from ``rng`` per epoch, short batches padded to full size."""
+                 ) -> Iterator[Tuple[Batch, np.ndarray, list, list]]:
+    """Endless stream of the iterator's (CPU batch, example indices, [],
+    []): one length-bucketed shuffle from ``rng`` per epoch, short batches
+    padded to full size, no representations."""
     while True:
         training_set.shuffle_data(rng,
                                   bucket_by_length_with_batch_size=batch_size)
-        yield from training_set.get_data_iterator(batch_size=batch_size,
-                                                  pad_to_full_batch=True)
+        yield from training_set.get_data_iterator(
+            batch_size=batch_size, pad_to_full_batch=True,
+            with_representations=False)
+
+
+def _train_resident(state, training_set, config, optimizer,
+                    weight_target_loss, start_iteration,
+                    max_training_iterations, training_batch_size,
+                    steps_per_execution, print_every, evaluate_every,
+                    epoch_rng, profiler, log_metrics, run_evaluation, device,
+                    chunk_layout="full", stratified_options=None):
+    """Device-resident training in chunks (``train/resident.py``), the JAX
+    ``_train_resident``: K is aligned so print and eval boundaries land on
+    chunk ends; a misaligned prefix (a resume from any iteration) and the
+    final partial chunk run as single steps on rows of the same stream.
+    ``chunk_layout`` picks the index-block stream: "full" (every step at
+    the split's widest target) or "stratified" (width-sliced segments)."""
+    k = resolve_chunk_size(steps_per_execution, print_every, evaluate_every)
+    chunk_fn = make_train_chunk(config, optimizer,
+                                weight_target_loss=weight_target_loss)
+    host_data = host_resident_data(training_set)
+    data = build_resident_data(training_set, device)
+    if chunk_layout == "stratified":
+        blocks = stratified_index_block_stream(
+            host_data.target_lengths, training_batch_size, k, epoch_rng,
+            **(stratified_options or {}))
+    elif chunk_layout == "full":
+        blocks = ((block, None) for block in index_block_stream(
+            training_set.num_examples, training_batch_size, k, epoch_rng))
+    else:
+        raise ValueError("chunk_layout must be 'full' or 'stratified', got "
+                         "{!r}".format(chunk_layout))
+    pending = []  # rows of a partly used block (prefix and tail steps)
+
+    def take_row():
+        if not pending:
+            block, _ = next(blocks)
+            pending.extend(block)
+        return pending.pop(0)
+
+    def take_block():
+        if not pending:
+            return next(blocks)  # the common case: blocks straight through
+        # A resume or tail: a full-width chunk from the leftover rows.
+        return np.stack([take_row() for _ in range(k)]), None
+
+    logger.info("Device-resident training: %d examples on the device "
+                "(%d bytes), %d-step chunks.", training_set.num_examples,
+                data.nbytes, k)
+    iteration = start_iteration
+    window_start = time.time()
+    window_steps = 0
+
+    def at_boundaries(it, state, metrics):
+        nonlocal window_start, window_steps
+        if it % print_every == 0:
+            # On the host before the window closes: the device work of the
+            # window is then done.
+            metrics = {name: float(value) for name, value in metrics.items()}
+            elapsed = time.time() - window_start
+            log_metrics(it, metrics, window_steps / max(elapsed, 1e-9))
+            window_start, window_steps = time.time(), 0
+        if it % evaluate_every == 0:
+            run_evaluation(it, state)
+            window_start, window_steps = time.time(), 0
+
+    def single_steps(state, iteration, count):
+        nonlocal window_steps
+        for _ in range(count):
+            state, metrics = train_step(state, gather_batch(data, take_row()),
+                                        config, optimizer, weight_target_loss)
+            window_steps += 1
+            at_boundaries(iteration, state, metrics)
+            iteration += 1
+        return state, iteration
+
+    # Align on the chunk grid (chunks cover (e - k, e] with e % k == 0).
+    misaligned = (iteration - 1) % k
+    if misaligned:
+        state, iteration = single_steps(
+            state, iteration,
+            min(k - misaligned, max_training_iterations - iteration + 1))
+    while iteration <= max_training_iterations:
+        if iteration + k - 1 > max_training_iterations:
+            state, iteration = single_steps(
+                state, iteration, max_training_iterations - iteration + 1)
+            break
+        profiler.maybe_start(iteration)
+        block, segments = take_block()
+        state, metrics = chunk_fn(state, data, block, segments)
+        profiler.maybe_stop(iteration)
+        end_iteration = iteration + k - 1
+        window_steps += k
+        at_boundaries(end_iteration, state,
+                      {name: value[-1] for name, value in metrics.items()})
+        iteration = end_iteration + 1
+    return state
 
 
 def train(data_path: str, data_directory: str,
@@ -81,7 +184,7 @@ def train(data_path: str, data_directory: str,
           attention_type: str = "bahdanau", k: int = 0,
           max_training_examples: Optional[int] = None, seed: int = 42,
           mesh=None, max_testing_examples: Optional[int] = None,
-          evaluation_batch_size: int = 256, steps_per_execution: int = 1,
+          evaluation_batch_size: int = 256, steps_per_execution: int = 50,
           teacher_forced_impl: str = "fused", seeds: str = "",
           device: Union[str, torch.device] = "cuda",
           callback: Optional[Callable[[str, int, dict], None]] = None,
@@ -100,24 +203,16 @@ def train(data_path: str, data_directory: str,
     exact_match, aux_accuracy, learning_rate, steps_per_s) and every
     evaluation (``"eval"``: accuracy, exact_match, target_accuracy).
     """
-    if steps_per_execution > 1:
-        _not_ported("The resident trainer (steps_per_execution > 1)", "A9")
     if seeds and len([s for s in str(seeds).split(",") if s.strip()]) > 1:
-        _not_ported("Multi-seed training (seeds)", "A10")
+        not_ported("Multi-seed training (seeds)", "A10")
     if mesh is not None:
-        _not_ported("Data-parallel training (mesh)", "A11")
-    if (chunk_layout != "full" or str(stratified_widths) != "32"
-            or stratified_wide_mix or stratified_interleave):
-        _not_ported("The resident trainer's chunk layouts (chunk_layout, "
-                    "stratified_*)", "A9")
+        not_ported("Data-parallel training (mesh)", "A11")
     if k:
-        _not_ported("The k-shot split move (k > 0)", "A14")
+        not_ported("The k-shot split move (k > 0)", "A14")
     if generate_vocabularies:
-        _not_ported("Vocabulary generation", "A14")
-    if profile_dir:
-        _not_ported("Profiling (profile_dir)", "A12")
+        not_ported("Vocabulary generation", "A14")
     if prefetch_depth != 3:
-        _not_ported("Device prefetch (prefetch_depth)", "A12")
+        not_ported("Device prefetch (prefetch_depth)", "A12")
     if not simple_situation_representation:
         raise NotImplementedError(
             "Full RGB input image not implemented. Implement or set "
@@ -200,7 +295,8 @@ def train(data_path: str, data_directory: str,
         accuracy, exact_match, target_accuracy = evaluate(
             dev_set, state.params, config,
             max_decoding_steps=max_decoding_steps,
-            batch_size=evaluation_batch_size, device=device)
+            batch_size=evaluation_batch_size,
+            max_examples_to_evaluate=max_testing_examples, device=device)
         logger.info(
             "  Evaluation Accuracy: %5.2f Exact Match: %5.2f "
             " Target Accuracy: %5.2f"
@@ -221,14 +317,39 @@ def train(data_path: str, data_directory: str,
             best_iteration=best_iteration, best_accuracy=best_accuracy,
             best_exact_match=best_exact_match)
 
+    profiler = StepProfiler(profile_dir, start_step=start_iteration + 20)
+    epoch_rng = np.random.default_rng(seed)
     logger.info("Training starts..")
+    if steps_per_execution > 1:
+        stratified_options = dict(
+            # "32" (default): the two classes {<=32, rest}; "x16" or "":
+            # classes of multiples of 16.
+            cuts=(None if str(stratified_widths).strip().lower()
+                  in ("", "x16") else
+                  tuple(int(w) for w in str(stratified_widths).split(",")
+                        if str(w).strip())),
+            wide_mix=float(stratified_wide_mix),
+            interleave=bool(stratified_interleave))
+        state = _train_resident(
+            state, training_set, config, optimizer, weight_target_loss,
+            start_iteration, max_training_iterations, training_batch_size,
+            steps_per_execution, print_every, evaluate_every, epoch_rng,
+            profiler, log_metrics, run_evaluation, device,
+            chunk_layout=chunk_layout,
+            stratified_options=stratified_options)
+        profiler.close()
+        logger.info("Finished training.")
+        return state, config
+
     training_iteration = start_iteration
     window_start = time.time()
     window_steps = 0
-    for batch, _ in epoch_stream(training_set, training_batch_size,
-                                 np.random.default_rng(seed)):
+    for batch, _, _, _ in epoch_stream(training_set, training_batch_size,
+                                       epoch_rng):
+        profiler.maybe_start(training_iteration)
         state, metrics = train_step(state, batch.to(device), config,
                                     optimizer, weight_target_loss)
+        profiler.maybe_stop(training_iteration)
         window_steps += 1
         if training_iteration % print_every == 0:
             metrics = {name: value.item() for name, value in metrics.items()}
@@ -242,5 +363,6 @@ def train(data_path: str, data_directory: str,
         training_iteration += 1
         if training_iteration > max_training_iterations:
             break
+    profiler.close()
     logger.info("Finished training.")
     return state, config

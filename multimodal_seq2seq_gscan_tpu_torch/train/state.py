@@ -9,9 +9,14 @@ schedule, in float32:
 - the step is ``mu_hat / (sqrt(nu_hat) + eps)`` (eps outside the sqrt);
 - it is scaled by ``-lr(schedule_count)``, the schedule's count taken
   *before* its increment (optax's ``scale_by_schedule``, ``opt_state/1``).
+The update's three count-dependent scalars (the two bias corrections and
+the step size) are computed on the host in float32 (``Adam.scalars``) and
+enter the arithmetic as 0-d tensors on the parameters' device, so a CUDA
+graph of the step reads them from a buffer the host fills before each
+replay and does the same arithmetic as an eager step.
 """
 
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -69,17 +74,29 @@ class Adam(NamedTuple):
         zeros = tree_map(torch.zeros_like, params)
         return AdamState(0, zeros, tree_map(torch.zeros_like, params), 0)
 
+    def scalars(self, count: int, schedule_count: int
+                ) -> Tuple[float, float, float]:
+        """(1 - b1^(count + 1), 1 - b2^(count + 1), -lr(schedule_count)) in
+        float32: the scalars of the update from a state at these counts."""
+        count = np.float32(count + 1)
+        return (float(np.float32(1) - np.power(np.float32(self.b1), count)),
+                float(np.float32(1) - np.power(np.float32(self.b2), count)),
+                -float(self.schedule(schedule_count)))
+
     @torch.no_grad()
     def apply(self, params: ModelParams, grads: ModelParams,
-              state: AdamState):
+              state: AdamState, scalars: Optional[torch.Tensor] = None):
         """One update: (new params, new state). Nothing is modified in
-        place."""
-        count = state.count + 1
-        bias1 = float(np.float32(1) - np.power(np.float32(self.b1),
-                                               np.float32(count)))
-        bias2 = float(np.float32(1) - np.power(np.float32(self.b2),
-                                               np.float32(count)))
-        step_size = -float(self.schedule(state.schedule_count))
+        place. ``scalars``: ``Adam.scalars`` of ``state`` as a float32
+        ``[3]`` tensor on the parameters' device (made here if not
+        given)."""
+        if scalars is None:
+            device = params.enc_to_dec_w.device
+            scalars = [torch.full((), value, dtype=torch.float32,
+                                  device=device)
+                       for value in self.scalars(state.count,
+                                                 state.schedule_count)]
+        bias1, bias2, step_size = scalars[0], scalars[1], scalars[2]
         b1, b2 = self.b1, self.b2
         mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
         nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads,
@@ -90,7 +107,8 @@ class Adam(NamedTuple):
                 * step_size
 
         new_params = tree_map(update, params, mu, nu)
-        return new_params, AdamState(count, mu, nu, state.schedule_count + 1)
+        return new_params, AdamState(state.count + 1, mu, nu,
+                                     state.schedule_count + 1)
 
 
 def create_train_state(seed: int, config: ModelConfig, optimizer: Adam,

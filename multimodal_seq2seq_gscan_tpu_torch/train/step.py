@@ -5,11 +5,14 @@ The port of the JAX package's ``train/step.py`` (``loss_fn``,
 step's dropout draws from a ``torch.Generator`` on the batch's device seeded
 from (the state's key, the step), in the role of
 ``jax.random.fold_in(state.rng, state.step)``: a resumed run draws the same
-masks as an unbroken one.
+masks as an unbroken one. A caller may pass the step's generator (seeded
+so) and Adam's scalars itself: the resident trainer's CUDA graph of the
+step (``train/resident.py``) reuses generators and a scalar buffer across
+replays.
 """
 
 import hashlib
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,31 +59,37 @@ def loss_fn(params: ModelParams, config: ModelConfig, batch: Batch,
 
 @full_float32()
 def loss_and_grads(state: TrainState, batch: Batch, config: ModelConfig,
-                   weight_target_loss: float = 0.3):
+                   weight_target_loss: float = 0.3,
+                   generator: Optional[torch.Generator] = None):
     """The step's loss, its (log_probs, aux_scores) and the gradients of
-    every parameter, as a ModelParams tree; dropout from the step's
-    generator."""
+    every parameter, as a ModelParams tree; dropout from ``generator``, by
+    default the step's (``step_generator``)."""
+    if generator is None:
+        generator = step_generator(state, batch.target_ids.device)
     params = tree_unflatten(state.params, [
         p.detach().requires_grad_(True) for p in leaves(state.params)])
     with torch.enable_grad():
-        loss, outputs = loss_fn(
-            params, config, batch,
-            step_generator(state, batch.target_ids.device),
-            weight_target_loss)
+        loss, outputs = loss_fn(params, config, batch, generator,
+                                weight_target_loss)
         grads = torch.autograd.grad(loss, leaves(params))
     return (loss.detach(), tuple(o.detach() for o in outputs),
             tree_unflatten(params, list(grads)))
 
 
 def train_step(state: TrainState, batch: Batch, config: ModelConfig,
-               optimizer: Adam, weight_target_loss: float = 0.3
+               optimizer: Adam, weight_target_loss: float = 0.3,
+               generator: Optional[torch.Generator] = None,
+               adam_scalars: Optional[torch.Tensor] = None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimizer step: (new state, metrics as 0-d tensors on the
-    batch's device: loss, accuracy, exact_match, aux_accuracy)."""
+    batch's device: loss, accuracy, exact_match, aux_accuracy).
+    ``generator`` and ``adam_scalars`` default to the step's own (see
+    ``loss_and_grads`` and ``Adam.apply``)."""
     loss, (log_probs, aux_scores), grads = loss_and_grads(
-        state, batch, config, weight_target_loss)
+        state, batch, config, weight_target_loss, generator)
     new_params, new_opt_state = optimizer.apply(state.params, grads,
-                                                state.opt_state)
+                                                state.opt_state,
+                                                adam_scalars)
     with torch.no_grad():
         accuracy, exact_match = get_metrics(config, log_probs,
                                             batch.target_ids)

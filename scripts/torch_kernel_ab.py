@@ -217,8 +217,8 @@ def fixture(cs):
         target_eos_idx=train_set.target_vocabulary.eos_idx)
     state, _ = load_checkpoint(str(cs.FIXTURE / "model_best.msgpack"),
                                device=device)
-    dev_batch, _ = next(dev_set.get_data_iterator(batch_size=cs.BATCH,
-                                                  pad_to_full_batch=True))
+    dev_batch = next(dev_set.get_data_iterator(batch_size=cs.BATCH,
+                                               pad_to_full_batch=True))[0]
     return state, config, dev_batch.to(device), train_set
 
 

@@ -8,7 +8,9 @@
   ``train_step_body`` at the bars of tests/test_torch_train.py and
   tests/test_torch_greedy.py; a teacher-forced unroll of two decoder layers
   is refused, naming ROADMAP A13.
-- ``train`` refuses, by name, each keyword that the port does not honour.
+- ``train`` refuses, by name, each keyword that the port does not honour,
+  and honours those it took since (the resident trainer's layouts,
+  ``profile_dir``).
 """
 
 import logging
@@ -178,10 +180,7 @@ def test_two_layer_decoder_decodes_as_jax_and_refuses_teacher_forcing():
 @pytest.mark.parametrize("keyword,value,error,match", [
     ("simple_situation_representation", False, NotImplementedError,
      "RGB"),
-    ("profile_dir", "trace", NotImplementedError, "A12"),
     ("prefetch_depth", 1, NotImplementedError, "A12"),
-    ("chunk_layout", "stratified", NotImplementedError, "A9"),
-    ("stratified_widths", "16,32", NotImplementedError, "A9"),
     ("k", 1, NotImplementedError, "A14"),
     ("generate_vocabularies", True, NotImplementedError, "A14"),
     ("seeds", "1,2", NotImplementedError, "A10"),
@@ -192,3 +191,42 @@ def test_train_refuses_keywords_it_does_not_honour(tmp_path, keyword, value,
     with pytest.raises(error, match=match):
         train(DATASET, FIXTURE, output_directory=str(tmp_path),
               device="cpu", **{keyword: value})
+
+
+@pytest.mark.parametrize("keyword,value", [
+    ("profile_dir", "trace"), ("chunk_layout", "stratified"),
+    ("stratified_widths", "16,32")])
+def test_train_honours_keywords_it_once_refused(tmp_path, monkeypatch,
+                                                keyword, value):
+    """The resident trainer's layouts and ``profile_dir``, refused until
+    the port had them, are honoured: a stratified layout streams its
+    blocks with the cuts asked for, and ``profile_dir`` gets a trace."""
+    from multimodal_seq2seq_gscan_tpu_torch.train import loop
+    streams = []
+    stratified = loop.stratified_index_block_stream
+
+    def spy(*args, **kwargs):
+        streams.append(kwargs)
+        return stratified(*args, **kwargs)
+
+    monkeypatch.setattr(loop, "stratified_index_block_stream", spy)
+    options = {keyword: value}
+    if keyword == "profile_dir":
+        options[keyword] = str(tmp_path / value)
+    elif keyword == "stratified_widths":
+        options["chunk_layout"] = "stratified"
+    state, _ = train(DATASET, FIXTURE, output_directory=str(tmp_path),
+                     device="cpu", max_training_examples=16,
+                     training_batch_size=4, embedding_dimension=8,
+                     encoder_hidden_size=12, decoder_hidden_size=12,
+                     cnn_kernel_size=3, cnn_hidden_num_channels=6,
+                     steps_per_execution=4, print_every=4,
+                     evaluate_every=1000, max_training_iterations=32,
+                     **options)
+    assert state.step == 32
+    if keyword == "profile_dir":
+        assert streams == []
+        assert len(list((tmp_path / value).glob("*.pt.trace.json"))) == 1
+    else:
+        cuts = (16, 32) if keyword == "stratified_widths" else (32,)
+        assert [kwargs["cuts"] for kwargs in streams] == [cuts]

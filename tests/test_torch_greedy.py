@@ -84,8 +84,8 @@ def test_batches_identical_to_jax_loader(fixture, batch_size):
         batch_size=batch_size, pad_to_full_batch=True))
     assert len(port_batches) == len(jax_batches) == -(-N_EXAMPLES
                                                       // batch_size)
-    for (jbatch, jidx, _, _), (pbatch, pidx) in zip(jax_batches,
-                                                    port_batches):
+    for (jbatch, jidx, _, _), (pbatch, pidx, _, _) in zip(jax_batches,
+                                                          port_batches):
         np.testing.assert_array_equal(pidx, jidx)
         for field in jbatch._fields:
             port = getattr(pbatch, field).numpy()
@@ -103,8 +103,8 @@ def test_fixture_decode_token_identical_to_jax(fixture):
                       decode_impl="xla", compute_dtype="float32")(
         jparams, jbatch.input_ids, jbatch.input_lengths, jbatch.situations,
         jbatch.target_positions)
-    pbatch, _ = next(port_data.get_data_iterator(batch_size=N_EXAMPLES,
-                                                 pad_to_full_batch=True))
+    pbatch = next(port_data.get_data_iterator(batch_size=N_EXAMPLES,
+                                              pad_to_full_batch=True))[0]
     out = make_greedy_decoder(tcfg, 120)(
         tparams, pbatch.input_ids, pbatch.input_lengths, pbatch.situations,
         pbatch.target_positions)

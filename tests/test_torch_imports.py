@@ -64,8 +64,14 @@ names = [m.name for m in pkgutil.walk_packages(package.__path__,
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in blocked)
-print(json.dumps({"imported": len(names) + 1, "leaked": leaked}))
+print(json.dumps({"imported": len(names) + 1, "leaked": leaked,
+                  "names": names}))
 """
+
+# Modules that must be among those imported (the walk finds every module;
+# these are named so that a missing one fails here).
+REQUIRED = ("decode.predict", "train.resident", "utils.profiling",
+            "train.loop", "ops.decode_block", "ops.teacher_forced")
 
 
 def test_every_module_imports_with_blocked_packages():
@@ -76,3 +82,5 @@ def test_every_module_imports_with_blocked_packages():
     report = json.loads(result.stdout.strip().splitlines()[-1])
     assert report["leaked"] == []
     assert report["imported"] > 15
+    for name in REQUIRED:
+        assert "{}.{}".format(PACKAGE, name) in report["names"], name

@@ -22,7 +22,10 @@ same bars, and kernels 1 and 2 also where 16-byte loads do not apply
 (H % 4 != 0, or inputs 4 bytes past a 16-byte boundary) and kernel 1 past
 H = 1024. Kernel 1's gradients (its backward is the plain
 ``attention_vjp_plain``) match autograd through its plain version at rtol
-1e-4 / atol 1e-5, the bar of float32 sums in two orders.
+1e-4 / atol 1e-5, the bar of float32 sums in two orders. Kernel 2 also
+takes H past 448 (its plans without a ring, up to H = 1024 here), and the
+resident trainer's CUDA graph of the training step gives the eager steps'
+state and metrics.
 """
 
 import numpy as np
@@ -226,6 +229,131 @@ def test_decode_block_kernel_mostly_done(cuda):
             rows = attn[count:, row]
             assert torch.equal(rows, rows[:1].expand_as(rows)), row
     assert finished > 0  # some rows emit EOS inside the block
+
+
+# Kernel 2 past its ring plans: (H = E, batch, the plan it takes on the
+# H100). The ring plans take H <= 256 (their gate sums); H = 257 to about
+# 680 takes the plan without a ring with the buffers in shared memory (6),
+# wider ones the one with a global scratch (7).
+PAST_448 = {"H257": (257, 96, 6), "W4": (449, 96, 6), "W5": (640, 64, 6),
+            "W6": (1024, 64, 7)}
+
+
+def as_float64(args):
+    """The same arguments with every float tensor in float64."""
+    out = []
+    for arg in args:
+        if isinstance(arg, tuple):
+            out.append(type(arg)(*as_float64(arg)))
+        elif isinstance(arg, torch.Tensor) and arg.is_floating_point():
+            out.append(arg.double())
+        else:
+            out.append(arg)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PAST_448) + ["decode_H640"])
+def test_decode_block_past_448(cuda, name):
+    """Kernel 2 past its ring plans (H = 257, and W4-W6: H = 449, 640 and
+    1024, the last past shared memory): M_t = 16, M_v = 36, V = 9, K = 32
+    steps from SOS with a tenth of the rows done at entry, weights drawn as
+    the JAX package initialises them. The JAX decode test's bars against
+    the plain version: tokens, done and emitted flags equal, attention rtol
+    1e-5 / atol 1e-6. The float64 referee (PERF.md section 2) for the
+    attention and the carried h and c: no further from a float64
+    evaluation than twice the plain version (or 1e-6), on the rows where
+    float64 takes the same tokens. At these widths the plain version's own
+    h and c lie about as far from float64 as the attention bar (c 6e-6 at
+    H = 449), so two float32 evaluations may part by more than it: h and c
+    are held to float64 only.
+    decode_H640: a greedy decode of a model with H = 640 through
+    decode_impl="block" launches kernel 2 and gives the tokens of
+    "block_plain" apart from rows parting at argmax near-ties (top-2 logit
+    gap below 1e-4)."""
+    if name == "decode_H640":
+        from multimodal_seq2seq_gscan_tpu_torch.decode.greedy import (
+            make_greedy_decoder)
+        from multimodal_seq2seq_gscan_tpu_torch.models.config import (
+            ModelConfig)
+        from multimodal_seq2seq_gscan_tpu_torch.models.params import (
+            init_model_params)
+        config = ModelConfig(input_vocabulary_size=12,
+                             target_vocabulary_size=9, num_cnn_channels=16,
+                             encoder_hidden_size=640,
+                             decoder_hidden_size=640)
+        params = init_model_params(config, torch.Generator().manual_seed(3),
+                                   cuda)
+        rng = np.random.RandomState(9)
+        batch = 48
+        lengths = rng.randint(3, 9, size=batch)
+        ids = np.zeros((batch, 8), np.int32)
+        for row, n in enumerate(lengths):
+            ids[row, :n] = rng.randint(3, 12, size=n)
+            ids[row, 0], ids[row, n - 1] = 1, 2
+        inputs = (torch.from_numpy(ids).to(cuda),
+                  torch.from_numpy(lengths.astype(np.int32)).to(cuda),
+                  torch.from_numpy(rng.randint(0, 2, (batch, 6, 6, 16))
+                                   .astype(np.float32)).to(cuda),
+                  torch.zeros(batch, dtype=torch.int32, device=cuda))
+        before = k2.launches
+        out = make_greedy_decoder(config, 40, decode_impl="block")(
+            params, *inputs)
+        torch.cuda.synchronize()
+        assert k2.launches > before
+        ref = make_greedy_decoder(config, 40, decode_impl="block_plain")(
+            params, *inputs)
+        # Random weights give argmax near-ties: a row may part from the
+        # plain decode only at a step whose top-2 logit gap there is below
+        # 1e-4 (chip_smoke.py's rule); the rows that do not part agree.
+        differ = (out.tokens != ref.tokens) | (out.emitted_mask
+                                               != ref.emitted_mask)
+        rows = differ.any(dim=1)
+        for row in torch.nonzero(rows).flatten().tolist():
+            step = int(torch.nonzero(differ[row]).flatten()[0])
+            assert float(ref.top2_gap[row, step]) < 1e-4, (row, step)
+        assert int(rows.sum()) < len(rows)
+        torch.testing.assert_close(out.attention_situations[~rows],
+                                   ref.attention_situations[~rows],
+                                   rtol=1e-5, atol=1e-6)
+        return
+    h, batch, index = PAST_448[name]
+    plan = k2.block_plan(h, 9, 16, 36, torch.cuda.current_device())
+    if torch.cuda.get_device_name(cuda).startswith("NVIDIA H100"):
+        assert plan.index == index, plan
+    inputs, _ = teacher_forced_inputs(cuda, batch, 1, 1, h=h, seed=h)
+    rng = np.random.RandomState(h)
+    args = (inputs[0], inputs[1], inputs[2], inputs[3], inputs[4],
+            torch.ones(batch, dtype=torch.int32, device=cuda),
+            torch.from_numpy(rng.rand(batch) < 0.1).to(cuda), inputs[7])
+    before = k2.launches
+    out = k2.fused_decode_block(*args, num_steps=32, eos_idx=2)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    gaps = []
+    ref = k2.decode_block_plain(*args, num_steps=32, eos_idx=2,
+                                top2_gap=gaps)
+    for field in ("tokens", "done", "step_tokens", "step_emitted"):
+        assert torch.equal(getattr(out, field), getattr(ref, field)), \
+            "{} differ; the plain version's smallest top-2 logit gap " \
+            "{:.3e}".format(field, float(torch.stack(gaps).min()))
+    for field in ("step_attn_cmd", "step_attn_sit"):
+        torch.testing.assert_close(getattr(out, field), getattr(ref, field),
+                                   rtol=1e-5, atol=1e-6)
+    exact = k2.decode_block_plain(*as_float64(args), num_steps=32, eos_idx=2)
+    agree = torch.nonzero((exact.step_tokens == ref.step_tokens).all(
+        dim=0)).flatten()
+    assert len(agree) > 0
+    for field in ("step_attn_cmd", "step_attn_sit", "h", "c"):
+        axis = 1 if field.startswith("step") else 0
+        got, want, truth = (getattr(o, field).index_select(axis, agree)
+                            for o in (out, ref, exact))
+        kernel_err = float((got.double() - truth).abs().max())
+        plain_err = float((want.double() - truth).abs().max())
+        assert kernel_err <= max(2 * plain_err, 1e-6), (
+            "{}: kernel {:.3e} and plain {:.3e} from float64, kernel {:.3e} "
+            "from plain".format(field, kernel_err, plain_err,
+                                float((got - want).abs().max())))
 
 
 def teacher_forced_inputs(device, batch, steps, num_steps, m_t=16, m_v=36,
@@ -533,3 +661,86 @@ def test_wide_shapes_match_plain(cuda, name):
     assert after[0] == before[0] + 2 and after[1] == before[1] + 1
     for kernel, count in after[2].items():
         assert count > before[2][kernel], kernel
+
+
+def resident_toy(device, n=48, grid=4, channels=6, t_in=7, t_out=12):
+    """A toy training split on the card (the JAX resident tests' layout):
+    uint8 grids, int32 ids, lengths 3..t_out."""
+    from multimodal_seq2seq_gscan_tpu_torch.train.resident import (
+        ResidentData)
+    rng = np.random.RandomState(0)
+    input_lengths = rng.randint(3, t_in + 1, size=n).astype(np.int32)
+    target_lengths = rng.randint(3, t_out + 1, size=n).astype(np.int32)
+    input_ids = np.zeros((n, t_in), np.int32)
+    target_ids = np.zeros((n, t_out), np.int32)
+    for i in range(n):
+        input_ids[i, :input_lengths[i]] = rng.randint(
+            3, 12, size=input_lengths[i])
+        target_ids[i, :target_lengths[i]] = rng.randint(
+            3, 8, size=target_lengths[i])
+    return ResidentData(*(torch.from_numpy(a).to(device) for a in (
+        input_ids, input_lengths,
+        (rng.rand(n, grid, grid, channels) < 0.2).astype(np.uint8),
+        target_ids, target_lengths,
+        rng.randint(0, grid * grid, size=n).astype(np.int32),
+        rng.randint(0, grid * grid, size=n).astype(np.int32))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["full", "stratified"])
+def test_resident_graph_equals_eager_steps(cuda, layout):
+    """The resident trainer's CUDA graph of a K = 6 chunk against 6 eager
+    train_step calls on the same index rows, dropout on, kernels 3 and 4
+    in the step: losses and metrics rtol 2e-5 / atol 1e-6, params and Adam
+    moments atol 1e-6 (JAX's chunk test's bars); a second chunk from the
+    first one's state too (the graph replayed with the next steps' dropout
+    seeds). The stratified layout narrows the targets of its segments
+    (here widths 8 and 12)."""
+    from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
+    from multimodal_seq2seq_gscan_tpu_torch.models.params import leaves
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    from multimodal_seq2seq_gscan_tpu_torch.train import resident
+    from multimodal_seq2seq_gscan_tpu_torch.train.state import (
+        Adam, create_train_state)
+    from multimodal_seq2seq_gscan_tpu_torch.train.step import train_step
+    config = ModelConfig(input_vocabulary_size=12, target_vocabulary_size=8,
+                         num_cnn_channels=6, embedding_dimension=10,
+                         encoder_hidden_size=12, decoder_hidden_size=12,
+                         cnn_kernel_size=3, cnn_hidden_num_channels=6,
+                         auxiliary_task=True)
+    optimizer = Adam()
+    data = resident_toy(cuda)
+    k, batch = 6, 8
+    if layout == "full":
+        blocks = ((b, None) for b in resident.index_block_stream(
+            data.num_examples, batch, k, np.random.default_rng(3)))
+    else:
+        blocks = resident.stratified_index_block_stream(
+            data.target_lengths.cpu().numpy(), batch, k,
+            np.random.default_rng(3), cuts=(8,))
+    state = create_train_state(5, config, optimizer, device=cuda)
+    chunk = resident.make_train_chunk(config, optimizer)
+    eager, graphed = state, state
+    before = dict(tf.launches)
+    for _ in range(2):
+        block, segments = next(blocks)
+        graphed, metrics = chunk(graphed, data, block, segments)
+        widths = [w for count, w in (segments or ((k, 12),))
+                  for _ in range(count)]
+        for j, (row, width) in enumerate(zip(block, widths)):
+            b = resident.gather_batch(data, row)
+            b = b._replace(target_ids=b.target_ids[:, :width])
+            eager, step_metrics = train_step(eager, b, config, optimizer)
+            for name, value in step_metrics.items():
+                torch.testing.assert_close(metrics[name][j], value,
+                                           rtol=2e-5, atol=1e-6, msg=name)
+        assert graphed.step == eager.step
+        assert graphed.opt_state[0::3] == eager.opt_state[0::3]
+        for tree in ("params", "mu", "nu"):
+            get = (lambda s: s.params) if tree == "params" else (
+                lambda s, t=tree: getattr(s.opt_state, t))
+            for a, b in zip(leaves(get(graphed)), leaves(get(eager))):
+                torch.testing.assert_close(a, b, rtol=0, atol=1e-6,
+                                           msg=tree)
+    for kernel, count in tf.launches.items():
+        assert count > before[kernel], kernel

@@ -17,9 +17,12 @@
   leaf for leaf; the port re-encodes the fixture checkpoint byte for byte.
 - ``init_model_params`` gives JAX's shapes and distributions' supports.
 - ``make_eval_forward`` gives JAX's eval loss and metrics.
-- ``train`` resumes from the fixture, steps, evaluates and checkpoints.
+- ``train`` (streamed, ``steps_per_execution=1``) resumes from the
+  fixture, steps, evaluates and checkpoints; the resident trainer is its
+  default, as in JAX.
 """
 
+import inspect
 import os
 
 import flax.serialization
@@ -256,7 +259,7 @@ def test_shuffled_batches_identical_to_jax_loader():
         got = list(port_data.get_data_iterator(batch_size=200,
                                                pad_to_full_batch=True))
         assert len(got) == len(ref) == 3
-        for (batch, idx), (ref_batch, ref_idx, _, _) in zip(got, ref):
+        for (batch, idx, _, _), (ref_batch, ref_idx, _, _) in zip(got, ref):
             np.testing.assert_array_equal(idx, ref_idx)
             for name in Batch._fields:
                 np.testing.assert_array_equal(
@@ -363,7 +366,7 @@ def test_train_resumes_steps_evaluates_and_checkpoints(tmp_path):
         max_testing_examples=8, resume_from_file=CHECKPOINT,
         max_training_iterations=200002, print_every=1,
         evaluate_every=200002, output_directory=str(tmp_path),
-        evaluation_batch_size=8, device="cpu",
+        evaluation_batch_size=8, steps_per_execution=1, device="cpu",
         callback=lambda *event: events.append(event))
     assert state.step == 200003
     assert [e[:2] for e in events] == [("train", 200000), ("train", 200001),
@@ -375,9 +378,11 @@ def test_train_resumes_steps_evaluates_and_checkpoints(tmp_path):
     assert written.step == meta["iteration"] == 200003
     for port, ref in zip(leaves(written.params), leaves(state.params)):
         assert torch.equal(port, ref)
-    with pytest.raises(NotImplementedError, match="A9"):
-        train(os.path.join(FIXTURE, "dataset.txt"), FIXTURE,
-              steps_per_execution=50, device="cpu")
+    # The resident trainer is the default, as in JAX (its own tests:
+    # tests/test_torch_resident.py); the run above asked for the streamed
+    # path.
+    assert inspect.signature(train).parameters[
+        "steps_per_execution"].default == 50
 
 
 @pytest.mark.parametrize("entry", ["train_step", "eval_forward", "decode"])
