@@ -33,6 +33,16 @@ the third trains on the resident path: chunks of 10 steps replayed from
 CUDA graphs, held to as many eager steps (full and stratified layouts),
 timed against the streamed step with the device busy share of each, then
 ``train(steps_per_execution=10)`` to step 200020 with its dev evaluation.
+The command line runs in process (``cli/seq2seq.py``'s ``main``):
+``--mode=train`` resumed to 200020 in graphed chunks with a dev evaluation
+of 512 examples, then ``--mode=test``, whose ``dev_predict.json`` must hold
+the decode phase's predictions. The 4096 examples are also decoded in each
+bf16 variant (``bfloat16``, ``bfloat16_mixed``, ``bfloat16_keys``: the step
+path, kernel 1's bf16 form), held to the JAX package's bars against the
+float32 decode; kernel 1's bf16 form is held to its plain version and to
+float64 at the decode's shapes and W3's, and timed beside its bound; and a
+decoder of two layers on random weights trains one graphed resident chunk
+of its step unroll (kernel 1), held to as many eager steps.
 Then it times each kernel and its plain version with CUDA
 events (kernel 2 on both of the fixture's blocks, each beside its own bound),
 the full decode and the train step, and profiles one decode and three train
@@ -63,6 +73,13 @@ FIXTURE = ROOT / "data" / "bench_fixture"
 MAX_DECODING_STEPS = 120
 EXIT_CHECK_EVERY = 32
 BATCH = 4096
+# The first BATCH fixture dev rows that each bf16 decode variant of the JAX
+# package decodes otherwise than its float32 decode, on the CPU
+# (scripts/bf16_decode_flips.py; the same at batch 64, 512 and 4096;
+# tests/test_torch_decode_dtype.py holds the port to JAX on two windows).
+JAX_BF16_FLIPS = {"bfloat16": (289, 1445, 1756, 1908, 2329, 3110),
+                  "bfloat16_mixed": (1445, 1756, 1908, 2329, 3110),
+                  "bfloat16_keys": (1908,)}
 STEP_EXAMPLES = 512
 NEAR_TIE = 1e-4
 DEVICE = "cuda"
@@ -93,6 +110,9 @@ PAST_448_BATCH = 1024
 # steps; chunk time also at the JAX default of 50 steps.
 RESIDENT_K = 10
 RESIDENT_K_DEFAULT = 50
+# Steps of the two-layer decoder's graphed chunk (its step unroll issues
+# about 25 times the launches of the fused step).
+TWO_LAYER_K = 4
 
 # NVIDIA H100 SXM data sheet, full 700 W power limit: float32 outside the
 # tensor cores, and HBM3 bandwidth. A bound is the larger of operations over
@@ -175,14 +195,17 @@ def bound_ms(num_bytes, flops):
                                                            "operations")
 
 
-def attention_work(batch, m, h, masked):
-    """(bytes, flops) of one additive attention call: each input read once,
-    each output written once; per (row, key, feature) an add, a tanh and a
-    multiply-add for the score and a multiply-add for the context."""
-    floats = (batch * h + batch * m * h + (batch * m if masked else 0) + h
-              + batch * h + batch * m)
+def attention_work(batch, m, h, masked, key_bytes=4, small_bytes=4):
+    """(bytes, flops) of one additive attention call: each input read once
+    (the keys at ``key_bytes`` an element, the queries, mask and energy
+    vector at ``small_bytes``), each float32 output written once; per (row,
+    key, feature) an add, a tanh and a multiply-add for the score and a
+    multiply-add for the context."""
+    read = (key_bytes * batch * m * h
+            + small_bytes * (batch * h + (batch * m if masked else 0) + h))
+    written = 4 * (batch * h + batch * m)
     flops = batch * m * h * 6 + batch * m * 5
-    return 4 * floats, flops
+    return read + written, flops
 
 
 def decode_block_work(batch, m_t, m_v, h, vocab, steps, weights_bytes,
@@ -1127,6 +1150,213 @@ def resident_checks(train_set, config, events, streamed_batch, sync):
                       evaluations[-1][0]))
 
 
+def as_bf16(args, small):
+    """Kernel 1's arguments with the keys in bf16 and the queries, mask and
+    energy vector in ``small``."""
+    import torch
+    pq, keys, mask, energy = args
+    return (pq.to(small), keys.to(torch.bfloat16),
+            None if mask is None else mask.to(small), energy.to(small))
+
+
+def bf16_decodes(params, config, inputs, dataset, indices, f32_out,
+                 plain_out, em_f32, sync):
+    """The fixture's BATCH dev examples through each bf16 decode variant
+    (the step path, whose attentions are kernel 1's bf16 form): exact match
+    and the rows whose tokens differ from the float32 decode, each with the
+    float32 plain decode's top-2 logit gap at the first differing step.
+    Each variant may change only rows that the JAX package's decode of the
+    same variant changes on the CPU (``JAX_BF16_FLIPS``). Each variant must
+    launch kernel 1's bf16 form, and neither its float32 form nor kernel 2;
+    the counts are set to 0 before each variant and read after it. Returns
+    the bf16 form's launches over the three decodes."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.decode import greedy
+    from multimodal_seq2seq_gscan_tpu_torch.ops import additive_attention as k1
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    launches = 0
+    for dtype in ("bfloat16", "bfloat16_mixed", "bfloat16_keys"):
+        k1.launches, k1.launches_bf16, k2.launches = 0, 0, 0
+        decode = greedy.make_greedy_decoder(
+            config, MAX_DECODING_STEPS, EXIT_CHECK_EVERY, decode_impl="step",
+            compute_dtype=dtype)
+        start = time.perf_counter()
+        out = decode(params, *inputs)
+        sync()
+        ms = (time.perf_counter() - start) * 1e3
+        require(tuple(out.tokens.shape) == (BATCH, MAX_DECODING_STEPS + 1)
+                and out.attention_situations.dtype == torch.float32
+                and bool(torch.isfinite(out.attention_commands).all())
+                and bool(torch.isfinite(out.attention_situations).all()),
+                "{} decode: outputs of the wrong shape, dtype or not "
+                "finite".format(dtype))
+        emitted, ref_emitted = out.emitted_mask > 0, f32_out.emitted_mask > 0
+        differ = (((out.tokens * emitted) != (f32_out.tokens * ref_emitted))
+                  | (emitted != ref_emitted)).any(dim=1)
+        rows = differ.nonzero().flatten().tolist()
+        gaps = divergences(out.tokens, out.emitted_mask, plain_out.tokens,
+                           plain_out.emitted_mask, plain_out.top2_gap)
+        em = exact_match(out, dataset, indices, config.target_eos_idx)
+        print("{} decode ({:.3f} ms, one run, wall clock): exact match "
+              "{:.4f}% (float32 {:.4f}%); {} of {} rows differ from the "
+              "float32 decode; against the float32 plain decode (row, first "
+              "differing step, its top-2 logit gap): {}".format(
+                  dtype, ms, em, em_f32, len(rows), BATCH, gaps[:40]))
+        require(set(rows) <= set(JAX_BF16_FLIPS[dtype]),
+                "{} decode: rows {} differ from float32; the JAX package's "
+                "decode changes only {}".format(dtype, rows,
+                                                JAX_BF16_FLIPS[dtype]))
+        print("launches, {} decode: kernel 1's bf16 form {}, its float32 "
+              "form {}, kernel 2 {}".format(dtype, k1.launches_bf16,
+                                            k1.launches, k2.launches))
+        require(k1.launches_bf16 > 0 and k1.launches == 0
+                and k2.launches == 0,
+                "the {} decode did not run kernel 1's bf16 form alone".format(
+                    dtype))
+        launches += k1.launches_bf16
+    return launches
+
+
+def cli_checks(dataset, decoded, eos_idx, sync):
+    """The port's command line in process on the card
+    (``cli.seq2seq.main``): ``--mode=train`` resumed from the fixture to
+    iteration 200020 in graphed chunks of RESIDENT_K steps (kernels 3, 4
+    and the helper) with a dev evaluation of STEP_EXAMPLES examples (kernel
+    2), then ``--mode=test`` writing ``dev_predict.json`` for the first
+    STEP_EXAMPLES dev examples, decoded at the decode phase's batch, whose
+    predictions must be the decode phase's."""
+    import logging
+    from multimodal_seq2seq_gscan_tpu_torch.cli import seq2seq
+    from multimodal_seq2seq_gscan_tpu_torch.decode.greedy import (
+        strip_output_sequences)
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.lines = []
+
+        def emit(self, record):
+            message = record.getMessage()
+            if "Evaluation Accuracy" in message or "Iteration" in message:
+                self.lines.append(message)
+
+    lines = Lines()
+    loop_logger = logging.getLogger("multimodal_seq2seq_gscan_tpu_torch")
+    level = loop_logger.level
+    loop_logger.setLevel(logging.INFO)
+    loop_logger.addHandler(lines)
+    out_dir = tempfile.mkdtemp(prefix="gscan_chip_smoke_cli_")
+    common = ["--data_directory=" + str(FIXTURE),
+              "--output_directory=" + out_dir,
+              "--resume_from_file=" + str(FIXTURE / "model_best.msgpack"),
+              "--max_decoding_steps={}".format(MAX_DECODING_STEPS),
+              "--max_testing_examples={}".format(STEP_EXAMPLES),
+              "--seed={}".format(SEED)]
+    try:
+        k2.launches = 0
+        tf.launches.update({name: 0 for name in tf.launches})
+        start = time.perf_counter()
+        seq2seq.main(vars(seq2seq.build_parser().parse_args(
+            ["--mode=train"] + common + [
+                "--training_batch_size={}".format(TRAIN_BATCH),
+                "--test_batch_size={}".format(STEP_EXAMPLES),
+                "--max_training_iterations=200020",
+                "--print_every={}".format(RESIDENT_K),
+                "--evaluate_every={}".format(2 * RESIDENT_K),
+                "--steps_per_execution={}".format(RESIDENT_K)])),
+            device=DEVICE)
+        sync()
+        train_s = time.perf_counter() - start
+        launches = dict(tf.launches, decode_block=k2.launches)
+        with open(os.path.join(out_dir, "checkpoint.msgpack.json")) as f:
+            meta = json.load(f)
+        k2.launches = 0
+        start = time.perf_counter()
+        seq2seq.main(vars(seq2seq.build_parser().parse_args(
+            ["--mode=test"] + common + [
+                "--splits=dev", "--test_batch_size={}".format(BATCH)])),
+            device=DEVICE)
+        sync()
+        test_s = time.perf_counter() - start
+        launches_test = k2.launches
+        with open(os.path.join(out_dir, "dev_predict.json")) as f:
+            written = json.load(f)
+    finally:
+        loop_logger.removeHandler(lines)
+        loop_logger.setLevel(level)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for line in lines.lines:
+        print("cli: " + line)
+    print("cli --mode=train: {:.2f} s, checkpoint meta {}; launches (kernels "
+          "3, 4 and the helper: warm-up, capture and single steps) "
+          "{}".format(train_s, meta, launches))
+    evaluations = [line for line in lines.lines
+                   if "Evaluation Accuracy" in line]
+    require(all(count > 0 for count in launches.values()),
+            "a kernel of the CLI's training path was not launched")
+    require(meta["iteration"] == 200021 and len(evaluations) == 2,
+            "cli --mode=train: meta {}, evaluations {}".format(
+                meta, evaluations))
+    exact = float(evaluations[-1].split("Exact Match:")[1].split()[0])
+    require(exact > 90.0, "cli --mode=train: dev exact match {}".format(
+        exact))
+    sequences, _ = strip_output_sequences(decoded, eos_idx)
+    words = [dataset.array_to_sentence(seq, "target")
+             for seq in sequences[:STEP_EXAMPLES]]
+    same = sum(record["prediction"] == w for record, w in zip(written,
+                                                                words))
+    print("cli --mode=test: {:.2f} s, {} records, kernel 2 launches {}; {} "
+          "of {} predictions equal the decode phase's".format(
+              test_s, len(written), launches_test, same, STEP_EXAMPLES))
+    require(launches_test > 0, "cli --mode=test did not launch kernel 2")
+    require(len(written) == STEP_EXAMPLES and same == STEP_EXAMPLES,
+            "cli --mode=test: predictions differ from the decode phase")
+
+
+def two_layer_checks(train_set, config, sync):
+    """A decoder of two layers (and inter-layer dropout) on random weights
+    from SEED: a graphed resident chunk of TWO_LAYER_K steps of the step
+    unroll (kernel 1 with its plain backward) against as many eager steps,
+    dropout on, held as ``hold_chunk``; kernel 1 must be launched in it."""
+    import numpy as np
+    from multimodal_seq2seq_gscan_tpu_torch.ops import additive_attention as k1
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    from multimodal_seq2seq_gscan_tpu_torch.train import resident
+    from multimodal_seq2seq_gscan_tpu_torch.train.state import (
+        Adam, create_train_state)
+    from multimodal_seq2seq_gscan_tpu_torch.train.step import train_step
+    config = config._replace(num_decoder_layers=2)
+    optimizer = Adam()
+    state = create_train_state(SEED, config, optimizer, device=DEVICE)
+    data = resident.build_resident_data(train_set, DEVICE)
+    block = next(resident.index_block_stream(
+        data.num_examples, TRAIN_BATCH, TWO_LAYER_K,
+        np.random.default_rng(SEED)))
+    k1.launches = 0
+    tf.launches.update({name: 0 for name in tf.launches})
+    start = time.perf_counter()
+    graphed = resident.make_train_chunk(config, optimizer)(state, data,
+                                                           block)
+    sync()
+    chunk_s = time.perf_counter() - start
+    launches = k1.launches
+    eager, metrics = state, []
+    for row in block:
+        eager, step_metrics = train_step(
+            eager, resident.gather_batch(data, row), config, optimizer)
+        metrics.append(step_metrics)
+    print("two-layer decoder, resident chunk of {} steps (T={}): captured "
+          "and run in {:.2f} s; kernel 1 launches {}, kernels 3 and 4 "
+          "{}".format(TWO_LAYER_K, data.target_ids.shape[1], chunk_s,
+                      launches, dict(tf.launches)))
+    require(launches > 0 and all(n == 0 for n in tf.launches.values()),
+            "the two-layer chunk did not run the step unroll's kernel 1")
+    hold_chunk("two-layer decoder, graphed chunk vs eager steps", *graphed,
+               eager, metrics)
+
+
 def check_close_quiet(got, want, rtol, atol, label):
     """Max |err|; fails past atol + rtol|want|."""
     diff = (got - want).abs()
@@ -1264,6 +1494,40 @@ def main():
                                               kernel, plain, exact):
                 against_float64("additive_attention fixture M={} {}".format(
                     args[1].shape[1], name), got, want, truth)
+
+        # Kernel 1's bf16 form (bf16 keys; float32 queries, mask and energy
+        # vector as in a bfloat16_keys decode, or bf16 as in a bfloat16
+        # one) against its plain version on the same inputs: the JAX
+        # test's inputs at the decode's shapes and at W3's, at the float32
+        # form's bars and the float64 referee; the fixture's first decoder
+        # step, as the float32 form's, against float64.
+        def bf16_label(args):
+            return "additive_attention bf16 M={} H={} {} queries".format(
+                args[1].shape[1], args[1].shape[2],
+                "bf16" if args[0].dtype == torch.bfloat16 else "float32")
+
+        # A generator of its own, so that the draws of the phases after
+        # this one are those of the runs before the bf16 form.
+        gen_bf16 = torch.Generator(device=device).manual_seed(1)
+        attention_bf16_err = max(
+            hold_attention(bf16_label(args), args) for args in (
+                as_bf16(random_attention_inputs(gen_bf16, device, BATCH, m,
+                                                h, masked), small)
+                for m, h, masked in ((m_t, hidden, True),
+                                     (m_v, hidden, False), (72, 256, True),
+                                     (144, 256, False))
+                for small in (torch.float32, torch.bfloat16)))
+        for small in (torch.float32, torch.bfloat16):
+            for args in attention_calls:
+                args = as_bf16(args, small)
+                kernel = k1.additive_attention(*args)
+                sync()
+                plain = k1.additive_attention_plain(*args)
+                exact = k1.additive_attention_plain(*as_float64(args))
+                for name, got, want, truth in zip(("context", "weights"),
+                                                  kernel, plain, exact):
+                    against_float64("{} fixture {}".format(
+                        bf16_label(args), name), got, want, truth)
 
         # Kernel 2, (a): weights drawn as the JAX package initialises them,
         # one block of K=32 steps from SOS and one entered with 90% of the
@@ -1499,6 +1763,11 @@ def main():
             int(kernel_out.emitted_mask.sum(0).gt(0).sum()),
             MAX_DECODING_STEPS + 1, int(kernel_out.lengths.sum())))
 
+    with phase("main path: bf16 decodes of {} fixture dev examples".format(
+            BATCH)), encoder_precision(tf32_seen):
+        launches_bf16 = bf16_decodes(params, config, inputs, dataset, indices,
+                                     kernel_out, plain_out, em_kernel, sync)
+
     with phase("main path: predict {} fixture dev examples".format(BATCH)), \
             encoder_precision(tf32_seen):
         predict_checks(dataset, params, config, kernel_out, em_kernel,
@@ -1643,6 +1912,14 @@ def main():
                "checkpoint"), encoder_precision(tf32_seen):
         resident_checks(train_set, train_config, events, batches[0], sync)
 
+    with phase("main path: the command line, --mode=train and --mode=test"), \
+            encoder_precision(tf32_seen):
+        cli_checks(dataset, kernel_out, config.target_eos_idx, sync)
+
+    with phase("main path: a two-layer decoder's resident chunk"), \
+            encoder_precision(tf32_seen):
+        two_layer_checks(train_set, train_config, sync)
+
     print("TF32 flags (matmul, cuDNN) inside the entry points on the main "
           "paths: {}; outside: ({}, {})".format(
               sorted(tf32_seen), torch.backends.cuda.matmul.allow_tf32,
@@ -1668,6 +1945,26 @@ def main():
             both_attention(k1.AdditiveAttention.apply), 50)
         attention_plain_ms = cuda_ms(
             both_attention(k1.additive_attention_plain), 20)
+        # Kernel 1's bf16 form on the same two calls, the keys in bf16:
+        # float32 queries, mask and energy vector (bfloat16_keys), then
+        # all bf16 (bfloat16).
+        bf16_times = {}
+        for small in (torch.float32, torch.bfloat16):
+            calls = [as_bf16(args, small) for args in attention_calls]
+
+            def bf16_attention(fn, calls=calls):
+                return lambda: [fn(*args) for args in calls]
+
+            small_bytes = 4 if small == torch.float32 else 2
+            bf16_times[small_bytes] = (
+                cuda_ms(bf16_attention(k1.additive_attention), 50),
+                graph_ms(bf16_attention(k1.additive_attention), 50),
+                cuda_ms(bf16_attention(k1.additive_attention_plain), 20),
+                bound_ms(*(sum(x) for x in zip(
+                    attention_work(BATCH, m_t, hidden, True, 2,
+                                   small_bytes),
+                    attention_work(BATCH, m_v, hidden, False, 2,
+                                   small_bytes)))))
         weights_bytes = sum(w.numel() * 4 for w in weights)
         block_times = []  # (ms, plain ms, bound) of the fixture's blocks
         for args, row_steps in zip((block_args, block2_args),
@@ -1705,6 +2002,14 @@ def main():
                   m_t, m_v, BATCH, attention_ms, attention_plain_ms,
                   *attention_bound, attention_graph_ms,
                   attention_function_ms))
+        for small_bytes, (ms, g_ms, plain_ms, bound) in sorted(
+                bf16_times.items(), reverse=True):
+            print("additive_attention bf16 form, bf16 keys and {} queries, "
+                  "mask and energy vector (the same calls): {:.4f} ms, "
+                  "plain {:.4f} ms, bound {:.4f} ms ({}); from a CUDA graph "
+                  "{:.4f} ms".format(
+                      "float32" if small_bytes == 4 else "bf16", ms,
+                      plain_ms, *bound, g_ms))
         for index, (ms, plain_ms, bound) in enumerate(block_times):
             print("decode_block, the fixture's block {} (K={}, B={}, {} "
                   "emitting row-steps): {:.4f} ms, plain {:.4f} ms, bound "
@@ -1803,6 +2108,17 @@ def main():
          "plain_ms": attention_plain_ms, "bound_ms": attention_bound[0],
          "bound_by": attention_bound[1], "library_ms": None,
          "graph_ms": attention_graph_ms},
+        {"name": "additive_attention_bf16", "route": "cuda",
+         "source": "multimodal_seq2seq_gscan_tpu_torch/csrc/"
+                   "additive_attention.cu",
+         "replaces": "multimodal_seq2seq_gscan_tpu/ops/pallas_attention.py:55",
+         "launches": launches_bf16, "max_abs_err": attention_bf16_err,
+         "ms": bf16_times[4][0], "plain_ms": bf16_times[4][2],
+         "bound_ms": bf16_times[4][3][0], "bound_by": bf16_times[4][3][1],
+         "library_ms": None, "graph_ms": bf16_times[4][1],
+         "bf16_queries_ms": bf16_times[2][0],
+         "bf16_queries_graph_ms": bf16_times[2][1],
+         "bf16_queries_bound_ms": bf16_times[2][3][0]},
         {"name": "decode_block", "route": "cuda",
          "source": "multimodal_seq2seq_gscan_tpu_torch/csrc/decode_block.cu",
          "replaces": "multimodal_seq2seq_gscan_tpu/ops/pallas_decoder.py:149",

@@ -14,27 +14,37 @@
 // flops. So each key row is read from device memory once: the score and the
 // context come from the same registers, by an online softmax (a running
 // maximum and sum; the context so far is rescaled when the maximum grows),
-// and each lane loads 16 bytes of a key row at a time (lane l holds features
-// 4l .. 4l + 3 of each chunk of 128), two groups of kKeys(NC) keys in flight
-// per warp.
+// and each lane loads V features of a key row at a time (lane l holds
+// features V l .. V l + V - 1 of each chunk of 32 V), two groups of
+// kKeys(NC) keys in flight per warp.
 // The raw scores are staged in a scratch row (lane m % 32 writes and later
 // reads score m, so no other lane touches it), then normalised into the
 // weights; the scratch may be the weights row itself.
 //
-// NC, the chunks of 128 features per lane (H <= 128 NC), is a compile-time
-// count so that the query, energy and context stay in registers; the host
-// picks the smallest that holds H (attend_chunks). Past 1024 features
-// (attend_chunks 0) kernel 1 takes attend_row_wide instead, two passes over
-// the keys with the features in runtime chunks. vec says that the keys may
-// be read 16 bytes at a time (H % 4 == 0 and a 16-byte aligned base); else
-// each lane reads its four features one at a time.
+// Form F (Form<KT, ST, V>) names the element types: keys KT (float or
+// __nv_bfloat16), queries, energy vector and mask ST (float or
+// __nv_bfloat16), and V (4 floats, 16 bytes; or 4 or 8 bf16, 8 or 16
+// bytes). Every sum, the tanh, the softmax and the context are float32 in
+// every form; a bf16 key stays raw in registers until it is used. F32
+// (float, float, 4) is the form kernel 2 takes and kernel 1's float32 form.
+//
+// NC, the chunks of 32 V features per lane (H <= 32 V NC), is a
+// compile-time count so that the query, energy and context stay in
+// registers; the host picks the smallest that holds H (attend_chunks).
+// Past 1024 features (attend_chunks 0) kernel 1 takes attend_row_wide
+// instead, two passes over the keys with the features in runtime chunks.
+// vec says that the keys may be read V features at a time (H % V == 0 and
+// a base aligned to that many bytes); else each lane reads its features
+// one at a time.
 //
 // kernels 3 and 4 (teacher_forced.cu) use warp_sum, warp_max and the
 // register-resident limits below for their own CTA-wide attentions.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace gscan {
 
@@ -46,10 +56,20 @@ __host__ __device__ constexpr bool attend_fits(int M, int H) {
   return M <= kFitM && H <= kFitH;
 }
 
-// Chunks of 128 features that attend_row<NC> needs for H (1, 2, 4 or 8;
-// 0 past 1024 features: attend_row_wide).
+// A lane holds at most this many features of the query, energy vector and
+// context in registers (NC V <= kLaneFeatures).
+constexpr int kLaneFeatures = 32;
+
+// Chunks of 32 V features that attend_row<NC> needs for H (1, 2, 4 or 8,
+// while NC V <= kLaneFeatures; 0 past that, 1024 features:
+// attend_row_wide).
+template <int V = 4>
 __host__ __device__ constexpr int attend_chunks(int H) {
-  return H <= 128 ? 1 : H <= 256 ? 2 : H <= 512 ? 4 : H <= 1024 ? 8 : 0;
+  return H <= 32 * V ? 1
+         : H <= 64 * V ? 2
+         : H <= 128 * V && 4 * V <= kLaneFeatures ? 4
+         : H <= 256 * V && 8 * V <= kLaneFeatures ? 8
+                                                  : 0;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -66,45 +86,123 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Keys per group for NC chunks: kKeyFloats floats of keys per lane in a
-// group, two groups in flight.
-constexpr int kKeyFloats = 16;
-template <int NC>
-constexpr int kKeys = kKeyFloats / (4 * NC) > 0 ? kKeyFloats / (4 * NC) : 1;
-
-// Features h0 .. h0 + 3 of one key row (zeros past H or for an absent key).
-__device__ __forceinline__ float4 load_key4(const float* __restrict__ row,
-                                            int h0, int H, bool present,
-                                            bool vec) {
-  float4 k = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (!present || h0 >= H) return k;
-  if (vec) return __ldg(reinterpret_cast<const float4*>(row + h0));
-  k.x = __ldg(row + h0);
-  if (h0 + 1 < H) k.y = __ldg(row + h0 + 1);
-  if (h0 + 2 < H) k.z = __ldg(row + h0 + 2);
-  if (h0 + 3 < H) k.w = __ldg(row + h0 + 3);
-  return k;
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
+
+// V features h0 .. h0 + V - 1 of one key row as loaded (Raw; zeros past H
+// or for an absent key), and feature h0 + j of it as a float (get).
+template <typename KT, int V>
+struct KeyLoad;
+
+template <>
+struct KeyLoad<float, 4> {
+  using Raw = float4;
+  __device__ __forceinline__ static Raw load(const float* __restrict__ row,
+                                             int h0, int H, bool present,
+                                             bool vec) {
+    float4 k = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (!present || h0 >= H) return k;
+    if (vec) return __ldg(reinterpret_cast<const float4*>(row + h0));
+    k.x = __ldg(row + h0);
+    if (h0 + 1 < H) k.y = __ldg(row + h0 + 1);
+    if (h0 + 2 < H) k.z = __ldg(row + h0 + 2);
+    if (h0 + 3 < H) k.w = __ldg(row + h0 + 3);
+    return k;
+  }
+  __device__ __forceinline__ static float get(const Raw& k, int j) {
+    return j == 0 ? k.x : j == 1 ? k.y : j == 2 ? k.z : k.w;
+  }
+};
+
+// bf16 keys: W 32-bit words of two features each (feature 2i in the low
+// half of word i); a bf16 widens to float by a shift.
+template <int W>
+struct Bf16Words {
+  uint32_t w[W];
+};
+
+template <int V>
+struct Bf16KeyLoad {
+  static constexpr int W = V / 2;
+  using Raw = Bf16Words<W>;
+  __device__ __forceinline__ static Raw load(
+      const __nv_bfloat16* __restrict__ row, int h0, int H, bool present,
+      bool vec) {
+    Raw k;
+#pragma unroll
+    for (int i = 0; i < W; ++i) k.w[i] = 0u;
+    if (!present || h0 >= H) return k;
+    if (vec) {
+      if constexpr (W == 4) {
+        const uint4 u = __ldg(reinterpret_cast<const uint4*>(row + h0));
+        k.w[0] = u.x, k.w[1] = u.y, k.w[2] = u.z, k.w[3] = u.w;
+      } else {
+        const uint2 u = __ldg(reinterpret_cast<const uint2*>(row + h0));
+        k.w[0] = u.x, k.w[1] = u.y;
+      }
+      return k;
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (h0 + j < H)
+        k.w[j / 2] |= static_cast<uint32_t>(__bfloat16_as_ushort(
+                          __ldg(row + h0 + j)))
+                      << (16 * (j & 1));
+    return k;
+  }
+  __device__ __forceinline__ static float get(const Raw& k, int j) {
+    const uint32_t word = k.w[j / 2];
+    return __uint_as_float((j & 1) ? (word & 0xffff0000u) : (word << 16));
+  }
+};
+
+template <>
+struct KeyLoad<__nv_bfloat16, 8> : Bf16KeyLoad<8> {};
+template <>
+struct KeyLoad<__nv_bfloat16, 4> : Bf16KeyLoad<4> {};
+
+template <typename KT_, typename ST_, int V_>
+struct Form {
+  using KT = KT_;  // keys
+  using ST = ST_;  // queries, energy vector, mask
+  static constexpr int V = V_;
+  using Load = KeyLoad<KT, V>;
+  using Raw = typename Load::Raw;
+};
+using F32 = Form<float, float, 4>;
+
+// Keys per group for NC chunks: kKeyWords 32-bit words of keys per lane in
+// a group, two groups in flight.
+constexpr int kKeyWords = 16;
+template <int NC, typename F = F32>
+constexpr int kKeys = kKeyWords / (int(sizeof(typename F::Raw)) / 4 * NC) > 0
+                          ? kKeyWords / (int(sizeof(typename F::Raw)) / 4 * NC)
+                          : 1;
 
 // A group of keys m0 .. m0 + G - 1: the lane's features (zeros past M) and
 // the keys' mask values (1 without a mask), loaded together.
-template <int NC, int G>
+template <int NC, int G, typename F = F32>
 struct KeyGroup {
-  float4 k[G][NC];
+  typename F::Raw k[G][NC];
   float valid[G];
 
-  __device__ __forceinline__ void load(const float* __restrict__ keys,
-                                       const float* __restrict__ mask,
-                                       int m0, int M, int H, bool vec) {
+  __device__ __forceinline__ void load(
+      const typename F::KT* __restrict__ keys,
+      const typename F::ST* __restrict__ mask, int m0, int M, int H,
+      bool vec) {
     const int lane = threadIdx.x & 31;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const int m = m0 + g;
-      valid[g] = mask == nullptr ? 1.f : m < M ? __ldg(mask + m) : 0.f;
+      valid[g] = mask == nullptr ? 1.f
+                 : m < M         ? to_float(__ldg(mask + m))
+                                 : 0.f;
 #pragma unroll
       for (int c = 0; c < NC; ++c)
-        k[g][c] = load_key4(keys + (size_t)m * H, 128 * c + 4 * lane, H,
-                            m < M, vec);
+        k[g][c] = F::Load::load(keys + (size_t)m * H,
+                                32 * F::V * c + F::V * lane, H, m < M, vec);
     }
   }
 };
@@ -115,11 +213,12 @@ struct KeyGroup {
 // score is -1e9 whatever its features, and where the row has a valid key
 // (skip_masked) its weight is exactly 0 (exp underflows), so its tanh terms
 // are skipped; an all-masked row (uniform weights) computes every key.
-template <int NC, int G>
+template <int NC, int G, typename F = F32>
 __device__ __forceinline__ void attend_group(
-    const KeyGroup<NC, G>& kg, const float (&q)[NC][4],
-    const float (&e)[NC][4], float (&acc)[NC][4], float& run_max,
+    const KeyGroup<NC, G, F>& kg, const float (&q)[NC][F::V],
+    const float (&e)[NC][F::V], float (&acc)[NC][F::V], float& run_max,
     float& run_sum, int m0, int M, bool skip_masked, float* scores) {
+  constexpr int V = F::V;
   const int lane = threadIdx.x & 31;
   const auto& k = kg.k;
   // Padding lanes have q = e = 0 and k = 0: they add tanh(0) * 0.
@@ -129,12 +228,11 @@ __device__ __forceinline__ void attend_group(
     p[g] = 0.f;
     if (skip_masked && !(kg.valid[g] > 0.f)) continue;  // warp-uniform
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      p[g] = fmaf(tanhf(q[c][0] + k[g][c].x), e[c][0], p[g]);
-      p[g] = fmaf(tanhf(q[c][1] + k[g][c].y), e[c][1], p[g]);
-      p[g] = fmaf(tanhf(q[c][2] + k[g][c].z), e[c][2], p[g]);
-      p[g] = fmaf(tanhf(q[c][3] + k[g][c].w), e[c][3], p[g]);
-    }
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        p[g] = fmaf(tanhf(q[c][j] + F::Load::get(k[g][c], j)), e[c][j],
+                    p[g]);
   }
 #pragma unroll
   for (int offset = 16; offset > 0; offset >>= 1)
@@ -160,18 +258,16 @@ __device__ __forceinline__ void attend_group(
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[c][j] *= scale;
+    for (int j = 0; j < V; ++j) acc[c][j] *= scale;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const float w = expf(p[g] - new_max);  // 0 past M
     run_sum += w;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      acc[c][0] = fmaf(w, k[g][c].x, acc[c][0]);
-      acc[c][1] = fmaf(w, k[g][c].y, acc[c][1]);
-      acc[c][2] = fmaf(w, k[g][c].z, acc[c][2]);
-      acc[c][3] = fmaf(w, k[g][c].w, acc[c][3]);
-    }
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        acc[c][j] = fmaf(w, F::Load::get(k[g][c], j), acc[c][j]);
   }
   run_max = new_max;
 }
@@ -184,42 +280,45 @@ __device__ __forceinline__ void attend_group(
 // shared buffers); keys (the row's [M, H]), mask (or null: every key valid)
 // and ew are contiguous. The keys go in groups of kKeys, the next group's
 // loads issued before the current group's arithmetic.
-template <int NC>
+template <int NC, typename F = F32>
 struct AttendPass {
-  float acc[NC][4];
+  static constexpr int V = F::V;
+  using ST = typename F::ST;
+  float acc[NC][V];
   float run_max = -INFINITY, run_sum = 0.f;
   bool skip_masked = false;  // the row has a valid key: skip masked ones
 
   __device__ __forceinline__ AttendPass(
-      const float* pq, int pq_stride, const float* __restrict__ keys,
-      const float* __restrict__ mask, const float* __restrict__ ew,
-      int m_begin, int m_end, int M, int H, float* scores, bool vec) {
-    constexpr int G = kKeys<NC>;
+      const ST* pq, int pq_stride, const typename F::KT* __restrict__ keys,
+      const ST* __restrict__ mask, const ST* __restrict__ ew, int m_begin,
+      int m_end, int M, int H, float* scores, bool vec) {
+    constexpr int G = kKeys<NC, F>;
     const int lane = threadIdx.x & 31;
-    float q[NC][4], e[NC][4];
+    float q[NC][V], e[NC][V];
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int h = 128 * c + 4 * lane + j;
-        q[c][j] = h < H ? pq[h * pq_stride] : 0.f;
-        e[c][j] = h < H ? __ldg(ew + h) : 0.f;
+      for (int j = 0; j < V; ++j) {
+        const int h = 32 * V * c + V * lane + j;
+        q[c][j] = h < H ? to_float(pq[h * pq_stride]) : 0.f;
+        e[c][j] = h < H ? to_float(__ldg(ew + h)) : 0.f;
         acc[c][j] = 0.f;
       }
-    KeyGroup<NC, G> ka, kb;
+    KeyGroup<NC, G, F> ka, kb;
     ka.load(keys, mask, m_begin, m_end, H, vec);  // in flight meanwhile
     if (mask != nullptr)
       for (int base = 0; base < M && !skip_masked; base += 32)
         skip_masked = __any_sync(
-            0xffffffffu, base + lane < M && __ldg(mask + base + lane) > 0.f);
+            0xffffffffu,
+            base + lane < M && to_float(__ldg(mask + base + lane)) > 0.f);
     for (int m0 = m_begin; m0 < m_end; m0 += 2 * G) {
       kb.load(keys, mask, m0 + G, m_end, H, vec);
-      attend_group<NC, G>(ka, q, e, acc, run_max, run_sum, m0, m_end,
-                          skip_masked, scores);
+      attend_group<NC, G, F>(ka, q, e, acc, run_max, run_sum, m0, m_end,
+                             skip_masked, scores);
       if (m0 + G >= m_end) break;
       ka.load(keys, mask, m0 + 2 * G, m_end, H, vec);
-      attend_group<NC, G>(kb, q, e, acc, run_max, run_sum, m0 + G, m_end,
-                          skip_masked, scores);
+      attend_group<NC, G, F>(kb, q, e, acc, run_max, run_sum, m0 + G, m_end,
+                             skip_masked, scores);
     }
   }
 
@@ -233,8 +332,8 @@ struct AttendPass {
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int h = 128 * c + 4 * lane + j;
+      for (int j = 0; j < V; ++j) {
+        const int h = 32 * V * c + V * lane + j;
         if (h < H) ctx[h * ctx_stride] = acc[c][j] / run_sum;
       }
     for (int m = lane; m < M; m += 32)
@@ -249,8 +348,8 @@ struct AttendPass {
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int h = 128 * c + 4 * lane + j;
+      for (int j = 0; j < V; ++j) {
+        const int h = 32 * V * c + V * lane + j;
         if (h < H) part[2 + h] = acc[c][j];
       }
   }
@@ -259,14 +358,15 @@ struct AttendPass {
 // One warp, one row: the attention over all M keys (the score and the
 // context in one pass over the keys). weights [M] receives the attention
 // weights; scores [M] is the scratch row (shared memory, or weights).
-template <int NC>
+template <int NC, typename F = F32>
 __device__ __forceinline__ void attend_row(
-    const float* pq, int pq_stride, const float* __restrict__ keys,
-    const float* __restrict__ mask, const float* __restrict__ ew, int M,
-    int H, float* ctx, int ctx_stride, float* weights, float* scores,
-    bool vec) {
-  const AttendPass<NC> pass(pq, pq_stride, keys, mask, ew, 0, M, M, H,
-                            scores, vec);
+    const typename F::ST* pq, int pq_stride,
+    const typename F::KT* __restrict__ keys,
+    const typename F::ST* __restrict__ mask,
+    const typename F::ST* __restrict__ ew, int M, int H, float* ctx,
+    int ctx_stride, float* weights, float* scores, bool vec) {
+  const AttendPass<NC, F> pass(pq, pq_stride, keys, mask, ew, 0, M, M, H,
+                               scores, vec);
   pass.finish(ctx, ctx_stride, weights, scores, M, H);
 }
 
@@ -295,30 +395,33 @@ __device__ __forceinline__ void attend_combine(const float* parts, int W,
 }
 
 // One warp, one row, any H: the attention in two passes over the keys, the
-// features in runtime chunks of 128 (lane l holds features 4l .. 4l + 3 of
-// each). The first pass stages each key's score in scores[m] (by lane
-// m % 32) and keeps the maximum; the weights are written (and read back by
-// every lane after __syncwarp); the second pass adds the context. For rows
-// whose query and context do not fit attend_row's registers.
+// features in runtime chunks of 32 V (lane l holds features V l .. V l +
+// V - 1 of each). The first pass stages each key's score in scores[m] (by
+// lane m % 32) and keeps the maximum; the weights are written (and read
+// back by every lane after __syncwarp); the second pass adds the context.
+// For rows whose query and context do not fit attend_row's registers.
+template <typename F = F32>
 __device__ __forceinline__ void attend_row_wide(
-    const float* pq, int pq_stride, const float* __restrict__ keys,
-    const float* __restrict__ mask, const float* __restrict__ ew, int M,
-    int H, float* ctx, int ctx_stride, float* weights, float* scores,
-    bool vec) {
+    const typename F::ST* pq, int pq_stride,
+    const typename F::KT* __restrict__ keys,
+    const typename F::ST* __restrict__ mask,
+    const typename F::ST* __restrict__ ew, int M, int H, float* ctx,
+    int ctx_stride, float* weights, float* scores, bool vec) {
+  constexpr int V = F::V;
   const int lane = threadIdx.x & 31;
   float mx = -INFINITY;
   for (int m = 0; m < M; ++m) {
-    const float* row = keys + (size_t)m * H;
+    const typename F::KT* row = keys + (size_t)m * H;
     float p = 0.f;
-    for (int h0 = 4 * lane; h0 < H; h0 += 128) {
-      const float4 k = load_key4(row, h0, H, true, vec);
-      const float kv[4] = {k.x, k.y, k.z, k.w};
-      for (int j = 0; j < 4 && h0 + j < H; ++j)
-        p = fmaf(tanhf(pq[(h0 + j) * pq_stride] + kv[j]), __ldg(ew + h0 + j),
-                 p);
+    for (int h0 = V * lane; h0 < H; h0 += 32 * V) {
+      const typename F::Raw k = F::Load::load(row, h0, H, true, vec);
+      for (int j = 0; j < V && h0 + j < H; ++j)
+        p = fmaf(tanhf(to_float(pq[(h0 + j) * pq_stride]) +
+                       F::Load::get(k, j)),
+                 to_float(__ldg(ew + h0 + j)), p);
     }
     p = warp_sum(p);
-    if (mask != nullptr && !(__ldg(mask + m) > 0.f)) p = -1e9f;
+    if (mask != nullptr && !(to_float(__ldg(mask + m)) > 0.f)) p = -1e9f;
     if (lane == (m & 31)) scores[m] = p;
     mx = fmaxf(mx, p);
   }
@@ -327,19 +430,18 @@ __device__ __forceinline__ void attend_row_wide(
   sum = warp_sum(sum);
   for (int m = lane; m < M; m += 32) weights[m] = expf(scores[m] - mx) / sum;
   __syncwarp();
-  for (int h0 = 4 * lane; h0 < H; h0 += 128) {
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int h0 = V * lane; h0 < H; h0 += 32 * V) {
+    float acc[V];
+    for (int j = 0; j < V; ++j) acc[j] = 0.f;
     for (int m = 0; m < M; ++m) {
       const float w = weights[m];
-      const float4 k = load_key4(keys + (size_t)m * H, h0, H, true, vec);
-      acc.x = fmaf(w, k.x, acc.x);
-      acc.y = fmaf(w, k.y, acc.y);
-      acc.z = fmaf(w, k.z, acc.z);
-      acc.w = fmaf(w, k.w, acc.w);
+      const typename F::Raw k =
+          F::Load::load(keys + (size_t)m * H, h0, H, true, vec);
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] = fmaf(w, F::Load::get(k, j), acc[j]);
     }
-    const float av[4] = {acc.x, acc.y, acc.z, acc.w};
-    for (int j = 0; j < 4 && h0 + j < H; ++j)
-      ctx[(h0 + j) * ctx_stride] = av[j];
+    for (int j = 0; j < V && h0 + j < H; ++j)
+      ctx[(h0 + j) * ctx_stride] = acc[j];
   }
 }
 

@@ -5,9 +5,15 @@ tokenization, the same uint8 dense situation grids (``gscan/encode.py``), the
 same bucketed padding (sequence dims rounded up to a multiple of 8) and the
 same optional zero-row padding of a short final batch, and the same
 (length-bucketed) shuffle, so both packages build identical batches from one
-file and one numpy seed. It reads the split straight from the
-JSON and carries neither the dataset engine nor the C++ scanner; the k-shot
-split moves are not supported.
+file and one numpy seed. It reads the splits straight from the JSON
+(``ParsedDataset``: one parse of the file, which several splits share
+through ``dataset=``, as the JAX loader's) and carries neither the dataset
+engine nor the C++ scanner. The k-shot move (``k > 0``) follows the JAX
+loader's default backend, the native scanner's: ``k`` examples of
+``adverb_1``, drawn by ``random.Random(k_shot_seed).sample``, are appended
+to train and dev and removed from ``adverb_1`` at parse time. With
+``generate_vocabulary`` both vocabularies are built from the split's
+commands and targets (``save_vocabularies`` writes them).
 
 Each example's situation dict and derivation string are kept for
 ``predict.json`` (the JAX dataset's ``situation_representation`` and
@@ -20,7 +26,8 @@ assembly slices and the resident trainer puts on the device whole.
 import json
 import logging
 import os
-from typing import Iterator, List, Optional, Tuple
+import random
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,23 +53,81 @@ def _flat_position(position: dict, grid_size: int) -> int:
     return int(position["row"]) * grid_size + int(position["column"])
 
 
+class ParsedDataset:
+    """One parse of a dataset.txt: its grid size and each split's example
+    dicts, the k-shot move applied once."""
+
+    def __init__(self, path_to_data: str, k: int = 0,
+                 k_shot_seed: Optional[int] = None):
+        with open(path_to_data) as f:
+            data = json.load(f)
+        self.grid_size = int(data["grid_size"])
+        self.splits: Dict[str, list] = data["examples"]
+        if k > 0:
+            # Seeded so that the move repeats run to run (the reference
+            # draws from the globally seeded ``random`` module).
+            self.move_k_examples_to_train_and_dev(
+                k, random.Random(k_shot_seed) if k_shot_seed is not None
+                else random)
+
+    def move_k_examples_to_train_and_dev(self, k: int, rng,
+                                         split: str = "adverb_1"):
+        """k random examples of ``split`` (``rng.sample``) appended to train
+        and dev, and removed from ``split`` (the JAX native loader's
+        ``move_k_examples_to_train_and_dev``); a no-op without ``split`` or
+        a train split."""
+        if k <= 0 or split not in self.splits or "train" not in self.splits:
+            return
+        source = self.splits[split]
+        chosen = rng.sample(range(len(source)), k=min(k, len(source)))
+        chosen_set = set(chosen)
+        for destination in ("train", "dev"):
+            if destination in self.splits:
+                self.splits[destination] = (self.splits[destination]
+                                            + [source[i] for i in chosen])
+        self.splits[split] = [example for i, example in enumerate(source)
+                              if i not in chosen_set]
+
+
 class GroundedScanDataset:
-    """One split of a gSCAN dataset.txt, served as padded, bucketed batches."""
+    """One split of a gSCAN dataset.txt, served as padded, bucketed batches.
+
+    ``dataset`` takes an earlier split's parse (``.dataset``), so that the
+    file is parsed once; ``k`` and ``k_shot_seed`` apply only to a parse
+    made here."""
 
     def __init__(self, path_to_data: str, save_directory: str,
                  split: str = "train",
                  input_vocabulary_file: str = "training_input_vocab.txt",
-                 target_vocabulary_file: str = "training_target_vocab.txt"):
+                 target_vocabulary_file: str = "training_target_vocab.txt",
+                 generate_vocabulary: bool = False, k: int = 0,
+                 dataset: Optional[ParsedDataset] = None,
+                 k_shot_seed: Optional[int] = None):
         if not os.path.isfile(path_to_data):
             raise FileNotFoundError(
                 "Trying to read a gSCAN dataset from a non-existing file "
                 "{}.".format(path_to_data))
+        if split == "test" and generate_vocabulary:
+            logger.warning("WARNING: generating a vocabulary from the test "
+                           "set.")
         self.path_to_data = path_to_data
         self.split = split
-        self.input_vocabulary = Vocabulary.load(
-            os.path.join(save_directory, input_vocabulary_file))
-        self.target_vocabulary = Vocabulary.load(
-            os.path.join(save_directory, target_vocabulary_file))
+        self.directory = save_directory
+        self.dataset = dataset if dataset is not None else ParsedDataset(
+            path_to_data, k=k, k_shot_seed=k_shot_seed)
+        if generate_vocabulary:
+            self.input_vocabulary = Vocabulary()
+            self.target_vocabulary = Vocabulary()
+            for example in self._examples():
+                self.input_vocabulary.add_sentence(
+                    example["command"].split(","))
+                self.target_vocabulary.add_sentence(
+                    example["target_commands"].split(","))
+        else:
+            self.input_vocabulary = Vocabulary.load(
+                os.path.join(save_directory, input_vocabulary_file))
+            self.target_vocabulary = Vocabulary.load(
+                os.path.join(save_directory, target_vocabulary_file))
         self.image_channels: Optional[int] = None
         self.input_ids: List[np.ndarray] = []
         self.target_ids: List[np.ndarray] = []
@@ -76,15 +141,26 @@ class GroundedScanDataset:
         self._order = np.zeros((0,), np.int64)
         self._packed = False
 
-    def read_dataset(self, max_examples: Optional[int] = None):
-        """Tokenize and encode the split's examples once into numpy columns."""
-        with open(self.path_to_data) as f:
-            data = json.load(f)
-        grid_size = int(data["grid_size"])
-        examples = data["examples"].get(self.split)
+    def _examples(self) -> list:
+        examples = self.dataset.splits.get(self.split)
         if examples is None:
             raise KeyError("Split {} not present in {}".format(
                 self.split, self.path_to_data))
+        return examples
+
+    def save_vocabularies(self, input_vocabulary_file: str,
+                          target_vocabulary_file: str):
+        """Write both vocabularies into the save directory, in the JSON the
+        JAX package's ``Vocabulary.load`` reads."""
+        self.input_vocabulary.save(
+            os.path.join(self.directory, input_vocabulary_file))
+        self.target_vocabulary.save(
+            os.path.join(self.directory, target_vocabulary_file))
+
+    def read_dataset(self, max_examples: Optional[int] = None):
+        """Tokenize and encode the split's examples once into numpy columns."""
+        grid_size = self.dataset.grid_size
+        examples = self._examples()
         if max_examples:
             examples = examples[:max_examples]
         situations, agent_positions, target_positions = [], [], []

@@ -17,6 +17,17 @@ skips leave zeros, as the JAX decoder's skipped blocks do.
 - ``"step"``: a loop over ``models.model.decoder_step``, whose two attentions
   are kernel 1 (``ops/additive_attention.py``) on the card.
 On CPU tensors the kernels' wrappers take their plain versions.
+
+``compute_dtype`` follows the JAX decoder's casts: ``None`` or
+``"float32"`` (the default), ``"bfloat16"`` (the encoder runs in float32,
+then the loop's params, projected keys, command mask and state are cast to
+bf16), ``"bfloat16_mixed"`` (the same, with the output head kept in
+float32) and ``"bfloat16_keys"`` (only the two projected key tensors are
+stored in bf16; every other operand and all arithmetic stay float32). The
+bf16 variants run ``"step"``: their attentions are kernel 1's bf16 form,
+and a ``"block"`` or ``"block_plain"`` decode warns and falls back
+(``models.config.decoder_impl``), as JAX falls back from its Pallas block.
+The attention stacks come back in float32.
 """
 
 from typing import List, NamedTuple, Optional, Tuple
@@ -34,6 +45,8 @@ from multimodal_seq2seq_gscan_tpu_torch.ops.decode_block import (
 from multimodal_seq2seq_gscan_tpu_torch.utils.precision import full_float32
 
 DECODE_IMPLS = ("block", "block_plain", "step")
+COMPUTE_DTYPES = (None, "float32", "bfloat16", "bfloat16_mixed",
+                  "bfloat16_keys")
 
 
 class GreedyDecodeOutput(NamedTuple):
@@ -60,19 +73,25 @@ class GreedyDecodeOutput(NamedTuple):
 
 def make_greedy_decoder(config: ModelConfig, max_decoding_steps: int,
                         exit_check_every: int = 32,
-                        decode_impl: str = "block"):
+                        decode_impl: str = "block",
+                        compute_dtype: Optional[str] = None):
     """Build a batched greedy decoder ``decode(params, input_ids,
     input_lengths, situations, target_positions) -> GreedyDecodeOutput``.
 
     The inputs' device is the decode's device. ``"block"`` and
     ``"block_plain"`` take the flagship decoder (one layer, conditional
-    attention); for any other the decoder warns and runs ``"step"``
+    attention) in float32; for any other decoder or a bf16
+    ``compute_dtype`` the decoder warns and runs ``"step"``
     (``models.config.decoder_impl``).
     """
     if decode_impl not in DECODE_IMPLS:
         raise ValueError("decode_impl must be one of {}, got {!r}".format(
             DECODE_IMPLS, decode_impl))
-    decode_impl = decoder_impl(config, decode_impl, "decode_impl")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError("compute_dtype must be one of {}, got {!r}".format(
+            COMPUTE_DTYPES, compute_dtype))
+    decode_impl = decoder_impl(config, decode_impl, "decode_impl",
+                               compute_dtype)
     num_steps = max_decoding_steps + 1  # the reference loops while iter <= max
     block = max(1, min(exit_check_every, num_steps))
     num_blocks = -(-num_steps // block)
@@ -93,6 +112,15 @@ def make_greedy_decoder(config: ModelConfig, max_decoding_steps: int,
             proj_txt, proj_vis = proj_txt.contiguous(), proj_vis.contiguous()
             cmd_mask = encoded.command_mask.contiguous()
             h, c = initialize_decoder_hidden(params, config, encoded.hidden)
+            loop_params = params
+            if compute_dtype == "bfloat16_keys":
+                proj_txt, proj_vis = (x.to(torch.bfloat16)
+                                      for x in (proj_txt, proj_vis))
+            elif compute_dtype in ("bfloat16", "bfloat16_mixed"):
+                loop_params, proj_txt, proj_vis, cmd_mask, h, c = _to_bf16(
+                    (params, proj_txt, proj_vis, cmd_mask, h, c))
+                if compute_dtype == "bfloat16_mixed":
+                    loop_params = _float32_head(loop_params, params)
             batch = input_ids.shape[0]
             tokens = torch.full((batch,), config.target_sos_idx,
                                 dtype=torch.int32, device=device)
@@ -101,7 +129,7 @@ def make_greedy_decoder(config: ModelConfig, max_decoding_steps: int,
             blocks: List[BlockOutput] = []
             gaps: List[torch.Tensor] = []
             if decode_impl == "step":
-                run = _step_runner(params, config, proj_txt, cmd_mask,
+                run = _step_runner(loop_params, config, proj_txt, cmd_mask,
                                    proj_vis)
             else:
                 weights = pack_decoder_weights(params, config.target_pad_idx)
@@ -131,6 +159,27 @@ def make_greedy_decoder(config: ModelConfig, max_decoding_steps: int,
                              target_positions)
 
     return decode
+
+
+def _to_bf16(tree):
+    """Every floating tensor of a (nested) tuple of tensors and NamedTuples
+    in bf16; other leaves as they are."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(torch.bfloat16) if tree.is_floating_point() else tree
+    if isinstance(tree, tuple):
+        items = [_to_bf16(x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(
+            items)
+    return tree
+
+
+def _float32_head(loop_params: ModelParams, params: ModelParams
+                  ) -> ModelParams:
+    """``loop_params`` with the output head's two matrices of ``params``
+    (float32): the logits and the argmax in float32."""
+    return loop_params._replace(decoder=loop_params.decoder._replace(
+        output_to_hidden_w=params.decoder.output_to_hidden_w,
+        hidden_to_output_w=params.decoder.hidden_to_output_w))
 
 
 def _step_runner(params, config, proj_txt, cmd_mask, proj_vis):

@@ -11,8 +11,9 @@ reference's record schema (``input``, ``prediction``, ``derivation``,
 scores a split. The decode of batch i + 1 is enqueued before the host
 assembles batch i, whose outputs were copied to pinned host memory behind
 an event of their own, so the host's wait for them never includes batch
-i + 1's decode. A device mesh (ROADMAP A11) and a ``decode_dtype``
-(A13) are refused by name.
+i + 1's decode. ``decode_dtype`` is the decoder's ``compute_dtype``
+(``decode/greedy.py``: None or "float32", "bfloat16", "bfloat16_mixed",
+"bfloat16_keys"). A device mesh (ROADMAP A11) is refused by name.
 """
 
 import json
@@ -47,19 +48,19 @@ class _Decoded(NamedTuple):
     derivation_reprs: List[Optional[str]]
 
 
-def _refuse(mesh, decode_dtype):
+def _refuse(mesh):
     if mesh is not None:
         not_ported("Sharded prediction (mesh)", "A11")
-    if decode_dtype is not None:
-        not_ported("Decode dtypes (decode_dtype)", "A13")
 
 
 def _records(dataset: GroundedScanDataset, params: ModelParams,
              config: ModelConfig, max_decoding_steps: int, batch_size: int,
              max_examples_to_evaluate: Optional[int],
              pad_to_full_batch: bool, device: torch.device,
-             with_attention: bool) -> Iterator[dict]:
-    decoder = make_greedy_decoder(config, max_decoding_steps)
+             with_attention: bool,
+             decode_dtype: Optional[str]) -> Iterator[dict]:
+    decoder = make_greedy_decoder(config, max_decoding_steps,
+                                  compute_dtype=decode_dtype)
     start_time = time.time()
     produced = [0]
     done = [False]
@@ -157,10 +158,11 @@ def predict(dataset: GroundedScanDataset, params: ModelParams,
     """Greedy-decode the dataset in batches on ``device`` (where ``params``
     live); yield one record dict per example, at most
     ``max_examples_to_evaluate``, with the JAX record's fields."""
-    _refuse(mesh, decode_dtype)
+    _refuse(mesh)
     return _records(dataset, params, config, max_decoding_steps, batch_size,
                     max_examples_to_evaluate, pad_to_full_batch,
-                    torch.device(device), with_attention=True)
+                    torch.device(device), with_attention=True,
+                    decode_dtype=decode_dtype)
 
 
 def predict_and_save(dataset: GroundedScanDataset, params: ModelParams,
@@ -212,13 +214,14 @@ def evaluate(dataset: GroundedScanDataset, params: ModelParams,
     at most ``max_examples_to_evaluate`` examples, decoded in batches of
     ``batch_size`` (the last padded to full size) on ``device``. The records
     it scores carry no attention lists or representations."""
-    _refuse(mesh, decode_dtype)
+    _refuse(mesh)
     accuracies: List[float] = []
     target_accuracies: List[float] = []
     exact_match = 0
     for record in _records(dataset, params, config, max_decoding_steps,
                            batch_size, max_examples_to_evaluate, True,
-                           torch.device(device), with_attention=False):
+                           torch.device(device), with_attention=False,
+                           decode_dtype=decode_dtype):
         accuracy = sequence_accuracy(record["output_ids"],
                                      record["target_ids"][1:-1].tolist())
         if accuracy == 100:

@@ -10,7 +10,7 @@ yardstick of the other two).
 """
 
 import logging
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 TEACHER_FORCED_IMPLS = ("fused", "step", "plain")
 
@@ -58,25 +58,31 @@ class ModelConfig(NamedTuple):
         return self.cnn_hidden_num_channels * 3
 
 
-def decoder_impl(config: ModelConfig, impl: str, flag: str) -> str:
+def decoder_impl(config: ModelConfig, impl: str, flag: str,
+                 compute_dtype: Optional[str] = None) -> str:
     """The one rule that picks how the decoder runs: ``impl`` for the
-    flagship decoder (one layer, conditional attention), whose weights the
-    kernels' packing (``pack_decoder_weights``) takes, and ``"step"`` (a
-    loop over ``decoder_step``) for any other, with a warning once per
-    flag, impl and configuration, as the JAX package falls back from its
-    Pallas kernels (``decode/greedy.py``, ``models/model.py``).
+    flagship decoder (one layer, conditional attention) in float32, whose
+    weights the kernels' packing (``pack_decoder_weights``) takes, and
+    ``"step"`` (a loop over ``decoder_step``) for any other decoder or for
+    a bf16 decode (``compute_dtype``; kernel 2 is float32 only, as the TPU
+    kernel is), with a warning once per flag, impl, configuration and
+    dtype, as the JAX package falls back from its Pallas kernels
+    (``decode/greedy.py``, ``models/model.py``).
     ``flag`` names the option: ``"decode_impl"`` or
     ``"teacher_forced_impl"``."""
-    if impl == "step" or (config.num_decoder_layers == 1
-                          and config.conditional_attention):
+    flagship = config.num_decoder_layers == 1 and config.conditional_attention
+    bf16 = compute_dtype not in (None, "float32")
+    if impl == "step" or (flagship and not bf16):
         return impl
     key = (flag, impl, config.num_decoder_layers,
-           config.conditional_attention)
+           config.conditional_attention, compute_dtype)
     if key not in _warned:
         _warned.add(key)
         logger.warning(
             "%s=%r takes the flagship decoder (one layer, conditional "
-            "attention); this configuration has num_decoder_layers=%d, "
-            "conditional_attention=%s: falling back to 'step'.", flag, impl,
-            config.num_decoder_layers, config.conditional_attention)
+            "attention) in float32; this configuration has "
+            "num_decoder_layers=%d, conditional_attention=%s, compute "
+            "dtype %s: falling back to 'step'.", flag, impl,
+            config.num_decoder_layers, config.conditional_attention,
+            compute_dtype or "float32")
     return "step"

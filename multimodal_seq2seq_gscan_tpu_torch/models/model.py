@@ -2,9 +2,11 @@
 
 PyTorch counterparts of the JAX package's ``models/model.py``: the same
 tensor algebra, batch-first. Dropout draws from an explicit
-``torch.Generator`` in a fixed order (CNN features, encoder embedding, then
-one ``[T, B, E]`` mask for the decoder's embedded tokens), so a generator
-seeded alike gives every teacher-forced implementation the same noise.
+``torch.Generator`` in a fixed order (CNN features, encoder embedding, the
+encoder's inter-layer masks, then one ``[T, B, E]`` mask for the decoder's
+embedded tokens and, for a decoder of several layers, one
+``[T, L - 1, B, H]`` mask between its layers), so a generator seeded alike
+gives every teacher-forced implementation the same noise.
 """
 
 from typing import NamedTuple, Optional, Tuple
@@ -39,12 +41,10 @@ def encode_input(params: ModelParams, config: ModelConfig,
     The two directions' outputs and final hidden states are summed (reference
     seq2seq_model.py:76-81); the backward pass runs over the length-reversed
     valid prefix, which reproduces packed-sequence semantics. Dropout (CNN
-    features, then the embedded command) draws from ``generator`` unless
-    ``deterministic``.
+    features, the embedded command, then each layer's output but the
+    last's, as torch nn.LSTM's inter-layer dropout) draws from
+    ``generator`` unless ``deterministic``.
     """
-    if not deterministic and len(params.encoder.fwd_layers) > 1:
-        raise NotImplementedError("dropout between encoder layers is not "
-                                  "ported: train one encoder layer")
     features = torch.relu(situation_cnn(params.cnn, situations,
                                         config.cnn_kernel_size))
     features = dropout(generator, features, config.cnn_dropout_p,
@@ -57,6 +57,7 @@ def encode_input(params: ModelParams, config: ModelConfig,
 
     # torch nn.LSTM stack wiring: layer i>0 consumes the concat of both
     # directions of the layer below; the direction *sum* is the last layer's.
+    num_layers = len(params.encoder.fwd_layers)
     layer_input = embedded
     fwd_out = bwd_out = fwd_h = bwd_h = None
     for i, fwd_layer in enumerate(params.encoder.fwd_layers):
@@ -69,6 +70,9 @@ def encode_input(params: ModelParams, config: ModelConfig,
             layer_input = torch.cat([fwd_out, bwd_out], dim=-1)
         else:
             layer_input = fwd_out
+        if i < num_layers - 1:
+            layer_input = dropout(generator, layer_input,
+                                  config.encoder_dropout_p, deterministic)
     if params.encoder.bwd_layers is not None:
         outputs = fwd_out + bwd_out
         hidden = fwd_h + bwd_h
@@ -109,14 +113,21 @@ def decoder_step(params: ModelParams, config: ModelConfig,
                  projected_textual_keys: torch.Tensor,
                  command_mask: torch.Tensor,
                  projected_visual_keys: torch.Tensor,
-                 drop: Optional[torch.Tensor] = None):
+                 drop: Optional[torch.Tensor] = None,
+                 layer_drop: Optional[torch.Tensor] = None):
     """One decoder step (reference BahdanauAttentionDecoderRNN.forward_step).
 
     token_ids: [B]; hidden: (h, c) each [num_layers, B, H]; drop: an optional
-    [B, E] multiplicative dropout mask on the embedded token.
+    [B, E] multiplicative dropout mask on the embedded token; layer_drop: an
+    optional [num_layers - 1, B, H] one on each layer's output but the
+    last's, where it feeds the next layer (torch nn.LSTM's inter-layer
+    dropout; the carried state is not dropped).
     Returns (logits [B, V], (h, c), attn_commands [B, M_t],
     attn_situations [B, M_v]). Both attentions go through
-    ``ops.additive_attention`` (kernel 1 on the card).
+    ``ops.additive_attention`` (kernel 1 on the card), whose outputs are
+    float32 whatever the keys' dtype: in a bf16 decode loop
+    (``decode/greedy.py``) the contexts go back to the query's dtype, and
+    a product of two dtypes runs in the wider one, as JAX promotes.
     """
     h_stack, c_stack = hidden
     query = h_stack[-1]  # top-layer hidden state drives attention
@@ -127,6 +138,7 @@ def decoder_step(params: ModelParams, config: ModelConfig,
         embedded = embedded * drop
     context_command, attn_commands = additive_attention(
         params.textual_attention, query, projected_textual_keys, command_mask)
+    context_command = context_command.to(query.dtype)
 
     if config.conditional_attention:
         joint = torch.cat([query, context_command], dim=-1)
@@ -137,6 +149,7 @@ def decoder_step(params: ModelParams, config: ModelConfig,
     # The visual memory has no padding: every grid cell is valid.
     context_situation, attn_situations = additive_attention(
         params.visual_attention, visual_query, projected_visual_keys, None)
+    context_situation = context_situation.to(query.dtype)
 
     layer_input = torch.cat([embedded, context_command, context_situation],
                             dim=-1)                                  # [B, 3H]
@@ -146,21 +159,34 @@ def decoder_step(params: ModelParams, config: ModelConfig,
         new_h.append(h_i)
         new_c.append(c_i)
         layer_input = h_i
+        if layer_drop is not None and i < len(layer_drop):
+            layer_input = layer_input * layer_drop[i]
     hidden_out = (torch.stack(new_h), torch.stack(new_c))
 
     pre_output = torch.cat(
         [embedded, new_h[-1], context_command, context_situation], dim=-1)
-    pre_output = pre_output @ params.decoder.output_to_hidden_w     # [B, H]
-    logits = pre_output @ params.decoder.hidden_to_output_w         # [B, V]
+    pre_output = _product(pre_output,
+                          params.decoder.output_to_hidden_w)       # [B, H]
+    logits = _product(pre_output,
+                      params.decoder.hidden_to_output_w)           # [B, V]
     return logits, hidden_out, attn_commands, attn_situations
 
 
-def decoder_drop_mask(config: ModelConfig, shape: Tuple[int, int, int],
+def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``, in the wider dtype of the two where they differ (the
+    ``bfloat16_mixed`` decode's float32 head on bf16 activations)."""
+    if x.dtype != w.dtype:
+        dtype = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dtype), w.to(dtype)
+    return x @ w
+
+
+def decoder_drop_mask(config: ModelConfig, shape: Tuple[int, ...],
                       device, generator: Optional[torch.Generator],
                       deterministic: bool) -> torch.Tensor:
-    """The decoder's ``[T, B, E]`` dropout mask on the embedded tokens:
-    ``keep / (1 - p)`` with ``keep ~ Bernoulli(1 - p)``, or ones
-    (JAX ``models/model.py:272-277``)."""
+    """A decoder dropout mask of ``shape`` (``[T, B, E]`` on the embedded
+    tokens, ``[T, L - 1, B, H]`` between layers): ``keep / (1 - p)`` with
+    ``keep ~ Bernoulli(1 - p)``, or ones (JAX ``models/model.py:272-277``)."""
     if deterministic or config.decoder_dropout_p == 0.0:
         return torch.ones(shape, device=device)
     keep = 1.0 - config.decoder_dropout_p
@@ -177,18 +203,16 @@ def decode_teacher_forced(params: ModelParams, config: ModelConfig,
     Returns log-probs [B, T, V] and the visual attention summed over *all*
     T steps, pad steps included (as the reference does) [B, M_v].
     ``config.teacher_forced_impl`` picks the unroll (see
-    ``models/config.py``; without conditional attention ``"fused"`` and
-    ``"plain"`` warn and take ``"step"``, ``decoder_impl``); all three draw
-    the same dropout mask.
+    ``models/config.py``; without conditional attention, or with more than
+    one decoder layer, ``"fused"`` and ``"plain"`` warn and take
+    ``"step"``, ``decoder_impl``, as JAX's scan path takes them); all three
+    draw the same dropout mask. ``"step"`` with several layers also draws
+    the inter-layer mask, after the embedded tokens'.
     """
     impl = config.teacher_forced_impl
     if impl not in TEACHER_FORCED_IMPLS:
         raise ValueError("teacher_forced_impl must be one of {}, got "
                          "{!r}".format(TEACHER_FORCED_IMPLS, impl))
-    if config.num_decoder_layers != 1:
-        raise NotImplementedError(
-            "the teacher-forced unroll of a decoder with {} layers is not "
-            "ported yet (ROADMAP A13)".format(config.num_decoder_layers))
     impl = decoder_impl(config, impl, "teacher_forced_impl")
     projected_textual, projected_visual = project_keys(params, encoded)
     h, c = initialize_decoder_hidden(params, config, encoded.hidden)
@@ -199,11 +223,18 @@ def decode_teacher_forced(params: ModelParams, config: ModelConfig,
         target_ids.device, generator, deterministic)
     if impl == "step":
         hidden = (h, c)
+        layer_drop = [None] * steps
+        if config.num_decoder_layers > 1 and not deterministic:
+            layer_drop = decoder_drop_mask(
+                config, (steps, config.num_decoder_layers - 1, batch,
+                         h.shape[-1]),
+                target_ids.device, generator, deterministic)
         logits, attention = [], []
         for t in range(steps):
             step_logits, hidden, _, attn_situations = decoder_step(
                 params, config, tokens[t], hidden, projected_textual,
-                encoded.command_mask, projected_visual, drop=drop[t])
+                encoded.command_mask, projected_visual, drop=drop[t],
+                layer_drop=layer_drop[t])
             logits.append(step_logits)
             attention.append(attn_situations)
         logits = torch.stack(logits)

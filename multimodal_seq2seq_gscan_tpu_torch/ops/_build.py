@@ -38,6 +38,9 @@ SIGNATURES = {
     # pq, keys, mask (nullable), energy_w, ctx, weights, B, M, H, vec,
     # stream
     "gscan_additive_attention": [_P] * 6 + [_I] * 4 + [_P],
+    # the same pointers, B, M, H, small_bf16 (queries, mask, energy_w
+    # bf16), stream
+    "gscan_additive_attention_bf16": [_P] * 6 + [_I] * 4 + [_P],
     # 7 state inputs, 12 weights, 8 outputs, scratch (nullable), B, Mt, Mv,
     # H, V, K, eos, plan, vec, stream
     "gscan_decode_block": [_P] * 28 + [_I] * 9 + [_P],

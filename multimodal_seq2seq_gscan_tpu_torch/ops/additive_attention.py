@@ -20,6 +20,13 @@ TPU kernel's analytic VJP (``_attention_bwd``; the TPU kernel has no
 backward kernel of its own either), so gradients flow through the kernel.
 Without one (the greedy decode) it launches the kernel directly: the call is
 host-bound, and an autograd node costs host time for nothing.
+
+The kernel comes in two forms, picked from the tensors' dtypes before any
+launch: float32 throughout, and bf16 keys with float32 or bf16 queries,
+energy vector and mask (the bf16 decode variants, ``decode/greedy.py``),
+which reads half the key bytes and computes in float32. Both return float32
+outputs, as the TPU kernel does whatever its inputs. Any other combination
+raises; nothing is converted.
 """
 
 from typing import Optional, Tuple
@@ -28,7 +35,8 @@ import torch
 
 from multimodal_seq2seq_gscan_tpu_torch.ops import _build
 
-launches = 0  # kernel launches, counted by the wrapper
+launches = 0  # launches of the float32 form, counted by the wrapper
+launches_bf16 = 0  # launches of the bf16 form
 
 
 def additive_attention_plain(projected_queries: torch.Tensor,
@@ -39,9 +47,13 @@ def additive_attention_plain(projected_queries: torch.Tensor,
     """Plain PyTorch version: the same function as the kernel.
 
     projected_queries [B, H], projected_keys [B, M, H] (also the values),
-    mask [B, M] or None (all valid), energy_w [H, 1].
+    mask [B, M] or None (all valid), energy_w [H, 1]. bf16 inputs are
+    widened to float32 first (the kernel's bf16 form computes in float32).
     Returns (context [B, H], weights [B, M]).
     """
+    projected_queries, projected_keys, mask, energy_w = (
+        t.float() if t is not None and t.dtype == torch.bfloat16 else t
+        for t in (projected_queries, projected_keys, mask, energy_w))
     hidden = torch.tanh(projected_queries[:, None, :] + projected_keys)
     scores = (hidden @ energy_w)[..., 0]                           # [B, M]
     if mask is not None:
@@ -120,31 +132,62 @@ def additive_attention(projected_queries: torch.Tensor,
     return _launch(projected_queries, projected_keys, mask, energy_w)
 
 
+def kernel_form(projected_keys: torch.Tensor,
+                projected_queries: torch.Tensor) -> str:
+    """The kernel's form for these dtypes: ``"float32"`` (every input
+    float32) or ``"bf16"`` (bf16 keys; queries, energy vector and mask all
+    float32 or all bf16). Raises ``TypeError`` for keys of another dtype."""
+    if projected_keys.dtype == torch.float32:
+        return "float32"
+    if projected_keys.dtype == torch.bfloat16 and projected_queries.dtype in (
+            torch.float32, torch.bfloat16):
+        return "bf16"
+    raise TypeError(
+        "additive_attention takes float32 keys with float32 queries, or "
+        "bf16 keys with float32 or bf16 queries; got keys {}, queries "
+        "{}".format(projected_keys.dtype, projected_queries.dtype))
+
+
 def _launch(projected_queries, projected_keys, mask, energy_w):
-    """Kernel 1 on the card: checks its inputs, launches it, counts it."""
+    """Kernel 1 on the card: picks its form from the dtypes, checks its
+    inputs, launches it, counts it."""
+    global launches, launches_bf16
     device = projected_keys.device
     batch, m, h = projected_keys.shape
-    tensors = [("projected_queries", projected_queries, (batch, h)),
-               ("projected_keys", projected_keys, (batch, m, h)),
-               ("energy_w", energy_w, (h, 1))]
+    form = kernel_form(projected_keys, projected_queries)
+    # The dtype of the queries, energy vector and mask.
+    small = torch.float32 if form == "float32" else projected_queries.dtype
+    tensors = [("projected_queries", projected_queries, (batch, h), small),
+               ("projected_keys", projected_keys, (batch, m, h),
+                projected_keys.dtype),
+               ("energy_w", energy_w, (h, 1), small)]
     if mask is not None:
-        tensors.append(("mask", mask, (batch, m)))
-    for name, tensor, shape in tensors:
-        check_tensor(name, tensor, shape, torch.float32, device)
-    vec = h % 4 == 0 and projected_keys.data_ptr() % 16 == 0
+        tensors.append(("mask", mask, (batch, m), small))
+    for name, tensor, shape, dtype in tensors:
+        check_tensor(name, tensor, shape, dtype, device)
     context = torch.empty((batch, h), device=device, dtype=torch.float32)
     weights = torch.empty((batch, m), device=device, dtype=torch.float32)
     if batch == 0:
         return context, weights
     lib = _build.library()
-    code = lib.gscan_additive_attention(
-        projected_queries.data_ptr(), projected_keys.data_ptr(),
-        mask.data_ptr() if mask is not None else None, energy_w.data_ptr(),
-        context.data_ptr(), weights.data_ptr(), batch, m, h, int(vec),
-        torch.cuda.current_stream(device).cuda_stream)
-    _build.check(code, "gscan_additive_attention")
-    global launches
-    launches += 1
+    mask_ptr = mask.data_ptr() if mask is not None else None
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if form == "float32":
+        vec = h % 4 == 0 and projected_keys.data_ptr() % 16 == 0
+        code = lib.gscan_additive_attention(
+            projected_queries.data_ptr(), projected_keys.data_ptr(),
+            mask_ptr, energy_w.data_ptr(), context.data_ptr(),
+            weights.data_ptr(), batch, m, h, int(vec), stream)
+        _build.check(code, "gscan_additive_attention")
+        launches += 1
+    else:  # the kernel picks its loads from H and the keys' alignment
+        code = lib.gscan_additive_attention_bf16(
+            projected_queries.data_ptr(), projected_keys.data_ptr(),
+            mask_ptr, energy_w.data_ptr(), context.data_ptr(),
+            weights.data_ptr(), batch, m, h,
+            int(small == torch.bfloat16), stream)
+        _build.check(code, "gscan_additive_attention_bf16")
+        launches_bf16 += 1
     return context, weights
 
 

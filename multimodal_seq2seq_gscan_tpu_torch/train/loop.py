@@ -17,16 +17,21 @@ either package, and a torch.profiler trace of ten steps with
   (length-bucketed, from ``np.random.default_rng(seed)``, so the batches
   equal the JAX loader's), one ``train_step`` per batch.
 
+The dataset file is parsed once for train and dev (``dataset=``); ``k``
+moves k-shot examples of ``adverb_1`` into train and dev, drawn with
+``seed`` (the JAX loader's native backend); ``generate_vocabularies`` builds
+both vocabularies from the train split and saves them into
+``data_directory`` before the dev split loads them. The streamed path
+prefetches ``prefetch_depth`` batches to the device (``data/prefetch.py``).
+
 Not ported, and refused by name rather than substituted or ignored:
-multi-seed campaigns (``seeds``, ROADMAP A10), a device mesh (A11), k-shot
-moves (``k > 0``, A14), vocabulary generation (A14), a device prefetch depth
-(``prefetch_depth``, A12) and the full RGB situation
-(``simple_situation_representation=False``, which the JAX package refuses
-too). Any other keyword raises ``TypeError``; ``test_batch_size`` is taken
-and, as in the JAX ``train``, not used (``evaluation_batch_size`` sets the
-dev decode's batch). The dev split is read in file order, and
-``max_testing_examples`` takes its first examples (the JAX loop shuffles the
-dev split without a seed before it takes them).
+multi-seed campaigns (``seeds``, ROADMAP A10), a device mesh (A11), and
+the full RGB situation (``simple_situation_representation=False``, which
+the JAX package refuses too). Any other keyword raises ``TypeError``;
+``test_batch_size`` is taken and, as in the JAX ``train``, not used
+(``evaluation_batch_size`` sets the dev decode's batch). The dev split is
+read in file order, and ``max_testing_examples`` takes its first examples
+(the JAX loop shuffles the dev split without a seed before it takes them).
 """
 
 import logging
@@ -39,9 +44,10 @@ import torch
 from multimodal_seq2seq_gscan_tpu_torch.core.batch import Batch
 from multimodal_seq2seq_gscan_tpu_torch.data.dataset import (
     GroundedScanDataset)
+from multimodal_seq2seq_gscan_tpu_torch.data.prefetch import (
+    prefetch_to_device)
 from multimodal_seq2seq_gscan_tpu_torch.decode.predict import evaluate
 from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
-from multimodal_seq2seq_gscan_tpu_torch.models.params import count_parameters
 from multimodal_seq2seq_gscan_tpu_torch.train import checkpoint as ckpt
 from multimodal_seq2seq_gscan_tpu_torch.train.resident import (
     build_resident_data, gather_batch, host_resident_data, index_block_stream,
@@ -49,6 +55,7 @@ from multimodal_seq2seq_gscan_tpu_torch.train.resident import (
 from multimodal_seq2seq_gscan_tpu_torch.train.state import (
     Adam, create_train_state)
 from multimodal_seq2seq_gscan_tpu_torch.train.step import train_step
+from multimodal_seq2seq_gscan_tpu_torch.utils.logging import log_parameters
 from multimodal_seq2seq_gscan_tpu_torch.utils.not_ported import not_ported
 from multimodal_seq2seq_gscan_tpu_torch.utils.profiling import StepProfiler
 
@@ -207,12 +214,6 @@ def train(data_path: str, data_directory: str,
         not_ported("Multi-seed training (seeds)", "A10")
     if mesh is not None:
         not_ported("Data-parallel training (mesh)", "A11")
-    if k:
-        not_ported("The k-shot split move (k > 0)", "A14")
-    if generate_vocabularies:
-        not_ported("Vocabulary generation", "A14")
-    if prefetch_depth != 3:
-        not_ported("Device prefetch (prefetch_depth)", "A12")
     if not simple_situation_representation:
         raise NotImplementedError(
             "Full RGB input image not implemented. Implement or set "
@@ -226,13 +227,27 @@ def train(data_path: str, data_directory: str,
     training_set = GroundedScanDataset(
         data_path, data_directory, split="train",
         input_vocabulary_file=input_vocab_path,
-        target_vocabulary_file=target_vocab_path)
+        target_vocabulary_file=target_vocab_path,
+        generate_vocabulary=generate_vocabularies, k=k, k_shot_seed=seed)
     training_set.read_dataset(max_examples=max_training_examples)
     logger.info("Loaded %d training examples.", training_set.num_examples)
+    logger.info("  Input vocabulary size training set: %d",
+                training_set.input_vocabulary_size)
+    logger.info("  Most common input words: %s",
+                training_set.input_vocabulary.most_common(5))
+    logger.info("  Output vocabulary size training set: %d",
+                training_set.target_vocabulary_size)
+    logger.info("  Most common target words: %s",
+                training_set.target_vocabulary.most_common(5))
+    if generate_vocabularies:
+        training_set.save_vocabularies(input_vocab_path, target_vocab_path)
+        logger.info("Saved vocabularies to %s for input and %s for target.",
+                    input_vocab_path, target_vocab_path)
     dev_set = GroundedScanDataset(
         data_path, data_directory, split="dev",
         input_vocabulary_file=input_vocab_path,
-        target_vocabulary_file=target_vocab_path)
+        target_vocabulary_file=target_vocab_path,
+        dataset=training_set.dataset)
     dev_set.read_dataset(max_examples=max_testing_examples)
     logger.info("Loaded %d dev examples.", dev_set.num_examples)
 
@@ -273,7 +288,7 @@ def train(data_path: str, data_directory: str,
         best_exact_match = meta["best_exact_match"]
     else:
         state = create_train_state(seed, config, optimizer, device)
-    logger.info("Total parameters: %d", count_parameters(state.params))
+    log_parameters(state.params)
 
     def log_metrics(iteration, metrics, steps_per_s):
         values = {name: float(value) for name, value in metrics.items()}
@@ -344,25 +359,31 @@ def train(data_path: str, data_directory: str,
     training_iteration = start_iteration
     window_start = time.time()
     window_steps = 0
-    for batch, _, _, _ in epoch_stream(training_set, training_batch_size,
-                                       epoch_rng):
-        profiler.maybe_start(training_iteration)
-        state, metrics = train_step(state, batch.to(device), config,
-                                    optimizer, weight_target_loss)
-        profiler.maybe_stop(training_iteration)
-        window_steps += 1
-        if training_iteration % print_every == 0:
-            metrics = {name: value.item() for name, value in metrics.items()}
-            elapsed = time.time() - window_start
-            log_metrics(training_iteration, metrics,
-                        window_steps / max(elapsed, 1e-9))
-            window_start, window_steps = time.time(), 0
-        if training_iteration % evaluate_every == 0:
-            run_evaluation(training_iteration, state)
-            window_start, window_steps = time.time(), 0
-        training_iteration += 1
-        if training_iteration > max_training_iterations:
-            break
+    stream = prefetch_to_device(
+        epoch_stream(training_set, training_batch_size, epoch_rng),
+        depth=prefetch_depth, device=device)
+    try:
+        for batch, _, _, _ in stream:
+            profiler.maybe_start(training_iteration)
+            state, metrics = train_step(state, batch, config, optimizer,
+                                        weight_target_loss)
+            profiler.maybe_stop(training_iteration)
+            window_steps += 1
+            if training_iteration % print_every == 0:
+                metrics = {name: value.item()
+                           for name, value in metrics.items()}
+                elapsed = time.time() - window_start
+                log_metrics(training_iteration, metrics,
+                            window_steps / max(elapsed, 1e-9))
+                window_start, window_steps = time.time(), 0
+            if training_iteration % evaluate_every == 0:
+                run_evaluation(training_iteration, state)
+                window_start, window_steps = time.time(), 0
+            training_iteration += 1
+            if training_iteration > max_training_iterations:
+                break
+    finally:
+        stream.close()
     profiler.close()
     logger.info("Finished training.")
     return state, config

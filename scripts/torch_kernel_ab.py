@@ -15,7 +15,9 @@ kernel 4 and the weight-gradient helper; the helper and its library call
 graphs; and, at the decode's batch of 4096, kernel 1 (a decoder step's two
 calls), one 32-step launch of kernel 2 from SOS on random inputs, and
 kernel 2 on the fixture's two blocks (``chip_smoke.fixture_blocks``: from
-SOS, and from the state after the first, most rows done). The measuring
+SOS, and from the state after the first, most rows done); where the
+checkout has it, kernel 1's bf16 form on the same two calls with bf16 keys
+(float32, then bf16 queries, energy vector and mask). The measuring
 code is this checkout's ``chip_smoke.py``, so two checkouts are timed the
 same way.
 
@@ -33,7 +35,10 @@ same way.
   fixture's checkpoint and the block decode of the fixture's 4096 dev
   examples, as ``chip_smoke.py`` does, and prints the decode's profile
   (``chip_smoke.profile_decode``: device busy share, kernel 2's and the
-  encoder's device time).
+  encoder's device time); and the streamed ``train()``
+  (``steps_per_execution=1``) from the same checkpoint at batch 200, by the
+  wall clock between its loss reports (batching, any prefetch, the step and
+  the report included).
 
 Prints one JSON line, with the card's name and power limit. Compare two
 checkouts in one call, one process each, in turns: parent, change, change,
@@ -180,16 +185,30 @@ def decode_kernel_times(cs, s, repeats):
              for m, masked in ((s["m_t"], True), (s["m_v"], False))]
     block_args = cs.random_block_inputs(gen, device, cs.BATCH, s["m_t"],
                                         s["m_v"], s["hidden"], s["vocab"], 1)
-    def attention():
+    def attention(calls=calls):
         return [additive_attention.additive_attention(*args)
                 for args in calls]
 
-    return dict(
+    times = dict(
         attention_ms=cs.cuda_ms(attention, repeats * 5),
         attention_graph_ms=cs.graph_ms(attention, repeats * 5),
         block_ms=cs.cuda_ms(lambda: decode_block.fused_decode_block(
             *block_args, num_steps=cs.EXIT_CHECK_EVERY, eos_idx=2),
             max(1, repeats // 2)))
+    if hasattr(additive_attention, "launches_bf16"):
+        # Kernel 1's bf16 form on the same calls, the keys in bf16: with
+        # float32 queries, energy vector and mask (``bfloat16_keys``) and
+        # with all of them in bf16 (``bfloat16``).
+        for name, small in (("bf16", torch.float32),
+                            ("bf16_small", torch.bfloat16)):
+            bf16 = [(pq.to(small), keys.to(torch.bfloat16),
+                     None if mask is None else mask.to(small),
+                     energy.to(small)) for pq, keys, mask, energy in calls]
+            times["attention_{}_ms".format(name)] = cs.cuda_ms(
+                lambda: attention(bf16), repeats * 5)
+            times["attention_{}_graph_ms".format(name)] = cs.graph_ms(
+                lambda: attention(bf16), repeats * 5)
+    return times
 
 
 def fixture(cs):
@@ -271,7 +290,33 @@ def end_to_end_times(cs, fix, repeats):
         cs.profile_decode(lambda: decode(state.params, *inputs), encode,
                           torch.cuda.synchronize)
     return dict(train_step_ms=step_ms, train_step_t=batch.target_ids.shape[1],
-                decode_ms=decode_ms)
+                decode_ms=decode_ms, streamed_train_ms=streamed_train_ms(cs))
+
+
+def streamed_train_ms(cs, steps=60, every=10):
+    """Wall milliseconds a step of the streamed ``train()`` at batch
+    TRAIN_BATCH from the fixture's checkpoint: the time from its first loss
+    report to its last over the steps between them (no evaluation falls in
+    between; the first ``every`` steps, which warm up, fall before)."""
+    import tempfile
+    import time
+    from multimodal_seq2seq_gscan_tpu_torch.train.loop import train
+    start, stamps = 200000, []
+
+    def report(kind, iteration, values):
+        if kind == "train":
+            stamps.append((iteration, time.perf_counter()))
+
+    with tempfile.TemporaryDirectory(prefix="gscan_ab_") as out_dir:
+        train(str(cs.FIXTURE / "dataset.txt"), str(cs.FIXTURE),
+              training_batch_size=cs.TRAIN_BATCH,
+              resume_from_file=str(cs.FIXTURE / "model_best.msgpack"),
+              max_training_iterations=start + steps,
+              print_every=every, evaluate_every=start + 10 * steps,
+              output_directory=out_dir, max_testing_examples=cs.STEP_EXAMPLES,
+              seed=cs.SEED, steps_per_execution=1, callback=report)
+    (first, t0), (last, t1) = stamps[0], stamps[-1]
+    return (t1 - t0) * 1e3 / (last - first)
 
 
 def main():

@@ -6,13 +6,18 @@
   (``models.config.decoder_impl``). ``evaluate`` and one ``train_step``
   with ``conditional_attention=False`` then equal JAX's ``evaluate`` and
   ``train_step_body`` at the bars of tests/test_torch_train.py and
-  tests/test_torch_greedy.py; a teacher-forced unroll of two decoder layers
-  is refused, naming ROADMAP A13.
+  tests/test_torch_greedy.py. A decoder of two layers (and an encoder of
+  two) decodes as JAX's, and its teacher-forced unroll, whichever
+  ``teacher_forced_impl`` is asked for, takes ``"step"`` and gives JAX's
+  ``"xla"`` train step at the same bars, dropout off; with dropout on, the
+  inter-layer masks keep 1 - p of the values at scale 1 / (1 - p) and are
+  drawn from the step's generator.
 - ``train`` refuses, by name, each keyword that the port does not honour,
   and honours those it took since (the resident trainer's layouts,
-  ``profile_dir``).
+  ``profile_dir``, ``prefetch_depth``, ``k``, ``generate_vocabularies``).
 """
 
+import functools
 import logging
 import os
 
@@ -21,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from multimodal_seq2seq_gscan_tpu.data.dataset import (
     GroundedScanDataset as JaxDataset)
@@ -53,6 +59,7 @@ from multimodal_seq2seq_gscan_tpu_torch.train.step import (
     loss_and_grads, train_step)
 from tests.test_torch_train import (
     random_batch, random_opt_state, tiny_kwargs, to_torch)
+from tests.test_torch_decode_dtype import one_torch_thread  # noqa: F401
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "..", "data",
                        "bench_fixture")
@@ -83,13 +90,91 @@ def test_decoder_impl_rule(caplog, impl, layers, conditional, expected):
 
 @pytest.mark.parametrize("impl", ["fused", "plain", "step"])
 def test_train_step_without_conditional_attention_matches_jax(impl):
-    kwargs = tiny_kwargs(encoder_dropout_p=0.0, decoder_dropout_p=0.0,
-                         cnn_dropout_p=0.0, conditional_attention=False)
-    jax_config = JaxConfig(**kwargs)
-    config = ModelConfig(teacher_forced_impl=impl, **kwargs)
-    params = init_model_params(jax.random.PRNGKey(9), jax_config)
-    opt_state = random_opt_state(params, 7, seed=4)
-    jax_batch, batch = random_batch(12)
+    assert_train_step_matches_jax(
+        tiny_kwargs(encoder_dropout_p=0.0, decoder_dropout_p=0.0,
+                    cnn_dropout_p=0.0, conditional_attention=False),
+        impl, params_key=9, opt_seed=4, batch_seed=12)
+
+
+@pytest.mark.parametrize("impl", ["fused", "plain", "step"])
+def test_two_layer_train_step_matches_jax(impl):
+    """Two encoder and two decoder layers, dropout off: every impl takes
+    the step unroll, and one step equals JAX's scan path."""
+    assert_train_step_matches_jax(
+        tiny_kwargs(encoder_dropout_p=0.0, decoder_dropout_p=0.0,
+                    cnn_dropout_p=0.0, num_encoder_layers=2,
+                    num_decoder_layers=2),
+        impl, params_key=6, opt_seed=5, batch_seed=13)
+
+
+def test_inter_layer_dropout_rate_scale_and_generator(monkeypatch):
+    """With dropout on, a two-layer encoder and decoder draw their
+    inter-layer masks from the step's generator (the same generator state
+    gives the same loss, another gives another), each mask keeping about
+    1 - p of the values at scale 1 / (1 - p)."""
+    from multimodal_seq2seq_gscan_tpu_torch.models import model
+    kwargs = tiny_kwargs(encoder_dropout_p=0.3, decoder_dropout_p=0.3,
+                         cnn_dropout_p=0.1, num_encoder_layers=2,
+                         num_decoder_layers=2)
+    config = ModelConfig(**kwargs)
+    state = create_train_state(2, config, Adam(), device="cpu")
+    _, batch = random_batch(4)
+    first, _, _ = loss_and_grads(state, batch, config)
+    again, _, _ = loss_and_grads(state, batch, config)
+    later, _, _ = loss_and_grads(state._replace(step=1), batch, config)
+    assert torch.equal(first, again) and not torch.equal(first, later)
+
+    drawn = []
+    dropout = model.dropout
+
+    def spy(generator, x, rate, deterministic):
+        out = dropout(generator, x, rate, deterministic)
+        drawn.append(("encoder", generator, x, out, rate))
+        return out
+
+    masks = model.decoder_drop_mask
+
+    def mask_spy(config, shape, device, generator, deterministic):
+        out = masks(config, shape, device, generator, deterministic)
+        drawn.append(("decoder", generator, shape, out, None))
+        return out
+
+    monkeypatch.setattr(model, "dropout", spy)
+    monkeypatch.setattr(model, "decoder_drop_mask", mask_spy)
+    generator = torch.Generator().manual_seed(0)
+    model.forward(to_torch(init_model_params(jax.random.PRNGKey(1),
+                                             JaxConfig(**kwargs))),
+                  config, batch.input_ids, batch.input_lengths,
+                  batch.situations, batch.target_ids, generator=generator,
+                  deterministic=False)
+    # CNN features, embedding, one encoder layer's output; the decoder's
+    # embedded tokens, then its [T, 1, B, H] inter-layer mask.
+    assert [d[0] for d in drawn] == ["encoder"] * 3 + ["decoder"] * 2
+    assert all(d[1] is generator for d in drawn)
+    layer_in, layer_out = drawn[2][2], drawn[2][3]
+    assert layer_in.shape[-1] == 2 * kwargs["encoder_hidden_size"]
+    kept = layer_out != 0
+    torch.testing.assert_close(layer_out[kept], layer_in[kept] / 0.7)
+    layer_mask = drawn[4][3]
+    assert tuple(layer_mask.shape) == (batch.target_ids.shape[1], 1,
+                                       batch.target_ids.shape[0],
+                                       kwargs["decoder_hidden_size"])
+    assert set(layer_mask.unique().tolist()) == {
+        0.0, float(np.float32(1.0) / np.float32(0.7))}
+    big = model.decoder_drop_mask(config, (200, 1, 50, 100), "cpu",
+                                  generator, deterministic=False)
+    assert abs((big > 0).float().mean().item() - 0.7) < 0.005
+
+
+@functools.lru_cache(maxsize=None)
+def jax_train_step(kwargs, params_key, opt_seed, batch_seed):
+    """(state, new state, loss, gradients) of JAX's ``train_step_body`` on
+    ``random_batch(batch_seed)``, computed once for every impl of the port
+    held to it."""
+    jax_config = JaxConfig(**dict(kwargs))
+    params = init_model_params(jax.random.PRNGKey(params_key), jax_config)
+    opt_state = random_opt_state(params, 7, seed=opt_seed)
+    jax_batch, _ = random_batch(batch_seed)
     state = JaxState(step=jnp.int32(7), params=params, opt_state=opt_state,
                      rng=jax.random.PRNGKey(1))
     optimizer = make_optimizer()
@@ -103,6 +188,20 @@ def test_train_step_without_conditional_attention_matches_jax(impl):
             loss, grads
 
     (new_state, _), loss, grads = reference(state, jax_batch)
+    return state, new_state, loss, grads
+
+
+def assert_train_step_matches_jax(kwargs, impl, params_key, opt_seed,
+                                  batch_seed):
+    """One port ``train_step`` with ``teacher_forced_impl=impl`` against
+    JAX's ``train_step_body`` (its scan path) from identical params and
+    Adam state: loss rtol 1e-5, gradients rtol 3e-4 / atol 3e-5, updated
+    params atol 1e-6."""
+    config = ModelConfig(teacher_forced_impl=impl, **kwargs)
+    state, new_state, loss, grads = jax_train_step(
+        tuple(sorted(kwargs.items())), params_key, opt_seed, batch_seed)
+    params, opt_state = state.params, state.opt_state
+    _, batch = random_batch(batch_seed)
     port_state = TrainState(
         step=7, params=to_torch(params),
         opt_state=AdamState(7, to_torch(opt_state[0].mu),
@@ -152,6 +251,10 @@ def test_evaluate_without_conditional_attention_matches_jax():
 
 
 def test_two_layer_decoder_decodes_as_jax_and_refuses_teacher_forcing():
+    """A two-layer decoder decodes as JAX's; its teacher-forced unroll,
+    refused until the port had it (ROADMAP A13), now trains: one step equals
+    JAX's (``test_two_layer_train_step_matches_jax`` holds it for every
+    impl)."""
     kwargs = tiny_kwargs(num_decoder_layers=2)
     jax_params = init_model_params(jax.random.PRNGKey(4), JaxConfig(**kwargs))
     params = to_torch(jax_params)
@@ -169,8 +272,8 @@ def test_two_layer_decoder_decodes_as_jax_and_refuses_teacher_forcing():
     np.testing.assert_array_equal(out.tokens.numpy() * emitted,
                                   np.asarray(ref.tokens) * emitted)
     state = create_train_state(0, config, Adam(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        train_step(state, batch, config, Adam())
+    new_state, metrics = train_step(state, batch, config, Adam())
+    assert new_state.step == 1 and bool(torch.isfinite(metrics["loss"]))
 
 
 # ---------------------------------------------------------------------------
@@ -180,9 +283,6 @@ def test_two_layer_decoder_decodes_as_jax_and_refuses_teacher_forcing():
 @pytest.mark.parametrize("keyword,value,error,match", [
     ("simple_situation_representation", False, NotImplementedError,
      "RGB"),
-    ("prefetch_depth", 1, NotImplementedError, "A12"),
-    ("k", 1, NotImplementedError, "A14"),
-    ("generate_vocabularies", True, NotImplementedError, "A14"),
     ("seeds", "1,2", NotImplementedError, "A10"),
     ("mesh", object(), NotImplementedError, "A11"),
     ("no_such_flag", 1, TypeError, "no_such_flag")])
@@ -195,38 +295,75 @@ def test_train_refuses_keywords_it_does_not_honour(tmp_path, keyword, value,
 
 @pytest.mark.parametrize("keyword,value", [
     ("profile_dir", "trace"), ("chunk_layout", "stratified"),
-    ("stratified_widths", "16,32")])
+    ("stratified_widths", "16,32"), ("prefetch_depth", 1), ("k", 2),
+    ("generate_vocabularies", True)])
 def test_train_honours_keywords_it_once_refused(tmp_path, monkeypatch,
                                                 keyword, value):
-    """The resident trainer's layouts and ``profile_dir``, refused until
-    the port had them, are honoured: a stratified layout streams its
-    blocks with the cuts asked for, and ``profile_dir`` gets a trace."""
+    """The resident trainer's layouts, ``profile_dir``, ``prefetch_depth``,
+    ``k`` and ``generate_vocabularies``, refused until the port had them,
+    are honoured: a stratified layout streams its blocks with the cuts
+    asked for, ``profile_dir`` gets a trace, the streamed path prefetches
+    that many batches, ``k`` reaches the k-shot move with the run's seed,
+    and vocabularies generated from the train split are saved into the
+    data directory (here a copy of the fixture's dataset) before the dev
+    split loads them."""
+    import shutil
+    from multimodal_seq2seq_gscan_tpu_torch.data import dataset as data_mod
     from multimodal_seq2seq_gscan_tpu_torch.train import loop
-    streams = []
+    streams, depths, moves = [], [], []
     stratified = loop.stratified_index_block_stream
+    prefetch = loop.prefetch_to_device
+    move = data_mod.ParsedDataset.move_k_examples_to_train_and_dev
 
     def spy(*args, **kwargs):
         streams.append(kwargs)
         return stratified(*args, **kwargs)
 
+    def prefetch_spy(iterator, depth, device):
+        depths.append(depth)
+        return prefetch(iterator, depth=depth, device=device)
+
+    def move_spy(self, k, rng, split="adverb_1"):
+        moves.append((k, rng.random()))
+        return move(self, k, rng, split)
+
     monkeypatch.setattr(loop, "stratified_index_block_stream", spy)
-    options = {keyword: value}
+    monkeypatch.setattr(loop, "prefetch_to_device", prefetch_spy)
+    monkeypatch.setattr(data_mod.ParsedDataset,
+                        "move_k_examples_to_train_and_dev", move_spy)
+    options = {keyword: value, "steps_per_execution": 4}
+    data_path, data_directory = DATASET, FIXTURE
     if keyword == "profile_dir":
         options[keyword] = str(tmp_path / value)
     elif keyword == "stratified_widths":
         options["chunk_layout"] = "stratified"
-    state, _ = train(DATASET, FIXTURE, output_directory=str(tmp_path),
-                     device="cpu", max_training_examples=16,
-                     training_batch_size=4, embedding_dimension=8,
-                     encoder_hidden_size=12, decoder_hidden_size=12,
-                     cnn_kernel_size=3, cnn_hidden_num_channels=6,
-                     steps_per_execution=4, print_every=4,
+    elif keyword == "prefetch_depth":
+        options["steps_per_execution"] = 1
+    elif keyword == "generate_vocabularies":
+        data_directory = str(tmp_path / "data")
+        os.makedirs(data_directory)
+        data_path = shutil.copy(DATASET, data_directory)
+    state, _ = train(data_path, data_directory,
+                     output_directory=str(tmp_path), device="cpu",
+                     max_training_examples=16, training_batch_size=4,
+                     embedding_dimension=8, encoder_hidden_size=12,
+                     decoder_hidden_size=12, cnn_kernel_size=3,
+                     cnn_hidden_num_channels=6, print_every=4,
                      evaluate_every=1000, max_training_iterations=32,
                      **options)
     assert state.step == 32
     if keyword == "profile_dir":
         assert streams == []
         assert len(list((tmp_path / value).glob("*.pt.trace.json"))) == 1
-    else:
+    elif keyword in ("chunk_layout", "stratified_widths"):
         cuts = (16, 32) if keyword == "stratified_widths" else (32,)
         assert [kwargs["cuts"] for kwargs in streams] == [cuts]
+    elif keyword == "prefetch_depth":
+        assert depths == [1]
+    elif keyword == "k":
+        import random
+        assert moves == [(2, random.Random(42).random())]
+    else:
+        for name in ("training_input_vocab.txt",
+                     "training_target_vocab.txt"):
+            assert os.path.isfile(os.path.join(data_directory, name))

@@ -71,7 +71,9 @@ print(json.dumps({"imported": len(names) + 1, "leaked": leaked,
 # Modules that must be among those imported (the walk finds every module;
 # these are named so that a missing one fails here).
 REQUIRED = ("decode.predict", "train.resident", "utils.profiling",
-            "train.loop", "ops.decode_block", "ops.teacher_forced")
+            "train.loop", "ops.decode_block", "ops.teacher_forced",
+            "cli.seq2seq", "data.prefetch", "models.torch_import",
+            "utils.logging")
 
 
 def test_every_module_imports_with_blocked_packages():

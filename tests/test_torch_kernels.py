@@ -25,7 +25,11 @@ H = 1024. Kernel 1's gradients (its backward is the plain
 1e-4 / atol 1e-5, the bar of float32 sums in two orders. Kernel 2 also
 takes H past 448 (its plans without a ring, up to H = 1024 here), and the
 resident trainer's CUDA graph of the training step gives the eager steps'
-state and metrics.
+state and metrics, also for a decoder of two layers (the step unroll, its
+attentions kernel 1). Kernel 1's bf16 form (bf16 keys; float32 or bf16
+queries, energy vector and mask) equals its plain version on the same bf16
+inputs at the float32 form's bars, and is no further from float64 than
+twice the plain version.
 """
 
 import numpy as np
@@ -85,6 +89,63 @@ def test_attention_kernel_rejects_bad_input(cuda):
         k1.additive_attention(pq, keys.transpose(1, 2), None, energy)
     with pytest.raises(ValueError):
         k1.additive_attention(pq, keys, None, energy.cpu())
+
+
+# (batch, M, H, masked): the fixture decode's two calls, W3's, H % 8 != 0
+# and a row past the register-resident form.
+BF16_SHAPES = {"decode_M16": (4096, 16, 100, True),
+               "decode_M36": (4096, 36, 100, False),
+               "W3_M72": (512, 72, 256, True),
+               "W3_M144": (512, 144, 256, False),
+               "H102": (256, 16, 102, True),
+               "H1030": (64, 12, 1030, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("small", ["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(BF16_SHAPES))
+def test_attention_bf16_form_matches_plain(cuda, name, small):
+    """Kernel 1 on bf16 keys (queries, energy vector and mask float32 or
+    bf16): float32 outputs, the plain version's on the same inputs within
+    context atol 1e-5 and weights atol 1e-6, and no further from float64
+    than twice the plain version (or 1e-6); a launch of the bf16 form."""
+    batch, m, h, masked = BF16_SHAPES[name]
+    lengths = np.random.RandomState(2).randint(0, m + 1, size=batch) \
+        if masked else None
+    pq, keys, mask, energy = [
+        None if a is None else torch.from_numpy(a).to(cuda)
+        for a in attention_inputs(4, batch, m, h, lengths)]
+    keys = keys.to(torch.bfloat16)
+    if small == "bf16":
+        pq, energy = pq.to(torch.bfloat16), energy.to(torch.bfloat16)
+        mask = None if mask is None else mask.to(torch.bfloat16)
+    args = (pq, keys, mask, energy)
+    before = (k1.launches, k1.launches_bf16)
+    ctx, w = k1.additive_attention(*args)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.launches_bf16) == (before[0], before[1] + 1)
+    assert ctx.dtype == w.dtype == torch.float32
+    plain = k1.additive_attention_plain(*args)
+    exact = k1.additive_attention_plain(*as_float64(args))
+    for got, want, truth, atol in zip((ctx, w), plain, exact, (1e-5, 1e-6)):
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+        kernel_err = float((got.double() - truth).abs().max())
+        plain_err = float((want.double() - truth).abs().max())
+        assert kernel_err <= max(2 * plain_err, 1e-6)
+
+
+@pytest.mark.cuda
+def test_attention_bf16_form_rejects_mixed_dtypes(cuda):
+    pq, keys, mask, energy = [torch.from_numpy(a).to(cuda) for a in
+                              attention_inputs(0, 4, 8, 16, [3, 8, 0, 5])]
+    keys = keys.to(torch.bfloat16)
+    with pytest.raises(TypeError):  # bf16 queries, float32 energy vector
+        k1.additive_attention(pq.to(torch.bfloat16), keys, None, energy)
+    with pytest.raises(TypeError):  # float32 queries, bf16 mask
+        k1.additive_attention(pq, keys, mask.to(torch.bfloat16), energy)
+    with pytest.raises(TypeError):  # bf16 queries on float32 keys
+        k1.additive_attention(pq.to(torch.bfloat16), keys.float(), None,
+                              energy.to(torch.bfloat16))
 
 
 def block_inputs(device, batch, done_fraction, seed=5, h=100):
@@ -744,3 +805,45 @@ def test_resident_graph_equals_eager_steps(cuda, layout):
                                            msg=tree)
     for kernel, count in tf.launches.items():
         assert count > before[kernel], kernel
+
+
+@pytest.mark.cuda
+def test_two_layer_graph_equals_eager_steps(cuda):
+    """A decoder of two layers (inter-layer dropout in the encoder and the
+    decoder, the step unroll whose attentions are kernel 1 with its plain
+    backward) in the resident trainer's CUDA graph of a K = 4 chunk: the
+    eager steps' metrics (rtol 2e-5 / atol 1e-6), params and Adam moments
+    (atol 1e-6); kernel 1 launched while the chunk is captured."""
+    from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
+    from multimodal_seq2seq_gscan_tpu_torch.models.params import leaves
+    from multimodal_seq2seq_gscan_tpu_torch.train import resident
+    from multimodal_seq2seq_gscan_tpu_torch.train.state import (
+        Adam, create_train_state)
+    from multimodal_seq2seq_gscan_tpu_torch.train.step import train_step
+    config = ModelConfig(input_vocabulary_size=12, target_vocabulary_size=8,
+                         num_cnn_channels=6, embedding_dimension=10,
+                         encoder_hidden_size=12, decoder_hidden_size=12,
+                         num_encoder_layers=2, num_decoder_layers=2,
+                         cnn_kernel_size=3, cnn_hidden_num_channels=6)
+    optimizer = Adam()
+    data = resident_toy(cuda)
+    k, batch = 4, 8
+    block = next(resident.index_block_stream(
+        data.num_examples, batch, k, np.random.default_rng(3)))
+    state = create_train_state(5, config, optimizer, device=cuda)
+    before = k1.launches
+    graphed, metrics = resident.make_train_chunk(config, optimizer)(
+        state, data, block)
+    assert k1.launches > before
+    eager = state
+    for j, row in enumerate(block):
+        eager, step_metrics = train_step(
+            eager, resident.gather_batch(data, row), config, optimizer)
+        for name, value in step_metrics.items():
+            torch.testing.assert_close(metrics[name][j], value, rtol=2e-5,
+                                       atol=1e-6, msg=name)
+    for tree in ("params", "mu", "nu"):
+        get = (lambda s: s.params) if tree == "params" else (
+            lambda s, t=tree: getattr(s.opt_state, t))
+        for a, b in zip(leaves(get(graphed)), leaves(get(eager))):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6, msg=tree)

@@ -9,8 +9,10 @@ keys in the same order; ``input``, ``prediction``, ``target``,
 ``derivation``, ``situation``, ``accuracy`` and ``exact_match`` equal, and
 ``position_accuracy`` and both attention stacks within rtol 1e-5 / atol
 1e-6 (the JAX decode test's attention bar). ``evaluate`` with
-``max_examples_to_evaluate`` equals JAX's, and ``mesh`` and
-``decode_dtype`` are refused by name.
+``max_examples_to_evaluate`` equals JAX's; ``mesh`` is refused by name,
+and a ``decode_dtype`` that is not one of the decoder's (the bf16 variants
+are taken since they were ported, tests/test_torch_decode_dtype.py) by a
+``ValueError`` naming the choices.
 """
 
 import json
@@ -132,12 +134,13 @@ def test_evaluate_equals_jax(fixture, limit):
 
 
 @pytest.mark.parametrize("keyword,value,item", [
-    ("mesh", object(), "A11"), ("decode_dtype", "bfloat16", "A13")])
+    ("mesh", object(), "A11"), ("decode_dtype", "float16", "compute_dtype")])
 @pytest.mark.parametrize("entry", ["predict", "evaluate"])
 def test_mesh_and_decode_dtype_are_refused(fixture, entry, keyword, value,
                                            item):
     port_data, config, params = fixture[1], fixture[3], fixture[5]
-    with pytest.raises(NotImplementedError, match=item):
+    error = ValueError if keyword == "decode_dtype" else NotImplementedError
+    with pytest.raises(error, match=item):
         if entry == "predict":
             next(predict(port_data, params, config, 120, device="cpu",
                          **{keyword: value}))
