@@ -42,7 +42,17 @@ path, kernel 1's bf16 form), held to the JAX package's bars against the
 float32 decode; kernel 1's bf16 form is held to its plain version and to
 float64 at the decode's shapes and W3's, and timed beside its bound; and a
 decoder of two layers on random weights trains one graphed resident chunk
-of its step unroll (kernel 1), held to as many eager steps.
+of its step unroll (kernel 1), held to as many eager steps. A multi-seed
+campaign (seeds 66, 49 and 50, fresh from each seed's init, 20 steps in
+graphed chunks of 10, a dev evaluation of 512 examples per seed through
+kernel 2 after each chunk) is held, seed by seed, to single-seed
+``train(seed=s)`` runs of the same steps, and a campaign stopped after its
+first chunk and resumed to the uninterrupted one; its graph is timed
+against the seeds' single-seed graphs replayed in turn. The port's C++
+dataset scanner is built from the checkout, loads the fixture as the json
+path does (arrays, strings, vocabularies), is what ``"auto"`` takes, and
+its ``--mode=test`` writes the json path's ``dev_predict.json`` byte for
+byte. The helper's library call is timed at the wide shapes too.
 Then it times each kernel and its plain version with CUDA
 events (kernel 2 on both of the fixture's blocks, each beside its own bound),
 the full decode and the train step, and profiles one decode and three train
@@ -113,6 +123,12 @@ RESIDENT_K_DEFAULT = 50
 # Steps of the two-layer decoder's graphed chunk (its step unroll issues
 # about 25 times the launches of the fused step).
 TWO_LAYER_K = 4
+# The multi-seed campaign: the seeds of scripts/all_experiments.sh, fresh
+# from each seed's init, MULTISEED_STEPS steps in graphed chunks of
+# MULTISEED_K, a dev evaluation after each chunk.
+MULTISEED_SEEDS = (66, 49, 50)
+MULTISEED_K = 10
+MULTISEED_STEPS = 20
 
 # NVIDIA H100 SXM data sheet, full 700 W power limit: float32 outside the
 # tensor cores, and HBM3 bandwidth. A bound is the larger of operations over
@@ -829,6 +845,30 @@ def wide_shape_rows(gen, device, vocab, sos_idx, eos_idx):
         plans = {kernel: tf.shared_memory_plan(
             kernel, w_m_t, w_m_v, h, h, vocab, index)
             for kernel in tf.KERNEL_NUMBERS}
+        # The helper's library call, timed with the helper as CUDA graphs
+        # (as on the main path). Its sums of B x T row-steps run in
+        # another order than the helper's, so both are held to the same
+        # products in float64: the library call within twice the helper's
+        # error, or within the helper's bars.
+        operands = helper_library_operands(stash, h_res, dlogits,
+                                           inputs[7].embedding.shape[1])
+        exact = helper_library([(a.double(), b.double())
+                                for a, b in operands])
+        for grad, got, want, ref in zip(
+                GRAD_NAMES[4:], helper_library(operands),
+                tf.teacher_forced_weight_grads(stash, h_res, dlogits),
+                exact):
+            library_err = float((got.double() - ref).abs().max())
+            helper_err = float((want.double() - ref).abs().max())
+            require(library_err <= max(2 * helper_err, 2e-5 + 2e-4 * float(
+                ref.abs().max())), "{} helper library call d{}: max |err| "
+                "vs float64 {:.3e}, the helper's {:.3e}".format(
+                    label, grad, library_err, helper_err))
+        del exact
+        helper_library_ms = graph_ms(lambda: helper_library(operands), 10)
+        helper_graph_ms = graph_ms(lambda: tf.teacher_forced_weight_grads(
+            stash, h_res, dlogits), 10)
+        del operands
         times += [
             ("teacher_forced_forward", cuda_ms(
                 lambda: tf.teacher_forced_forward(
@@ -849,7 +889,10 @@ def wide_shape_rows(gen, device, vocab, sos_idx, eos_idx):
                     stash, h_res, dlogits), 10),
              cuda_ms(lambda: tf.weight_grads_plain(stash, h_res,
                                                    dlogits), 3),
-             bound_ms(*work[2]), "-")]
+             bound_ms(*work[2]),
+             "from a CUDA graph {:.4f} ms; its library call (14 "
+             "torch.matmul) from a CUDA graph {:.4f} ms".format(
+                 helper_graph_ms, helper_library_ms))]
         del inputs, dlogits, g_asum, h_res, c_res, stash
         for kernel, ms, plain_ms, bound, plan in times:
             plan_text = plan if isinstance(plan, str) else "plan {} ({}, " \
@@ -860,6 +903,7 @@ def wide_shape_rows(gen, device, vocab, sos_idx, eos_idx):
             wide_rows.append(dict(shape=name, kernel=kernel, ms=ms,
                                   plain_ms=plain_ms, bound_ms=bound[0],
                                   bound_by=bound[1], plan=plan_text))
+        wide_rows[-1]["library_ms"] = helper_library_ms
     return wide_rows
 
 
@@ -1355,6 +1399,322 @@ def two_layer_checks(train_set, config, sync):
             "the two-layer chunk did not run the step unroll's kernel 1")
     hold_chunk("two-layer decoder, graphed chunk vs eager steps", *graphed,
                eager, metrics)
+
+
+def hold_states(label, got, want):
+    """Two TrainStates' params and Adam moments: bit-identical, or within
+    the resident bars (atol 1e-6). Returns whether bit-identical."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.models.params import leaves
+    same, errors = True, {}
+    for tree in ("params", "mu", "nu"):
+        get = (lambda s: s.params) if tree == "params" else (
+            lambda s, t=tree: getattr(s.opt_state, t))
+        pairs = list(zip(leaves(get(got)), leaves(get(want))))
+        same &= all(torch.equal(a, b) for a, b in pairs)
+        errors[tree] = max(float((a - b).abs().max()) for a, b in pairs)
+    print("{}: params, mu, nu {} (max |err| {:.3e}, {:.3e}, {:.3e}; "
+          "atol 1e-6)".format(label, "bit-identical" if same else
+                              "not bit-identical", errors["params"],
+                              errors["mu"], errors["nu"]))
+    require(got.step == want.step
+            and got.opt_state[0::3] == want.opt_state[0::3],
+            "{}: the counts differ".format(label))
+    require(max(errors.values()) <= 1e-6, "{}: past atol 1e-6".format(label))
+    return same
+
+
+def hold_events(label, got, want):
+    """Two runs' logged metrics (``train``'s callback events, the host
+    clock's steps/s left out): equal, or within rtol 2e-5 / atol 1e-6.
+    Returns whether equal."""
+    def values(events):
+        return [(kind, it, {k: v for k, v in vals.items()
+                            if k not in ("seed", "steps_per_s")})
+                for kind, it, vals in events]
+
+    got, want = values(got), values(want)
+    require([e[:2] for e in got] == [e[:2] for e in want],
+            "{}: logged {} against {}".format(label, [e[:2] for e in got],
+                                              [e[:2] for e in want]))
+    same = got == want
+    for (_, it, a), (_, _, b) in zip(got, want):
+        for name in b:
+            require(abs(a[name] - b[name]) <= 1e-6 + 2e-5 * abs(b[name]),
+                    "{}: {} at {}: {} against {}".format(
+                        label, name, it, a[name], b[name]))
+    print("{}: {} logged windows and evaluations {}".format(
+        label, len(got), "equal" if same else "within rtol 2e-5 / atol "
+        "1e-6"))
+    return same
+
+
+def multiseed_checks(train_set, config, sync):
+    """The multi-seed campaign on the card, fresh from each seed's init at
+    the flagship width: (a) ``train(seeds=...)`` of MULTISEED_SEEDS for
+    MULTISEED_STEPS steps in graphed chunks of MULTISEED_K (one graph runs
+    each seed's chunk in turn), a dev evaluation of STEP_EXAMPLES examples
+    per seed through kernel 2 after each chunk, into ``seed_<s>/``; (b)
+    each seed held against a single-seed ``train(seed=s)`` of the same
+    steps: params, moments, logged metrics and checkpoint files; (c) a
+    campaign run by the command line's ``--seeds`` to its first chunk and
+    resumed by ``train``, held against the uninterrupted one; (d) ms per step per seed of the campaign's graph
+    against one seed's graphed chunk and against the seeds' single-seed
+    graphs replayed in turn, with the device busy share (torch.profiler)."""
+    import filecmp
+    import numpy as np
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.cli import seq2seq
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    from multimodal_seq2seq_gscan_tpu_torch.train import multiseed, resident
+    from multimodal_seq2seq_gscan_tpu_torch.train.loop import train
+    from multimodal_seq2seq_gscan_tpu_torch.train.state import (
+        Adam, create_train_state)
+    seeds = ",".join(str(s) for s in MULTISEED_SEEDS)
+    common = dict(training_batch_size=TRAIN_BATCH,
+                  print_every=MULTISEED_K, evaluate_every=MULTISEED_K,
+                  steps_per_execution=MULTISEED_K,
+                  max_testing_examples=STEP_EXAMPLES,
+                  evaluation_batch_size=STEP_EXAMPLES, device=DEVICE)
+    root = Path(tempfile.mkdtemp(prefix="gscan_chip_smoke_multiseed_"))
+
+    def run(out, steps, **options):
+        events = []
+        start = time.perf_counter()
+        state, _ = train(str(FIXTURE / "dataset.txt"), str(FIXTURE),
+                         output_directory=str(root / out),
+                         max_training_iterations=steps,
+                         callback=lambda *event: events.append(event),
+                         **dict(common, **options))
+        sync()
+        return state, events, time.perf_counter() - start
+
+    try:
+        # (a) The campaign, its launches counted.
+        k2.launches = 0
+        tf.launches.update({name: 0 for name in tf.launches})
+        stacked, events, campaign_s = run("campaign", MULTISEED_STEPS,
+                                          seeds=seeds)
+        launches = dict(tf.launches, decode_block=k2.launches)
+        print("campaign of seeds {} ({} steps, K={}): {:.2f} s; launches "
+              "(kernels 3, 4 and the helper: warm-up and capture; kernel "
+              "2: the dev evaluations) {}".format(
+                  seeds, MULTISEED_STEPS, MULTISEED_K, campaign_s, launches))
+        require(all(count > 0 for count in launches.values()),
+                "a kernel of the campaign's path was not launched")
+        for kind, it, values in events:
+            print("campaign {} {} [seed {}]: {}".format(
+                kind, it, values["seed"], ", ".join(
+                    "{} {:.6g}".format(k, v) for k, v in values.items()
+                    if k != "seed")))
+        evaluations = [(it, v["seed"]) for kind, it, v in events
+                       if kind == "eval"]
+        require(evaluations == [(it, s) for it in range(
+            MULTISEED_K, MULTISEED_STEPS + 1, MULTISEED_K)
+            for s in MULTISEED_SEEDS], "campaign evaluations: {}".format(
+                evaluations))
+        require(all(math.isfinite(v["loss"]) for kind, _, v in events
+                    if kind == "train"), "campaign losses are not finite")
+        # (b) Each seed against its single-seed run.
+        bars = []
+        for i, s in enumerate(MULTISEED_SEEDS):
+            single, single_events, single_s = run("single_{}".format(s),
+                                                  MULTISEED_STEPS, seed=s)
+            label = "seed {}: campaign vs train(seed={}) ({:.2f} s)".format(
+                s, s, single_s)
+            same = hold_states(label, multiseed.slice_train_state(
+                stacked, i), single)
+            same &= hold_events(label, [e for e in events
+                                        if e[2]["seed"] == s],
+                                single_events)
+            files = sorted(os.listdir(root / "single_{}".format(s)))
+            require(files == sorted(os.listdir(
+                root / "campaign" / "seed_{}".format(s))),
+                "{}: the files differ".format(label))
+            equal_bytes = all(filecmp.cmp(
+                root / "single_{}".format(s) / name,
+                root / "campaign" / "seed_{}".format(s) / name,
+                shallow=False) for name in files)
+            require(equal_bytes or not same,
+                    "{}: bit-identical states, different files".format(
+                        label))
+            print("{}: files {} {}".format(label, files, "byte-equal"
+                                           if equal_bytes else "differ"))
+            bars.append(same)
+        print("multi-seed bar held: {}".format(
+            "bit for bit (every seed)" if all(bars) else
+            "the resident bars (metrics rtol 2e-5 / atol 1e-6, params and "
+            "moments atol 1e-6)"))
+        # (c) Stopped after the first chunk (through the command line's
+        # --seeds), resumed through train().
+        seq2seq.main(vars(seq2seq.build_parser().parse_args([
+            "--mode=train", "--data_directory=" + str(FIXTURE),
+            "--output_directory=" + str(root / "resumed"),
+            "--seeds=" + seeds,
+            "--training_batch_size={}".format(TRAIN_BATCH),
+            "--max_training_iterations={}".format(MULTISEED_K),
+            "--print_every={}".format(MULTISEED_K),
+            "--evaluate_every={}".format(MULTISEED_K),
+            "--steps_per_execution={}".format(MULTISEED_K),
+            "--max_testing_examples={}".format(STEP_EXAMPLES),
+            "--test_batch_size={}".format(STEP_EXAMPLES),
+            "--max_decoding_steps={}".format(MAX_DECODING_STEPS)])),
+            device=DEVICE)
+        resumed, _, resumed_s = run("resumed", MULTISEED_STEPS, seeds=seeds,
+                                    resume_from_file=str(root / "resumed"))
+        same = [hold_states(
+            "seed {}: resumed campaign vs uninterrupted ({:.2f} s)".format(
+                s, resumed_s), multiseed.slice_train_state(resumed, i),
+            multiseed.slice_train_state(stacked, i))
+            for i, s in enumerate(MULTISEED_SEEDS)]
+        print("resumed campaign: bar held: {}".format(
+            "bit for bit" if all(same) else "the resident bars (atol 1e-6)"))
+        del stacked, resumed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (d) Times: the campaign's graph against the seeds' single graphs.
+    optimizer = Adam()
+    data = resident.build_resident_data(train_set, DEVICE)
+    states = [create_train_state(s, config, optimizer, device=DEVICE)
+              for s in MULTISEED_SEEDS]
+    blocks = np.stack([next(resident.index_block_stream(
+        data.num_examples, TRAIN_BATCH, MULTISEED_K,
+        np.random.default_rng(s))) for s in MULTISEED_SEEDS])
+    stacked = multiseed.stack_train_states(states)
+    multi = multiseed.make_multiseed_train_chunk(config, optimizer)
+    single = resident.make_train_chunk(config, optimizer)
+    n, k = len(MULTISEED_SEEDS), MULTISEED_K
+    runs = (("one graph of {} seeds x {} steps".format(n, k),
+             lambda: multi(stacked, data, blocks), n * k),
+            ("{} replays of the single-seed graph (the S-graph "
+             "variant)".format(n),
+             lambda: [single(state, data, block)
+                      for state, block in zip(states, blocks)], n * k),
+            ("one seed's graphed chunk", lambda: single(
+                states[0], data, blocks[0]), k))
+    times = {}
+    for label, fn, steps in runs:
+        ms = cuda_ms(fn, 3, warmup=1) / steps
+        wall_ms, device_events, busy_ms = device_window(fn, sync)
+        times[label] = ms
+        print("{}: {:.3f} ms a step a seed; profiled: wall {:.3f} ms, "
+              "device busy {} a step".format(
+                  label, ms, wall_ms / steps,
+                  "{:.3f} ms ({:.1f}%)".format(
+                      busy_ms / steps, 100 * busy_ms / wall_ms)
+                  if busy_ms > 0 else "not measured"))
+    first, _ = multi(stacked, data, blocks)
+    second, _ = multi(stacked, data, blocks)
+    print("the campaign's graph replayed twice from one state: {}".format(
+        "bit-identical" if torch.equal(first.flat, second.flat)
+        else "max |err| {:.3e}".format(float(
+            (first.flat - second.flat).abs().max()))))
+    del first, second
+    one, s_graphs = times[runs[0][0]], times[runs[1][0]]
+    print("campaign graph against the S-graph variant: {:.3f} against "
+          "{:.3f} ms a step a seed ({:+.1f}%); kept: the one graph{}".format(
+              one, s_graphs, 100 * (one / s_graphs - 1),
+              "" if one <= s_graphs else " (slower here: see PERF.md)"))
+
+
+def native_loader_checks(dataset, params, config, sync):
+    """The port's C++ scanner on the card's host: built from the
+    checkout's source, the fixture loaded by ``"native"`` and ``"engine"``
+    (train and dev sharing one parse) with equal arrays, vocabularies and
+    strings, both load times; ``"auto"`` must take native; and
+    ``--mode=test`` of STEP_EXAMPLES records through the native backend
+    must write the engine backend's ``dev_predict.json`` byte for byte."""
+    import numpy as np
+    from multimodal_seq2seq_gscan_tpu_torch.cli import seq2seq
+    from multimodal_seq2seq_gscan_tpu_torch.data import native_loader
+    from multimodal_seq2seq_gscan_tpu_torch.data.dataset import (
+        GroundedScanDataset)
+    from multimodal_seq2seq_gscan_tpu_torch.decode.predict import (
+        predict_and_save)
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    start = time.perf_counter()
+    library = native_loader.build()
+    print("native loader: {} ({:.2f} s to build or find)".format(
+        library.name, time.perf_counter() - start))
+    path = str(FIXTURE / "dataset.txt")
+    loaded, seconds = {}, {}
+    for backend in ("native", "engine"):
+        start = time.perf_counter()
+        dev = GroundedScanDataset(path, str(FIXTURE), split="dev",
+                                  backend=backend)
+        dev.read_dataset()
+        train_split = GroundedScanDataset(path, str(FIXTURE), split="train",
+                                          dataset=dev.dataset)
+        train_split.read_dataset()
+        seconds[backend] = time.perf_counter() - start
+        loaded[backend] = (dev, train_split)
+    for split, got, want in zip(("dev", "train"), loaded["native"],
+                                loaded["engine"]):
+        require(got.backend == "native" and want.backend == "engine",
+                "backends {} and {}".format(got.backend, want.backend))
+        for name in ("_situations", "_input_lengths", "_target_lengths",
+                     "_agent_positions", "_target_positions"):
+            a, b = getattr(got, name), getattr(want, name)
+            require(a.dtype == b.dtype and np.array_equal(a, b),
+                    "native {} {} differs".format(split, name))
+        require(got.num_examples == want.num_examples and all(
+            np.array_equal(a, b) for a, b in zip(got.input_ids,
+                                                 want.input_ids))
+            and all(np.array_equal(a, b) for a, b in zip(
+                got.target_ids, want.target_ids)),
+            "native {} ids differ".format(split))
+        require(all(got._situation_representations[i]
+                    == want._situation_representations[i]
+                    and got._derivation_representations[i]
+                    == want._derivation_representations[i]
+                    for i in range(got.num_examples)),
+                "native {} strings differ".format(split))
+        require(got.input_vocabulary.to_dict()
+                == want.input_vocabulary.to_dict()
+                and got.target_vocabulary.to_dict()
+                == want.target_vocabulary.to_dict(),
+                "native {} vocabularies differ".format(split))
+    print("fixture (dev {} + train {} examples) loaded: native {:.3f} s, "
+          "engine {:.3f} s; arrays, ids, strings and vocabularies "
+          "equal".format(loaded["native"][0].num_examples,
+                         loaded["native"][1].num_examples,
+                         seconds["native"], seconds["engine"]))
+    auto = GroundedScanDataset(path, str(FIXTURE), split="dev")
+    require(auto.backend == "native", "'auto' took {}".format(auto.backend))
+    out_dir = tempfile.mkdtemp(prefix="gscan_chip_smoke_native_")
+    try:
+        k2.launches = 0
+        seq2seq.main(vars(seq2seq.build_parser().parse_args([
+            "--mode=test", "--data_directory=" + str(FIXTURE),
+            "--output_directory=" + out_dir,
+            "--resume_from_file=" + str(FIXTURE / "model_best.msgpack"),
+            "--max_decoding_steps={}".format(MAX_DECODING_STEPS),
+            "--max_testing_examples={}".format(STEP_EXAMPLES),
+            "--splits=dev", "--test_batch_size={}".format(BATCH)])),
+            device=DEVICE)
+        sync()
+        launches = k2.launches
+        engine_path = predict_and_save(
+            loaded["engine"][0], params, config,
+            os.path.join(out_dir, "engine_predict.json"),
+            max_decoding_steps=MAX_DECODING_STEPS, batch_size=BATCH,
+            max_testing_examples=STEP_EXAMPLES, device=DEVICE)
+        with open(os.path.join(out_dir, "dev_predict.json"), "rb") as f:
+            native_bytes = f.read()
+        with open(engine_path, "rb") as f:
+            engine_bytes = f.read()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print("--mode=test through the native backend: {} bytes, kernel 2 "
+          "launches {}; the engine backend's predict.json {} bytes, "
+          "{}".format(len(native_bytes), launches, len(engine_bytes),
+                      "byte-equal" if native_bytes == engine_bytes
+                      else "different"))
+    require(launches > 0, "--mode=test did not launch kernel 2")
+    require(native_bytes == engine_bytes,
+            "dev_predict.json differs between the backends")
 
 
 def check_close_quiet(got, want, rtol, atol, label):
@@ -1919,6 +2279,15 @@ def main():
     with phase("main path: a two-layer decoder's resident chunk"), \
             encoder_precision(tf32_seen):
         two_layer_checks(train_set, train_config, sync)
+
+    with phase("main path: multi-seed training"), \
+            encoder_precision(tf32_seen):
+        multiseed_checks(train_set, train_config, sync)
+        print(smi)
+
+    with phase("data: native loader"), encoder_precision(tf32_seen):
+        native_loader_checks(dataset, params, config, sync)
+        print(smi)
 
     print("TF32 flags (matmul, cuDNN) inside the entry points on the main "
           "paths: {}; outside: ({}, {})".format(

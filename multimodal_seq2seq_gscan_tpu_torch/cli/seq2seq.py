@@ -9,9 +9,12 @@ Usage:
 It runs on the card (``main(flags, device="cuda")``; the tests pass
 ``device="cpu"``). ``--teacher_forced_impl`` also takes the port's names
 (``models/config.py``); ``--compilation_cache_dir`` is parsed and, as it
-configures only JAX's runtime, logged and left unused. A multi-seed
-campaign (``--seeds`` with more than one seed, ROADMAP A10) and
-``--data_parallel > 1`` (A11) are refused by name.
+configures only JAX's runtime, logged and left unused. ``--seeds`` with
+more than one seed trains a multi-seed campaign (``train/multiseed.py``)
+into ``<output_directory>/seed_<s>/``; ``--resume_from_file`` then names
+the campaign's output directory. ``--data_parallel > 1`` (ROADMAP A11) is
+refused by name. The dataset file is parsed once for every split, by the
+C++ scanner when it builds (``data/dataset.py``'s ``"auto"``).
 """
 
 import argparse
@@ -235,8 +238,13 @@ def build_parser() -> argparse.ArgumentParser:
                              "through the chunk instead of ascending runs.")
     parser.add_argument("--seeds", type=str, default="",
                         help="Comma-separated seed list for a multi-seed "
-                             "campaign (not ported yet: more than one seed "
-                             "is refused).")
+                             "campaign: every seed trained together on one "
+                             "card (one CUDA graph runs each seed's chunk "
+                             "in turn), each seed's data order, init and "
+                             "dropout those of a single-seed run with "
+                             "--seed=<s>. Per-seed runs land in "
+                             "<output_directory>/seed_<s>/; resume with "
+                             "--resume_from_file=<output_directory>.")
     return parser
 
 
@@ -274,10 +282,6 @@ def main(flags: Optional[dict] = None,
 
     data_path = os.path.join(flags["data_directory"], "dataset.txt")
     if flags["mode"] == "train":
-        seeds = [s for s in str(flags.get("seeds") or "").split(",")
-                 if s.strip()]
-        if len(seeds) > 1:
-            not_ported("Multi-seed training (--seeds)", "A10")
         from multimodal_seq2seq_gscan_tpu_torch.train.loop import train
         options = {name: value for name, value in flags.items()
                    if name not in _NOT_TRAIN_FLAGS}

@@ -1,25 +1,35 @@
-"""dataset.txt -> padded, bucketed torch batches (one split, read with json).
+"""dataset.txt -> padded, bucketed torch batches (one split).
 
 The port's counterpart of the JAX package's ``data/dataset.py``: the same
 tokenization, the same uint8 dense situation grids (``gscan/encode.py``), the
 same bucketed padding (sequence dims rounded up to a multiple of 8) and the
 same optional zero-row padding of a short final batch, and the same
 (length-bucketed) shuffle, so both packages build identical batches from one
-file and one numpy seed. It reads the splits straight from the JSON
-(``ParsedDataset``: one parse of the file, which several splits share
-through ``dataset=``, as the JAX loader's) and carries neither the dataset
-engine nor the C++ scanner. The k-shot move (``k > 0``) follows the JAX
-loader's default backend, the native scanner's: ``k`` examples of
-``adverb_1``, drawn by ``random.Random(k_shot_seed).sample``, are appended
-to train and dev and removed from ``adverb_1`` at parse time. With
-``generate_vocabulary`` both vocabularies are built from the split's
+file and one numpy seed. It carries no dataset engine. The file is parsed
+once, and several splits share the parse through ``dataset=``, by one of
+the JAX loader's backends (``backend``):
+
+- ``"native"``: the port's C++ mmap scanner (``data/native_loader.py``,
+  built at first use), which rasterizes the grids as it scans and leaves
+  the strings in the mapped file; it raises if the library cannot be
+  built;
+- ``"engine"``: ``json.load`` of the whole file (``ParsedDataset``);
+- ``"auto"`` (the default): native when the library builds, else engine,
+  with a logged warning.
+
+Both give the same arrays, vocabularies, k-shot move and strings. The
+k-shot move (``k > 0``) is the JAX loader's native backend's: ``k``
+examples of ``adverb_1``, drawn by ``random.Random(k_shot_seed).sample``,
+are appended to train and dev and removed from ``adverb_1`` at parse time.
+With ``generate_vocabulary`` both vocabularies are built from the split's
 commands and targets (``save_vocabularies`` writes them).
 
 Each example's situation dict and derivation string are kept for
 ``predict.json`` (the JAX dataset's ``situation_representation`` and
-``derivation_representation``), and the split is also held as packed
-columns (``_ensure_packed``: ``[N, T_in]`` and ``[N, T_out]`` id matrices,
-the uint8 situation stack, the length and position vectors), which batch
+``derivation_representation``; decoded from the mapped file on access
+under the native backend), and the split is also held as packed columns
+(``_ensure_packed``: ``[N, T_in]`` and ``[N, T_out]`` id matrices, the
+uint8 situation stack, the length and position vectors), which batch
 assembly slices and the resident trainer puts on the device whole.
 """
 
@@ -27,13 +37,14 @@ import json
 import logging
 import os
 import random
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from multimodal_seq2seq_gscan_tpu_torch.core.batch import Batch
 from multimodal_seq2seq_gscan_tpu_torch.core.vocabulary import Vocabulary
+from multimodal_seq2seq_gscan_tpu_torch.data import native_loader
 from multimodal_seq2seq_gscan_tpu_torch.gscan.encode import (
     encode_situation_from_representation)
 
@@ -89,20 +100,90 @@ class ParsedDataset:
                               if i not in chosen_set]
 
 
+class _JsonSplit:
+    """A split of a ``ParsedDataset`` behind ``NativeSplit``'s accessors."""
+
+    def __init__(self, examples: list):
+        self.examples = examples
+
+    def __len__(self) -> int:
+        return len(self.examples)
+
+    def command(self, i: int) -> str:
+        return self.examples[i]["command"]
+
+    def target_commands(self, i: int) -> str:
+        return self.examples[i]["target_commands"]
+
+    def derivation(self, i: int) -> Optional[str]:
+        return self.examples[i].get("derivation")
+
+    def situation(self, i: int) -> dict:
+        return self.examples[i]["situation"]
+
+
+class _LazyList:
+    """A list-like view that calls ``get(i)`` on access (the native
+    backend's situation dicts and derivation strings)."""
+
+    def __init__(self, get, n: int):
+        self._get, self._n = get, n
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, i: int):
+        return self._get(i)
+
+
+BACKENDS = ("auto", "native", "engine")
+Parse = Union[ParsedDataset, native_loader.NativeDataset]
+
+
+def parse_dataset(path_to_data: str, backend: str = "auto", k: int = 0,
+                  k_shot_seed: Optional[int] = None) -> Tuple[Parse, str]:
+    """(the parse of every split of the file, the backend that made it),
+    the k-shot move applied (module docstring)."""
+    if backend not in BACKENDS:
+        raise ValueError("backend must be one of {}, got {!r}".format(
+            BACKENDS, backend))
+    if backend == "auto":
+        try:
+            native_loader.library()
+            backend = "native"
+        except RuntimeError as error:
+            logger.warning("The native loader cannot be built, so the "
+                           "dataset is parsed with json (backend 'engine'):"
+                           " %s", error)
+            backend = "engine"
+    if backend == "engine":
+        return ParsedDataset(path_to_data, k=k,
+                             k_shot_seed=k_shot_seed), backend
+    logger.info("Loading dataset via the native scanner...")
+    dataset = native_loader.NativeDataset(path_to_data)
+    # Seeded so that the move repeats run to run (the reference draws from
+    # the globally seeded ``random`` module).
+    dataset.move_k_examples_to_train_and_dev(
+        k, random.Random(k_shot_seed) if k_shot_seed is not None
+        else random)
+    return dataset, backend
+
+
 class GroundedScanDataset:
     """One split of a gSCAN dataset.txt, served as padded, bucketed batches.
 
     ``dataset`` takes an earlier split's parse (``.dataset``), so that the
-    file is parsed once; ``k`` and ``k_shot_seed`` apply only to a parse
-    made here."""
+    file is parsed once, by the backend that made it (``.backend``; a
+    ``backend`` other than ``"auto"`` must be that one); ``backend``, ``k``
+    and ``k_shot_seed`` otherwise apply to a parse made here."""
 
     def __init__(self, path_to_data: str, save_directory: str,
                  split: str = "train",
                  input_vocabulary_file: str = "training_input_vocab.txt",
                  target_vocabulary_file: str = "training_target_vocab.txt",
                  generate_vocabulary: bool = False, k: int = 0,
-                 dataset: Optional[ParsedDataset] = None,
-                 k_shot_seed: Optional[int] = None):
+                 dataset: Optional[Parse] = None,
+                 k_shot_seed: Optional[int] = None, backend: str = "auto"):
         if not os.path.isfile(path_to_data):
             raise FileNotFoundError(
                 "Trying to read a gSCAN dataset from a non-existing file "
@@ -113,16 +194,26 @@ class GroundedScanDataset:
         self.path_to_data = path_to_data
         self.split = split
         self.directory = save_directory
-        self.dataset = dataset if dataset is not None else ParsedDataset(
-            path_to_data, k=k, k_shot_seed=k_shot_seed)
+        if dataset is None:
+            dataset, backend = parse_dataset(path_to_data, backend, k,
+                                             k_shot_seed)
+        else:
+            shared = ("native" if isinstance(
+                dataset, native_loader.NativeDataset) else "engine")
+            if backend not in ("auto", shared):
+                raise ValueError("dataset= is a parse of backend {!r}, not "
+                                 "{!r}".format(shared, backend))
+            backend = shared
+        self.dataset, self.backend = dataset, backend
         if generate_vocabulary:
             self.input_vocabulary = Vocabulary()
             self.target_vocabulary = Vocabulary()
-            for example in self._examples():
+            examples = self._examples()
+            for i in range(len(examples)):
                 self.input_vocabulary.add_sentence(
-                    example["command"].split(","))
+                    examples.command(i).split(","))
                 self.target_vocabulary.add_sentence(
-                    example["target_commands"].split(","))
+                    examples.target_commands(i).split(","))
         else:
             self.input_vocabulary = Vocabulary.load(
                 os.path.join(save_directory, input_vocabulary_file))
@@ -141,12 +232,14 @@ class GroundedScanDataset:
         self._order = np.zeros((0,), np.int64)
         self._packed = False
 
-    def _examples(self) -> list:
+    def _examples(self):
+        """The split behind ``NativeSplit``'s accessors."""
         examples = self.dataset.splits.get(self.split)
         if examples is None:
             raise KeyError("Split {} not present in {}".format(
                 self.split, self.path_to_data))
-        return examples
+        return (examples if isinstance(examples, native_loader.NativeSplit)
+                else _JsonSplit(examples))
 
     def save_vocabularies(self, input_vocabulary_file: str,
                           target_vocabulary_file: str):
@@ -158,40 +251,49 @@ class GroundedScanDataset:
             os.path.join(self.directory, target_vocabulary_file))
 
     def read_dataset(self, max_examples: Optional[int] = None):
-        """Tokenize and encode the split's examples once into numpy columns."""
+        """Tokenize and encode the split's examples once into numpy
+        columns (the first ``max_examples`` of them, if given)."""
         grid_size = self.dataset.grid_size
         examples = self._examples()
-        if max_examples:
-            examples = examples[:max_examples]
-        situations, agent_positions, target_positions = [], [], []
-        for example in examples:
-            self.input_ids.append(np.asarray(
-                self.input_vocabulary.sentence_to_array(
-                    example["command"].split(",")), dtype=np.int32))
-            self.target_ids.append(np.asarray(
-                self.target_vocabulary.sentence_to_array(
-                    example["target_commands"].split(",")), dtype=np.int32))
-            rep = example["situation"]
-            situations.append(
-                encode_situation_from_representation(rep, grid_size))
-            agent_positions.append(
-                _flat_position(rep["agent_position"], grid_size))
-            target_positions.append(
-                _flat_position(rep["target_object"]["position"], grid_size))
-            self._situation_representations.append(rep)
-            self._derivation_representations.append(
-                example.get("derivation"))
-        self._situations = np.stack(situations)
+        n = min(len(examples), max_examples or len(examples))
+        self.input_ids = [np.asarray(self.input_vocabulary.sentence_to_array(
+            examples.command(i).split(",")), dtype=np.int32)
+            for i in range(n)]
+        self.target_ids = [np.asarray(
+            self.target_vocabulary.sentence_to_array(
+                examples.target_commands(i).split(",")), dtype=np.int32)
+            for i in range(n)]
+        if isinstance(examples, native_loader.NativeSplit):
+            self._situations = examples.grids[:n]
+            self._agent_positions = examples.positions[:n, 0].copy()
+            self._target_positions = examples.positions[:n, 1].copy()
+            self._situation_representations = _LazyList(
+                examples.situation, n)
+            self._derivation_representations = _LazyList(
+                examples.derivation, n)
+        else:
+            reps = [examples.situation(i) for i in range(n)]
+            self._situations = np.stack([
+                encode_situation_from_representation(rep, grid_size)
+                for rep in reps])
+            self._agent_positions = np.asarray(
+                [_flat_position(rep["agent_position"], grid_size)
+                 for rep in reps], np.int32)
+            self._target_positions = np.asarray(
+                [_flat_position(rep["target_object"]["position"], grid_size)
+                 for rep in reps], np.int32)
+            self._situation_representations = reps
+            self._derivation_representations = [
+                examples.derivation(i) for i in range(n)]
         self.image_channels = int(self._situations.shape[-1])
         self._input_lengths = np.array([len(a) for a in self.input_ids],
                                        np.int32)
         self._target_lengths = np.array([len(a) for a in self.target_ids],
                                         np.int32)
-        self._agent_positions = np.asarray(agent_positions, np.int32)
-        self._target_positions = np.asarray(target_positions, np.int32)
-        self._order = np.arange(len(self.input_ids), dtype=np.int64)
+        self._order = np.arange(n, dtype=np.int64)
         self._packed = False
-        logger.info("Read %d %s examples.", len(self.input_ids), self.split)
+        logger.info("Read %d %s examples (%s backend).", n, self.split,
+                    self.backend)
 
     def shuffle_data(self, rng: Optional[np.random.Generator] = None,
                      bucket_by_length_with_batch_size: Optional[int] = None):

@@ -24,14 +24,27 @@ both vocabularies from the train split and saves them into
 ``data_directory`` before the dev split loads them. The streamed path
 prefetches ``prefetch_depth`` batches to the device (``data/prefetch.py``).
 
-Not ported, and refused by name rather than substituted or ignored:
-multi-seed campaigns (``seeds``, ROADMAP A10), a device mesh (A11), and
+Multi-seed campaigns: ``seeds`` with more than one seed trains them
+together (``train/multiseed.py``), each seed as a single-seed run with that
+``seed`` would, into ``<output_directory>/seed_<s>/``; ``resume_from_file``
+then names the campaign's output directory.
+
+The dev split is read whole and shuffled once, by a permutation from
+``np.random.default_rng(seed)``, and each evaluation scores the first
+``max_testing_examples`` of that order (all of dev when None), as the JAX
+loop scores the first examples of its shuffled dev split. JAX shuffles
+from an unseeded generator, so the two packages score different subsets;
+the seeded draw makes a run's subset repeat, and a campaign's seed s
+score the subset of a single-seed run with seed s. The file is parsed
+by the dataset's default backend, ``"auto"`` (``data/dataset.py``: the C++
+scanner when it builds, else json), and the dev split shares the parse.
+
+Not ported, and refused by name rather than substituted or ignored: a
+device mesh (ROADMAP A11; with ``seeds``, refused as JAX refuses it) and
 the full RGB situation (``simple_situation_representation=False``, which
 the JAX package refuses too). Any other keyword raises ``TypeError``;
 ``test_batch_size`` is taken and, as in the JAX ``train``, not used
-(``evaluation_batch_size`` sets the dev decode's batch). The dev split is
-read in file order, and ``max_testing_examples`` takes its first examples
-(the JAX loop shuffles the dev split without a seed before it takes them).
+(``evaluation_batch_size`` sets the dev decode's batch).
 """
 
 import logging
@@ -49,6 +62,8 @@ from multimodal_seq2seq_gscan_tpu_torch.data.prefetch import (
 from multimodal_seq2seq_gscan_tpu_torch.decode.predict import evaluate
 from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
 from multimodal_seq2seq_gscan_tpu_torch.train import checkpoint as ckpt
+from multimodal_seq2seq_gscan_tpu_torch.train.multiseed import (
+    train_multiseed)
 from multimodal_seq2seq_gscan_tpu_torch.train.resident import (
     build_resident_data, gather_batch, host_resident_data, index_block_stream,
     make_train_chunk, resolve_chunk_size, stratified_index_block_stream)
@@ -201,17 +216,22 @@ def train(data_path: str, data_directory: str,
           chunk_layout: str = "full", stratified_widths: str = "32",
           stratified_wide_mix: float = 0.0,
           stratified_interleave: bool = False):
-    """Train (or resume) the model; returns (TrainState, ModelConfig).
+    """Train (or resume) the model; returns (TrainState, ModelConfig), or
+    for a multi-seed campaign (StackedTrainState, ModelConfig).
 
     Arguments mirror the JAX ``train``; a value the port does not honour is
     refused by name (see the module docstring).
     ``callback(kind, iteration, values)``, if given,
     sees every printed window (``kind == "train"``: loss, accuracy,
     exact_match, aux_accuracy, learning_rate, steps_per_s) and every
-    evaluation (``"eval"``: accuracy, exact_match, target_accuracy).
+    evaluation (``"eval"``: accuracy, exact_match, target_accuracy); in a
+    campaign each seed's, with ``values["seed"]``.
     """
-    if seeds and len([s for s in str(seeds).split(",") if s.strip()]) > 1:
-        not_ported("Multi-seed training (seeds)", "A10")
+    seed_list = [int(s) for s in str(seeds or "").split(",") if s.strip()]
+    if mesh is not None and len(seed_list) > 1:
+        raise NotImplementedError(
+            "--seeds campaign training is single-chip; drop --data_parallel "
+            "or train seeds individually.")
     if mesh is not None:
         not_ported("Data-parallel training (mesh)", "A11")
     if not simple_situation_representation:
@@ -248,7 +268,9 @@ def train(data_path: str, data_directory: str,
         input_vocabulary_file=input_vocab_path,
         target_vocabulary_file=target_vocab_path,
         dataset=training_set.dataset)
-    dev_set.read_dataset(max_examples=max_testing_examples)
+    dev_set.read_dataset()
+    # Evaluations score the first max_testing_examples of this order (C.10).
+    dev_set.shuffle_data(np.random.default_rng(seed))
     logger.info("Loaded %d dev examples.", dev_set.num_examples)
 
     config = ModelConfig(
@@ -275,6 +297,32 @@ def train(data_path: str, data_directory: str,
     optimizer = Adam(learning_rate=learning_rate, b1=adam_beta_1,
                      b2=adam_beta_2, lr_decay=lr_decay,
                      lr_decay_steps=lr_decay_steps)
+    stratified_options = dict(
+        # "32" (default): the two classes {<=32, rest}; "x16" or "":
+        # classes of multiples of 16.
+        cuts=(None if str(stratified_widths).strip().lower()
+              in ("", "x16") else
+              tuple(int(w) for w in str(stratified_widths).split(",")
+                    if str(w).strip())),
+        wide_mix=float(stratified_wide_mix),
+        interleave=bool(stratified_interleave))
+    if len(seed_list) > 1:
+        stacked, _ = train_multiseed(
+            training_set, dev_set, config, optimizer, seeds=seed_list,
+            output_directory=output_directory,
+            max_training_iterations=max_training_iterations,
+            training_batch_size=training_batch_size,
+            steps_per_execution=steps_per_execution,
+            print_every=print_every, evaluate_every=evaluate_every,
+            max_decoding_steps=max_decoding_steps,
+            weight_target_loss=weight_target_loss,
+            evaluation_batch_size=evaluation_batch_size,
+            max_testing_examples=max_testing_examples,
+            chunk_layout=chunk_layout,
+            stratified_options=stratified_options,
+            resume_from_file=resume_from_file, device=device,
+            callback=callback, profile_dir=profile_dir)
+        return stacked, config
 
     start_iteration = 1
     best_iteration = 1
@@ -336,15 +384,6 @@ def train(data_path: str, data_directory: str,
     epoch_rng = np.random.default_rng(seed)
     logger.info("Training starts..")
     if steps_per_execution > 1:
-        stratified_options = dict(
-            # "32" (default): the two classes {<=32, rest}; "x16" or "":
-            # classes of multiples of 16.
-            cuts=(None if str(stratified_widths).strip().lower()
-                  in ("", "x16") else
-                  tuple(int(w) for w in str(stratified_widths).split(",")
-                        if str(w).strip())),
-            wide_mix=float(stratified_wide_mix),
-            interleave=bool(stratified_interleave))
         state = _train_resident(
             state, training_set, config, optimizer, weight_target_loss,
             start_iteration, max_training_iterations, training_batch_size,

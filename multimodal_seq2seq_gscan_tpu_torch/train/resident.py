@@ -16,11 +16,14 @@ arithmetic: step s's dropout generator is re-seeded from (the state's key,
 s) before each replay (``CUDAGraph.register_generator_state``), Adam's bias
 corrections and step size come from a buffer the host fills
 (``Adam.scalars``), and the state lives in one flat buffer that each step
-rewrites with its update. A graph that fails to capture or replay raises;
-there is no eager fallback on the card. On the CPU a chunk runs the same
-steps eagerly.
+rewrites with its update. A multi-seed chunk (``train/multiseed.py``)
+captures every seed's K steps in one graph, one seed after another, each
+seed's state in its own row of that buffer. A graph that fails to capture
+or replay raises; there is no eager fallback on the card. On the CPU a
+chunk runs the same steps eagerly.
 """
 
+import gc
 import math
 import warnings
 from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple, Union
@@ -130,43 +133,94 @@ def _stacked(metrics: List[Dict[str, torch.Tensor]]
             for name in METRIC_NAMES}
 
 
-class _Graphs:
-    """The CUDA graphs of one ``make_train_chunk``: the state's flat buffer
-    (params, mu, nu), which every graph's steps read and rewrite, and one
-    graph per key (per-step widths, batch, the data's columns)."""
+# A seed's row of a flat state buffer is rounded up to a multiple of this
+# many floats (512 bytes), so that every seed's tensors lie at the
+# alignment of a single seed's and the libraries pick the same algorithms
+# for them.
+ROW_ALIGN = 128
+
+
+def state_row_floats(params) -> int:
+    """The floats of one row of a flat state buffer: the params, mu and nu
+    of a params tree of ``params``' layout, rounded up to ROW_ALIGN."""
+    n = 3 * sum(t.numel() for t in leaves(params))
+    return -(-n // ROW_ALIGN) * ROW_ALIGN
+
+
+def flatten_state(state: TrainState, row: torch.Tensor):
+    """Write the state's params, mu and nu, in that order, to the front of
+    ``row``."""
+    parts = [t.reshape(-1) for tree in (
+        state.params, state.opt_state.mu, state.opt_state.nu)
+        for t in leaves(tree)]
+    torch.cat(parts, out=row[:sum(p.numel() for p in parts)])
+
+
+def row_trees(row: torch.Tensor, template):
+    """(params, mu, nu) as views of a row that ``flatten_state`` wrote;
+    ``template`` (a params tree) gives the layout."""
+    shapes = [t.shape for t in leaves(template)]
+    views, offset = [], 0
+    for _ in range(3):
+        tree = []
+        for shape in shapes:
+            n = math.prod(shape)
+            tree.append(row[offset:offset + n].view(shape))
+            offset += n
+        views.append(tree_unflatten(template, tree))
+    return views
+
+
+def eager_chunk(state: TrainState, data: ResidentData, idx_block: np.ndarray,
+                segments, config: ModelConfig, optimizer: Adam,
+                weight_target_loss: float
+                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """A chunk's steps one ``train_step`` at a time (the CPU's chunk):
+    (state, metrics of ``[K]`` tensors)."""
+    widths = _step_widths(segments, idx_block.shape[0],
+                          data.target_ids.shape[1])
+    metrics = []
+    for row, width in zip(idx_block, widths):
+        state, step_metrics = train_step(
+            state, _narrowed(gather_batch(data, row), width), config,
+            optimizer, weight_target_loss)
+        metrics.append(step_metrics)
+    return state, _stacked(metrics)
+
+
+class ChunkGraphs:
+    """The CUDA graphs of one chunk maker: the state buffer ``flat``
+    (``[S, state_row_floats]``: seed s's params, mu and nu in row s), which
+    every graph's steps read and rewrite, and one graph per key (per-step
+    widths, batch, the data's columns). S is 1 for ``make_train_chunk`` and
+    the number of seeds for a multi-seed chunk (``train/multiseed.py``)."""
 
     def __init__(self, config: ModelConfig, optimizer: Adam,
                  weight_target_loss: float):
         self.config, self.optimizer = config, optimizer
         self.weight_target_loss = weight_target_loss
         self.flat: Optional[torch.Tensor] = None
-        self.template = None  # the first state's params: the trees' layout
+        self.template = None  # the first state's params: the rows' layout
         self.graphs: Dict[tuple, "_Graph"] = {}
         self.pool = None
 
-    def bind(self, state: TrainState):
-        """Copy the state's params and moments into the flat buffer."""
-        trees = (state.params, state.opt_state.mu, state.opt_state.nu)
-        parts = [t.reshape(-1) for tree in trees for t in leaves(tree)]
+    def bind(self, states: List[TrainState]):
+        """Copy each state's params and moments into its row."""
         if self.flat is None:
-            self.flat = torch.empty(sum(p.numel() for p in parts),
-                                    dtype=torch.float32,
-                                    device=parts[0].device)
-            self.template = state.params
-        torch.cat(parts, out=self.flat)
+            self.template = states[0].params
+            self.flat = torch.zeros(
+                (len(states), state_row_floats(self.template)),
+                dtype=torch.float32,
+                device=leaves(self.template)[0].device)
+        elif len(states) != self.flat.shape[0]:
+            raise ValueError("these graphs train {} seeds, not {}".format(
+                self.flat.shape[0], len(states)))
+        for row, state in zip(self.flat, states):
+            flatten_state(state, row)
 
-    def trees(self, flat: torch.Tensor):
-        """(params, mu, nu) as views of ``flat``."""
-        shapes = [t.shape for t in leaves(self.template)]
-        views, offset = [], 0
-        for _ in range(3):
-            tree = []
-            for shape in shapes:
-                n = math.prod(shape)
-                tree.append(flat[offset:offset + n].view(shape))
-                offset += n
-            views.append(tree_unflatten(self.template, tree))
-        return views
+    def trees(self, row: torch.Tensor):
+        """(params, mu, nu) as views of one row of ``flat``."""
+        return row_trees(row, self.template)
 
     def graph(self, widths: Tuple[int, ...], batch: int, data: ResidentData
               ) -> "_Graph":
@@ -176,66 +230,92 @@ class _Graphs:
             self.pool = self.graphs[key].graph.pool()
         return self.graphs[key]
 
+    def replay(self, states: List[TrainState], data: ResidentData,
+               idx_blocks: np.ndarray, segments=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Each state's K steps on its ``[K, B]`` block of ``idx_blocks``
+        (``[S, K, B]``), one replay for all: (a copy of ``flat`` after
+        them, the metrics ``[S, K, len(METRIC_NAMES)]``)."""
+        _, steps, batch = idx_blocks.shape
+        widths = _step_widths(segments, steps, data.target_ids.shape[1])
+        self.bind(states)
+        scalars = np.array([[self.optimizer.scalars(
+            s.opt_state.count + k, s.opt_state.schedule_count + k)
+            for k in range(steps)] for s in states], np.float32)
+        seeds = [[step_seed(s.rng, s.step + k) for k in range(steps)]
+                 for s in states]
+        graph = self.graph(widths, batch, data)
+        graph.idx.copy_(_pinned(idx_blocks.astype(np.int64)),
+                        non_blocking=True)
+        graph.scalars.copy_(_pinned(scalars), non_blocking=True)
+        graph.replay(seeds)
+        return self.flat.clone(), graph.metrics.clone()
+
 
 class _Graph:
-    """One captured graph of len(widths) training steps: step j gathers the
-    rows idx[j], narrows the targets to widths[j], draws its dropout from
-    generators[j], takes Adam's scalars from scalars[j], writes its metrics
-    to metrics[j] and its update into the shared flat buffer."""
+    """One captured graph of S x len(widths) training steps, the seeds one
+    after another: seed s's step j gathers the rows idx[s, j], narrows the
+    targets to widths[j], draws its dropout from generators[s][j], takes
+    Adam's scalars from scalars[s, j], writes its metrics to metrics[s, j]
+    and its update into row s of the shared buffer."""
 
-    def __init__(self, owner: _Graphs, widths: Tuple[int, ...], batch: int,
-                 data: ResidentData):
-        self.owner, self.widths, self.data = owner, widths, data
+    def __init__(self, owner: ChunkGraphs, widths: Tuple[int, ...],
+                 batch: int, data: ResidentData):
+        # No reference back to ``owner``: a cycle would leave a dead
+        # holder's graphs to the cyclic garbage collector, which may run
+        # during a later capture, and destroying a graph then invalidates
+        # that capture.
+        self.widths, self.data = widths, data
         device = owner.flat.device
-        steps = len(widths)
-        self.idx = torch.zeros((steps, batch), dtype=torch.long,
+        seeds, steps = owner.flat.shape[0], len(widths)
+        self.idx = torch.zeros((seeds, steps, batch), dtype=torch.long,
                                device=device)
-        self.scalars = torch.ones((steps, 3), dtype=torch.float32,
+        self.scalars = torch.ones((seeds, steps, 3), dtype=torch.float32,
                                   device=device)
-        self.metrics = torch.zeros((steps, len(METRIC_NAMES)),
+        self.metrics = torch.zeros((seeds, steps, len(METRIC_NAMES)),
                                    device=device)
-        self.generators = [torch.Generator(device=device)
-                           for _ in range(steps)]
+        self.generators = [[torch.Generator(device=device)
+                            for _ in range(steps)] for _ in range(seeds)]
         # Warm-up on a side stream (lazy initialisation, the kernels'
-        # build and attributes), into a copy of the state: the real state
-        # stays as it was.
-        spare = owner.flat.clone()
+        # build and attributes) of one seed's steps, into a copy of its
+        # row: the real state stays as it was.
+        spare = owner.flat[0].clone()
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            self._steps(spare, spare)
+            self._steps(owner, 0, spare, spare)
         torch.cuda.current_stream(device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        for generator in self.generators:
+        for generator in (g for row in self.generators for g in row):
             self.graph.register_generator_state(generator)
+        gc.collect()  # any dead graph elsewhere goes now, not mid-capture
         with torch.cuda.graph(self.graph, pool=owner.pool):
-            self._steps(owner.flat, owner.flat)
+            for s, row in enumerate(owner.flat):
+                self._steps(owner, s, row, row)
 
-    def _steps(self, source: torch.Tensor, target: torch.Tensor):
-        """The graph's steps, reading the state from ``source`` and writing
-        each update to ``target`` (the same buffer when captured)."""
-        owner = self.owner
+    def _steps(self, owner: ChunkGraphs, s: int, source: torch.Tensor,
+               target: torch.Tensor):
+        """Seed s's steps, reading its state from the row ``source`` and
+        writing each update to ``target`` (the same row when captured)."""
         for j, width in enumerate(self.widths):
             params, mu, nu = owner.trees(source)
             state = TrainState(step=0, params=params,
                                opt_state=AdamState(0, mu, nu, 0),
                                rng=np.zeros(2, np.uint32))
-            batch = _narrowed(gather_batch(self.data, self.idx[j]), width)
+            batch = _narrowed(gather_batch(self.data, self.idx[s, j]), width)
             new, metrics = train_step(
                 state, batch, owner.config, owner.optimizer,
-                owner.weight_target_loss, generator=self.generators[j],
-                adam_scalars=self.scalars[j])
-            parts = [t.reshape(-1) for tree in (
-                new.params, new.opt_state.mu, new.opt_state.nu)
-                for t in leaves(tree)]
-            torch.cat(parts, out=target)
-            self.metrics[j].copy_(torch.stack(
+                owner.weight_target_loss, generator=self.generators[s][j],
+                adam_scalars=self.scalars[s, j])
+            flatten_state(new, target)
+            self.metrics[s, j].copy_(torch.stack(
                 [metrics[name] for name in METRIC_NAMES]))
             source = target
 
-    def replay(self, seeds: List[int]):
-        for generator, seed in zip(self.generators, seeds):
-            generator.manual_seed(seed)
+    def replay(self, seeds: List[List[int]]):
+        for generators, row in zip(self.generators, seeds):
+            for generator, seed in zip(generators, row):
+                generator.manual_seed(seed)
         self.graph.replay()
 
 
@@ -258,41 +338,24 @@ def make_train_chunk(config: ModelConfig, optimizer: Adam,
     replay a CUDA graph (module docstring). The state passed in is not
     modified.
     """
-    graphs = _Graphs(config, optimizer, weight_target_loss)
+    graphs = ChunkGraphs(config, optimizer, weight_target_loss)
 
     def chunk(state: TrainState, data: ResidentData, idx_block,
               segments=None):
         idx_block = np.asarray(idx_block)
-        steps, batch = idx_block.shape
-        widths = _step_widths(segments, steps, data.target_ids.shape[1])
-        device = data.input_ids.device
-        if device.type != "cuda":
-            metrics = []
-            for row, width in zip(idx_block, widths):
-                state, step_metrics = train_step(
-                    state, _narrowed(gather_batch(data, row), width),
-                    config, optimizer, weight_target_loss)
-                metrics.append(step_metrics)
-            return state, _stacked(metrics)
-
-        graphs.bind(state)
-        count, schedule_count = (state.opt_state.count,
-                                 state.opt_state.schedule_count)
-        scalars = np.array([optimizer.scalars(count + k, schedule_count + k)
-                            for k in range(steps)], np.float32)
-        seeds = [step_seed(state.rng, state.step + k) for k in range(steps)]
-        graph = graphs.graph(widths, batch, data)
-        graph.idx.copy_(_pinned(idx_block.astype(np.int64)),
-                        non_blocking=True)
-        graph.scalars.copy_(_pinned(scalars), non_blocking=True)
-        graph.replay(seeds)
-        metrics = graph.metrics.T.clone()
-        params, mu, nu = graphs.trees(graphs.flat.clone())
+        if data.input_ids.device.type != "cuda":
+            return eager_chunk(state, data, idx_block, segments, config,
+                               optimizer, weight_target_loss)
+        flat, metrics = graphs.replay([state], data, idx_block[None],
+                                      segments)
+        steps, opt = idx_block.shape[0], state.opt_state
+        params, mu, nu = graphs.trees(flat[0])
         new_state = TrainState(
             step=state.step + steps, params=params,
-            opt_state=AdamState(count + steps, mu, nu, schedule_count + steps),
+            opt_state=AdamState(opt.count + steps, mu, nu,
+                                opt.schedule_count + steps),
             rng=state.rng)
-        return new_state, dict(zip(METRIC_NAMES, metrics))
+        return new_state, dict(zip(METRIC_NAMES, metrics[0].T))
 
     return chunk
 

@@ -25,7 +25,8 @@ from multimodal_seq2seq_gscan_tpu_torch.models.model import (
 from multimodal_seq2seq_gscan_tpu_torch.models.params import (
     ModelParams, leaves, tree_unflatten)
 from multimodal_seq2seq_gscan_tpu_torch.train.state import Adam, TrainState
-from multimodal_seq2seq_gscan_tpu_torch.utils.precision import full_float32
+from multimodal_seq2seq_gscan_tpu_torch.utils.precision import (
+    deterministic_convolutions, full_float32)
 
 
 def step_seed(rng: np.ndarray, step: int) -> int:
@@ -58,12 +59,15 @@ def loss_fn(params: ModelParams, config: ModelConfig, batch: Batch,
 
 
 @full_float32()
+@deterministic_convolutions()
 def loss_and_grads(state: TrainState, batch: Batch, config: ModelConfig,
                    weight_target_loss: float = 0.3,
                    generator: Optional[torch.Generator] = None):
     """The step's loss, its (log_probs, aux_scores) and the gradients of
     every parameter, as a ModelParams tree; dropout from ``generator``, by
-    default the step's (``step_generator``)."""
+    default the step's (``step_generator``). cuDNN runs its deterministic
+    algorithms here (``utils/precision.py``): the same state and batch
+    give the same bits."""
     if generator is None:
         generator = step_generator(state, batch.target_ids.device)
     params = tree_unflatten(state.params, [

@@ -35,10 +35,11 @@ same way.
   fixture's checkpoint and the block decode of the fixture's 4096 dev
   examples, as ``chip_smoke.py`` does, and prints the decode's profile
   (``chip_smoke.profile_decode``: device busy share, kernel 2's and the
-  encoder's device time); and the streamed ``train()``
-  (``steps_per_execution=1``) from the same checkpoint at batch 200, by the
-  wall clock between its loss reports (batching, any prefetch, the step and
-  the report included).
+  encoder's device time); the resident trainer's graphed chunk of
+  ``RESIDENT_K`` steps from the same checkpoint at batch 200, a step; and
+  the streamed ``train()`` (``steps_per_execution=1``) from the same
+  checkpoint at batch 200, by the wall clock between its loss reports
+  (batching, any prefetch, the step and the report included).
 
 Prints one JSON line, with the card's name and power limit. Compare two
 checkouts in one call, one process each, in turns: parent, change, change,
@@ -256,12 +257,14 @@ def fixture_block_times(cs, fix, repeats):
 
 def end_to_end_times(cs, fix, repeats):
     """Milliseconds of one fused training step (batch 200, from the
-    fixture's checkpoint) and of the block decode of 4096 dev examples, and
-    the decode's profile (printed)."""
+    fixture's checkpoint), of a step of the resident trainer's graphed
+    chunk, and of the block decode of 4096 dev examples, and the decode's
+    profile (printed)."""
     import numpy as np
     import torch
     from multimodal_seq2seq_gscan_tpu_torch.decode import greedy
     from multimodal_seq2seq_gscan_tpu_torch.models import model
+    from multimodal_seq2seq_gscan_tpu_torch.train import resident
     from multimodal_seq2seq_gscan_tpu_torch.train.loop import epoch_stream
     from multimodal_seq2seq_gscan_tpu_torch.train.state import Adam
     from multimodal_seq2seq_gscan_tpu_torch.train.step import train_step
@@ -272,6 +275,13 @@ def end_to_end_times(cs, fix, repeats):
     optimizer = Adam()
     step_ms = cs.cuda_ms(lambda: train_step(state, batch, config, optimizer),
                          repeats, warmup=2)
+    data = resident.build_resident_data(train_set, device)
+    block = next(resident.index_block_stream(
+        data.num_examples, cs.TRAIN_BATCH, cs.RESIDENT_K,
+        np.random.default_rng(cs.SEED)))
+    chunk = resident.make_train_chunk(config, optimizer)
+    chunk_ms = cs.cuda_ms(lambda: chunk(state, data, block),
+                          max(1, repeats // 2), warmup=1) / cs.RESIDENT_K
     decode = greedy.make_greedy_decoder(config, cs.MAX_DECODING_STEPS,
                                         cs.EXIT_CHECK_EVERY,
                                         decode_impl="block")
@@ -290,7 +300,8 @@ def end_to_end_times(cs, fix, repeats):
         cs.profile_decode(lambda: decode(state.params, *inputs), encode,
                           torch.cuda.synchronize)
     return dict(train_step_ms=step_ms, train_step_t=batch.target_ids.shape[1],
-                decode_ms=decode_ms, streamed_train_ms=streamed_train_ms(cs))
+                resident_chunk_step_ms=chunk_ms, decode_ms=decode_ms,
+                streamed_train_ms=streamed_train_ms(cs))
 
 
 def streamed_train_ms(cs, steps=60, every=10):

@@ -14,6 +14,9 @@
   ``load_reference_checkpoint`` gives, leaf for leaf.
 - The prefetcher yields the source's batches in order, re-raises the
   source's exception, and an early close stops its producer.
+- C.10: ``train`` scores the first ``max_testing_examples`` of a seeded
+  permutation of the whole dev split, and with ``None`` all of it, at
+  JAX's exact match.
 """
 
 import json
@@ -270,3 +273,63 @@ def test_prefetch_keeps_order_reraises_and_stops_on_close():
     assert [item[1] for item in prefetch_to_device(
         iter([(Batch(*(torch.zeros(1) for _ in Batch._fields)), i)
               for i in range(7)]), device="cpu")] == list(range(7))
+
+
+def test_dev_subset_is_a_seeded_permutation(native, adverb_copy, tmp_path,
+                                            monkeypatch):
+    """C.10: ``train`` reads the whole dev split and scores the first
+    ``max_testing_examples`` of ``default_rng(seed).permutation`` (JAX
+    scores the first of an unseeded shuffle); with ``None`` it scores all of
+    dev, and the exact match equals JAX's ``evaluate`` of the checkpoint it
+    wrote, on the dev split in file order."""
+    from multimodal_seq2seq_gscan_tpu.decode.predict import (
+        evaluate as jax_evaluate)
+    from multimodal_seq2seq_gscan_tpu_torch.decode import predict
+    from multimodal_seq2seq_gscan_tpu_torch.train.checkpoint import (
+        read_checkpoint)
+    from multimodal_seq2seq_gscan_tpu_torch.train.loop import train
+    path, directory = adverb_copy
+    records, scored = predict._records, []
+
+    def spy(*args, **kwargs):
+        for record in records(*args, **kwargs):
+            scored.append(record["example_idx"])
+            yield record
+
+    monkeypatch.setattr(predict, "_records", spy)
+
+    def evaluated(out, max_testing_examples):
+        """One streamed step from the fixture's checkpoint (step 200000),
+        then its evaluation: (exact match, the examples scored)."""
+        events, scored[:] = [], []
+        train(path, directory, output_directory=str(tmp_path / out),
+              resume_from_file=os.path.join(FIXTURE, "model_best.msgpack"),
+              max_training_iterations=200000, print_every=1000,
+              evaluate_every=1000, steps_per_execution=1,
+              training_batch_size=8, max_testing_examples=max_testing_examples,
+              evaluation_batch_size=16, seed=5, device="cpu",
+              callback=lambda *event: events.append(event))
+        assert [e[:2] for e in events] == [("train", 200000),
+                                           ("eval", 200000)]
+        return events[1][2]["exact_match"], list(scored)
+
+    order = np.random.default_rng(5).permutation(32).tolist()
+    _, subset = evaluated("subset", 12)
+    assert subset == order[:12]
+    exact_match, every = evaluated("all", None)
+    assert every == order
+    dev = JaxDataset(path, directory, k=0, split="dev",
+                     input_vocabulary_file=VOCABS[0],
+                     target_vocabulary_file=VOCABS[1], backend="native")
+    dev.read_dataset()
+    config = JaxConfig(input_vocabulary_size=dev.input_vocabulary_size,
+                       target_vocabulary_size=dev.target_vocabulary_size,
+                       num_cnn_channels=dev.image_channels)
+    template = jax.eval_shape(lambda key: init_model_params(key, config),
+                              jax.random.PRNGKey(0))
+    params = flax.serialization.from_state_dict(template, read_checkpoint(
+        str(tmp_path / "all" / "checkpoint.msgpack"))["params"])
+    _, ref_exact_match, _ = jax_evaluate(dev, params, config,
+                                         max_decoding_steps=120,
+                                         batch_size=16)
+    assert exact_match == ref_exact_match > 50.0

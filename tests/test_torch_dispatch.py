@@ -12,9 +12,11 @@
   ``"xla"`` train step at the same bars, dropout off; with dropout on, the
   inter-layer masks keep 1 - p of the values at scale 1 / (1 - p) and are
   drawn from the step's generator.
-- ``train`` refuses, by name, each keyword that the port does not honour,
-  and honours those it took since (the resident trainer's layouts,
-  ``profile_dir``, ``prefetch_depth``, ``k``, ``generate_vocabularies``).
+- ``train`` refuses, by name, each keyword that the port does not honour
+  (and ``seeds`` with a mesh, as JAX does), and honours those it took
+  since (the resident trainer's layouts, ``profile_dir``,
+  ``prefetch_depth``, ``k`` under either dataset backend,
+  ``generate_vocabularies``).
 """
 
 import functools
@@ -283,14 +285,17 @@ def test_two_layer_decoder_decodes_as_jax_and_refuses_teacher_forcing():
 @pytest.mark.parametrize("keyword,value,error,match", [
     ("simple_situation_representation", False, NotImplementedError,
      "RGB"),
-    ("seeds", "1,2", NotImplementedError, "A10"),
+    ("seeds", "1,2", NotImplementedError, "single-chip"),
     ("mesh", object(), NotImplementedError, "A11"),
     ("no_such_flag", 1, TypeError, "no_such_flag")])
 def test_train_refuses_keywords_it_does_not_honour(tmp_path, keyword, value,
                                                    error, match):
+    """A campaign (``seeds``) is honoured since ROADMAP A10; with a mesh it
+    is refused, as JAX refuses it."""
+    extra = {"mesh": object()} if keyword == "seeds" else {}
     with pytest.raises(error, match=match):
         train(DATASET, FIXTURE, output_directory=str(tmp_path),
-              device="cpu", **{keyword: value})
+              device="cpu", **{keyword: value}, **extra)
 
 
 @pytest.mark.parametrize("keyword,value", [
@@ -313,7 +318,10 @@ def test_train_honours_keywords_it_once_refused(tmp_path, monkeypatch,
     streams, depths, moves = [], [], []
     stratified = loop.stratified_index_block_stream
     prefetch = loop.prefetch_to_device
-    move = data_mod.ParsedDataset.move_k_examples_to_train_and_dev
+    moved_classes = (data_mod.ParsedDataset,
+                     data_mod.native_loader.NativeDataset)
+    move = {cls: cls.move_k_examples_to_train_and_dev
+            for cls in moved_classes}
 
     def spy(*args, **kwargs):
         streams.append(kwargs)
@@ -325,12 +333,13 @@ def test_train_honours_keywords_it_once_refused(tmp_path, monkeypatch,
 
     def move_spy(self, k, rng, split="adverb_1"):
         moves.append((k, rng.random()))
-        return move(self, k, rng, split)
+        return move[type(self)](self, k, rng, split)
 
     monkeypatch.setattr(loop, "stratified_index_block_stream", spy)
     monkeypatch.setattr(loop, "prefetch_to_device", prefetch_spy)
-    monkeypatch.setattr(data_mod.ParsedDataset,
-                        "move_k_examples_to_train_and_dev", move_spy)
+    for cls in moved_classes:  # whichever backend parses
+        monkeypatch.setattr(cls, "move_k_examples_to_train_and_dev",
+                            move_spy)
     options = {keyword: value, "steps_per_execution": 4}
     data_path, data_directory = DATASET, FIXTURE
     if keyword == "profile_dir":

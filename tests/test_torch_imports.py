@@ -2,7 +2,8 @@
 flax, optax, msgpack or the JAX package (the card's machine has none of
 them). Checked twice: statically, by scanning every import statement, and
 dynamically, by importing every module in a fresh interpreter where those
-names raise ImportError."""
+names raise ImportError. Its C++ scanner names no file of the JAX package
+nor its ``native/`` directory: the port builds its own copy."""
 
 import ast
 import json
@@ -73,7 +74,7 @@ print(json.dumps({"imported": len(names) + 1, "leaked": leaked,
 REQUIRED = ("decode.predict", "train.resident", "utils.profiling",
             "train.loop", "ops.decode_block", "ops.teacher_forced",
             "cli.seq2seq", "data.prefetch", "models.torch_import",
-            "utils.logging")
+            "utils.logging", "train.multiseed", "data.native_loader")
 
 
 def test_every_module_imports_with_blocked_packages():
@@ -86,3 +87,23 @@ def test_every_module_imports_with_blocked_packages():
     assert report["imported"] > 15
     for name in REQUIRED:
         assert "{}.{}".format(PACKAGE, name) in report["names"], name
+
+
+def test_native_sources_are_the_ports_own():
+    """The port's C++ sources name no path of the JAX package or of
+    ``native/``, and the loader builds the port's copy. (The CUDA sources
+    cite the Pallas kernels they replace.)"""
+    from multimodal_seq2seq_gscan_tpu_torch.data import native_loader
+    sources = [os.path.join(directory, n) for directory, _, names in
+               os.walk(os.path.join(ROOT, PACKAGE)) for n in names
+               if n.endswith(".cc")]
+    assert [os.path.basename(path) for path in sources] == [
+        "gscan_loader.cc"]
+    assert str(native_loader.SOURCE) == os.path.join(
+        os.path.realpath(ROOT), PACKAGE, "native", "gscan_loader.cc")
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        for name in ("multimodal_seq2seq_gscan_tpu/", "native/gscan_loader",
+                     "scripts/build_native", "data/_native"):
+            assert name not in text, (os.path.relpath(path, ROOT), name)

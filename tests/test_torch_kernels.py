@@ -26,7 +26,8 @@ H = 1024. Kernel 1's gradients (its backward is the plain
 takes H past 448 (its plans without a ring, up to H = 1024 here), and the
 resident trainer's CUDA graph of the training step gives the eager steps'
 state and metrics, also for a decoder of two layers (the step unroll, its
-attentions kernel 1). Kernel 1's bf16 form (bf16 keys; float32 or bf16
+attentions kernel 1); the multi-seed chunk's one graph gives each seed's
+single-seed graphed chunk bit for bit. Kernel 1's bf16 form (bf16 keys; float32 or bf16
 queries, energy vector and mask) equals its plain version on the same bf16
 inputs at the float32 form's bars, and is no further from float64 than
 twice the plain version.
@@ -847,3 +848,56 @@ def test_two_layer_graph_equals_eager_steps(cuda):
             lambda s, t=tree: getattr(s.opt_state, t))
         for a, b in zip(leaves(get(graphed)), leaves(get(eager))):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-6, msg=tree)
+
+
+@pytest.mark.cuda
+def test_multiseed_graph_equals_single_seed_graphs(cuda):
+    """The multi-seed chunk's one CUDA graph (two seeds' K = 4 steps in
+    turn, dropout on) against each seed's single-seed graphed chunk: params,
+    moments and metrics bit for bit (the training step takes cuDNN's
+    deterministic algorithms); and a dropped chunk maker's graphs are freed
+    by reference counting, not left to the cycle collector (which could
+    destroy them during another capture and invalidate it)."""
+    import gc
+    import weakref
+    from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
+    from multimodal_seq2seq_gscan_tpu_torch.train import multiseed, resident
+    from multimodal_seq2seq_gscan_tpu_torch.train.state import (
+        Adam, create_train_state)
+    config = ModelConfig(input_vocabulary_size=12, target_vocabulary_size=8,
+                         num_cnn_channels=6, embedding_dimension=10,
+                         encoder_hidden_size=12, decoder_hidden_size=12,
+                         cnn_kernel_size=3, cnn_hidden_num_channels=6)
+    optimizer = Adam()
+    data = resident_toy(cuda)
+    states = [create_train_state(s, config, optimizer, device=cuda)
+              for s in (7, 8)]
+    blocks = np.stack([next(resident.index_block_stream(
+        data.num_examples, 8, 4, np.random.default_rng(s))) for s in (7, 8)])
+    stacked, metrics = multiseed.make_multiseed_train_chunk(
+        config, optimizer)(multiseed.stack_train_states(states), data,
+                           blocks)
+    for i, (state, block) in enumerate(zip(states, blocks)):
+        single, single_metrics = resident.make_train_chunk(
+            config, optimizer)(state, data, block)
+        got = multiseed.slice_train_state(stacked, i)
+        for name in resident.METRIC_NAMES:
+            assert torch.equal(metrics[name][i], single_metrics[name]), name
+        for tree in ("params", "mu", "nu"):
+            get = (lambda s: s.params) if tree == "params" else (
+                lambda s, t=tree: getattr(s.opt_state, t))
+            assert leaves_equal(get(got), get(single)), tree
+    graphs = resident.ChunkGraphs(config, optimizer, 0.3)
+    graphs.replay([states[0]], data, blocks[:1])
+    ref = weakref.ref(graphs)
+    gc.disable()
+    try:
+        del graphs
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
+def leaves_equal(a, b):
+    from multimodal_seq2seq_gscan_tpu_torch.models.params import leaves
+    return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
