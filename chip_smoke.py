@@ -52,8 +52,17 @@ against the seeds' single-seed graphs replayed in turn. The port's C++
 dataset scanner is built from the checkout, loads the fixture as the json
 path does (arrays, strings, vocabularies), is what ``"auto"`` takes, and
 its ``--mode=test`` writes the json path's ``dev_predict.json`` byte for
-byte. The helper's library call is timed at the wide shapes too.
-Then it times each kernel and its plain version with CUDA
+byte. The helper's library call is timed at the wide shapes too. Data
+parallelism (``parallel/``) runs twice: in process, a one-rank NCCL
+group trains a graphed resident chunk of 10 steps whose graph holds the
+step's all-reduces, bit for bit the unsharded chunk, and decodes the 4096
+examples (kernel 2) bit for bit as the decode phase; then two ranks share
+the card over gloo (``parallel/launch.py``; NCCL refuses two ranks on one
+device): 20 streamed training steps held to the train phase's run, the
+decode of the 4096 (2048 a rank) held to its tokens, and a predict.json of
+512 examples held to the single process's (byte for byte at the ranks'
+batch of 256); the dry run's ``entry()`` computes its loss on the card,
+held to its CPU loss. Then it times each kernel and its plain version with CUDA
 events (kernel 2 on both of the fixture's blocks, each beside its own bound),
 the full decode and the train step, and profiles one decode and three train
 steps with torch.profiler (device busy share; for the decode, kernel 2's and
@@ -129,6 +138,8 @@ TWO_LAYER_K = 4
 MULTISEED_SEEDS = (66, 49, 50)
 MULTISEED_K = 10
 MULTISEED_STEPS = 20
+# Data parallelism: the examples of the two-rank predict.json.
+DP_PREDICT_EXAMPLES = 512
 
 # NVIDIA H100 SXM data sheet, full 700 W power limit: float32 outside the
 # tensor cores, and HBM3 bandwidth. A bound is the larger of operations over
@@ -1717,6 +1728,375 @@ def native_loader_checks(dataset, params, config, sync):
             "dev_predict.json differs between the backends")
 
 
+def data_parallel_one_rank(train_set, train_config, params, config, inputs,
+                           decoded, sync):
+    """Phase (a) of "main path: data parallel", in this process: a one-rank
+    NCCL group (a file store). A resident chunk of RESIDENT_K graphed
+    steps at batch TRAIN_BATCH from the fixture checkpoint, its CUDA graph
+    holding the sharded step's all-reduces, against the unsharded graphed
+    chunk: params, moments and metrics bit for bit. Then the sharded
+    decode of the BATCH dev examples through kernel 2: the decode phase's
+    tokens, bit for bit. Prints each part's wall time beside the
+    unsharded one's; returns the unsharded decode's (ms)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from multimodal_seq2seq_gscan_tpu_torch.decode import greedy
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    from multimodal_seq2seq_gscan_tpu_torch.parallel.mesh import (
+        make_mesh, shard_batch)
+    from multimodal_seq2seq_gscan_tpu_torch.train import resident
+    from multimodal_seq2seq_gscan_tpu_torch.train.checkpoint import (
+        load_checkpoint)
+    from multimodal_seq2seq_gscan_tpu_torch.train.state import Adam
+    store = tempfile.mkdtemp(prefix="gscan_chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        store, "store"), world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        require(mesh.backend == "nccl" and mesh.shape == (1, 1),
+                "mesh {} over {}".format(mesh.shape, mesh.backend))
+        optimizer = Adam()
+        start, _ = load_checkpoint(str(FIXTURE / "model_best.msgpack"),
+                                   device=DEVICE)
+        data = resident.build_resident_data(train_set, DEVICE)
+        block = next(resident.index_block_stream(
+            data.num_examples, TRAIN_BATCH, RESIDENT_K,
+            np.random.default_rng(SEED)))
+        chunks = {"sharded": resident.make_train_chunk(
+            train_config, optimizer, mesh=mesh),
+            "unsharded": resident.make_train_chunk(train_config, optimizer)}
+        results, first_s, launches = {}, {}, {}
+        for name, chunk in chunks.items():
+            tf.launches.update({k: 0 for k in tf.launches})
+            begin = time.perf_counter()
+            results[name] = chunk(start, data, block)
+            sync()
+            first_s[name] = time.perf_counter() - begin
+            launches[name] = dict(tf.launches)
+        (a, a_metrics), (b, b_metrics) = results["sharded"], \
+            results["unsharded"]
+        same = (all(torch.equal(a_metrics[k], b_metrics[k])
+                    for k in resident.METRIC_NAMES)
+                and leaves_equal(a.params, b.params)
+                and leaves_equal(a.opt_state.mu, b.opt_state.mu)
+                and leaves_equal(a.opt_state.nu, b.opt_state.nu))
+        replay_ms = {name: cuda_ms(lambda chunk=chunk: chunk(start, data,
+                                                             block),
+                                   3, warmup=1) / RESIDENT_K
+                     for name, chunk in chunks.items()}
+        print("one-rank NCCL mesh, resident chunk (K={}, B={}): params, "
+              "moments and metrics against the unsharded chunk: {}; "
+              "losses {}".format(
+                  RESIDENT_K, TRAIN_BATCH,
+                  "bit for bit" if same else "DIFFER",
+                  ["{:.6f}".format(float(x)) for x in a_metrics["loss"]]))
+        print("one-rank NCCL mesh, resident chunk: first call (warm-up and "
+              "capture) {:.3f} s against the unsharded {:.3f} s; replay "
+              "{:.3f} ms a step against {:.3f} ms; launches while "
+              "captured: {} (unsharded {})".format(
+                  first_s["sharded"], first_s["unsharded"],
+                  replay_ms["sharded"], replay_ms["unsharded"],
+                  launches["sharded"], launches["unsharded"]))
+        require(same, "the one-rank NCCL chunk differs from the unsharded "
+                "chunk")
+        require(all(count > 0 for count in launches["sharded"].values()),
+                "a teacher-forced kernel was not launched in the sharded "
+                "chunk")
+        decode = greedy.make_greedy_decoder(
+            config, MAX_DECODING_STEPS, EXIT_CHECK_EVERY,
+            decode_impl="block", mesh=mesh)
+        unsharded = greedy.make_greedy_decoder(
+            config, MAX_DECODING_STEPS, EXIT_CHECK_EVERY,
+            decode_impl="block")
+        k2.launches = 0
+        out = decode(params, *shard_batch(mesh, inputs))
+        sync()
+        launches_decode = k2.launches
+        times = {}
+        for name, fn in (("sharded", decode), ("unsharded", unsharded)):
+            begin = time.perf_counter()
+            fn(params, *inputs)
+            sync()
+            times[name] = (time.perf_counter() - begin) * 1e3
+        same = all(torch.equal(getattr(out, k), getattr(decoded, k))
+                   for k in ("tokens", "emitted_mask", "lengths",
+                             "attention_commands", "attention_situations"))
+        print("one-rank NCCL mesh, decode of {} (kernel 2, {} launches): "
+              "every output against the decode phase's: {}; {:.3f} ms "
+              "against the unsharded {:.3f} ms (wall clock)".format(
+                  BATCH, launches_decode,
+                  "bit for bit" if same else "DIFFER", times["sharded"],
+                  times["unsharded"]))
+        require(launches_decode > 0, "the sharded decode did not launch "
+                "kernel 2")
+        require(same, "the one-rank sharded decode differs from the decode "
+                "phase's")
+        return times["unsharded"]
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _data_parallel_rank(mesh, last, out_dir):
+    """One rank's part of phase (b) (``parallel/launch.py``, two ranks on
+    the card over gloo): the streamed ``train()`` from the fixture
+    checkpoint to step ``last``; the sharded decode of the BATCH dev
+    examples (kernel 2); ``predict_and_save`` of DP_PREDICT_EXAMPLES
+    into ``out_dir``. Returns what rank 0 saw (every rank's param
+    sums, gathered), the launch counts and the wall times."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.data.dataset import (
+        GroundedScanDataset)
+    from multimodal_seq2seq_gscan_tpu_torch.decode import greedy
+    from multimodal_seq2seq_gscan_tpu_torch.decode.predict import (
+        predict_and_save)
+    from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
+    from multimodal_seq2seq_gscan_tpu_torch.models.params import leaves
+    from multimodal_seq2seq_gscan_tpu_torch.ops import additive_attention \
+        as k1
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    from multimodal_seq2seq_gscan_tpu_torch.parallel.mesh import (
+        gather_rows, shard_batch)
+    from multimodal_seq2seq_gscan_tpu_torch.train.checkpoint import (
+        load_params)
+    from multimodal_seq2seq_gscan_tpu_torch.train.loop import train
+    seen, times = {"events": []}, {}
+    k1.launches, k2.launches = 0, 0
+    tf.launches.update({name: 0 for name in tf.launches})
+    begin = time.perf_counter()
+    state, _ = train(
+        str(FIXTURE / "dataset.txt"), str(FIXTURE),
+        training_batch_size=TRAIN_BATCH,
+        resume_from_file=str(FIXTURE / "model_best.msgpack"),
+        max_training_iterations=last, print_every=PRINT_EVERY,
+        evaluate_every=last, output_directory=os.path.join(out_dir, "train"),
+        max_testing_examples=STEP_EXAMPLES, seed=SEED, steps_per_execution=1,
+        device=mesh.device, mesh=mesh,
+        callback=lambda *event: seen["events"].append(event))
+    torch.cuda.synchronize()
+    times["train"] = time.perf_counter() - begin
+    seen["launches_train"] = dict(tf.launches, decode_block=k2.launches,
+                                  additive_attention=k1.launches)
+    seen["step"] = state.step
+    seen["params"] = [t.cpu() for t in leaves(state.params)]
+    seen["param_sums"] = gather_rows(mesh, torch.stack(
+        [t.double().sum() for t in leaves(state.params)])[None]).cpu()
+
+    dataset = GroundedScanDataset(str(FIXTURE / "dataset.txt"), str(FIXTURE),
+                                  split="dev")
+    dataset.read_dataset(max_examples=BATCH)
+    config = ModelConfig(
+        input_vocabulary_size=dataset.input_vocabulary_size,
+        target_vocabulary_size=dataset.target_vocabulary_size,
+        num_cnn_channels=dataset.image_channels)
+    params = load_params(str(FIXTURE / "model_best.msgpack"),
+                         device=mesh.device)
+    batch = next(dataset.get_data_iterator(
+        batch_size=BATCH, pad_to_full_batch=True,
+        with_representations=False))[0]
+    rows = shard_batch(mesh, (batch.input_ids, batch.input_lengths,
+                              batch.situations, batch.target_positions))
+    rows = [t.to(mesh.device) for t in rows]
+    decode = greedy.make_greedy_decoder(config, MAX_DECODING_STEPS,
+                                        EXIT_CHECK_EVERY, decode_impl="block",
+                                        mesh=mesh)
+    decode(params, *rows)
+    torch.cuda.synchronize()
+    k2.launches = 0
+    begin = time.perf_counter()
+    out = decode(params, *rows)
+    torch.cuda.synchronize()
+    times["decode"] = time.perf_counter() - begin
+    seen["launches_decode"] = k2.launches
+    seen["decode"] = {name: getattr(out, name).cpu() for name in (
+        "tokens", "emitted_mask", "lengths")}
+
+    small = GroundedScanDataset(str(FIXTURE / "dataset.txt"), str(FIXTURE),
+                                split="dev")
+    small.read_dataset(max_examples=DP_PREDICT_EXAMPLES)
+    begin = time.perf_counter()
+    predict_and_save(small, params, config,
+                     os.path.join(out_dir, "predict.json"),
+                     MAX_DECODING_STEPS, batch_size=DP_PREDICT_EXAMPLES,
+                     mesh=mesh)
+    times["predict"] = time.perf_counter() - begin
+    seen["times"] = times
+    return seen
+
+
+def dryrun_entry_check():
+    """``parallel/dryrun.py``'s ``entry()`` puts its params and batch on the
+    card by default; its loss there is held to the same call's on the CPU
+    (rtol 1e-5, the tests' bar against JAX's loss)."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.parallel import dryrun
+    fn, (params, batch) = dryrun.entry()
+    require(params.encoder.embedding.is_cuda and batch.input_ids.is_cuda,
+            "entry() did not put its arguments on the card")
+    got = float(fn(params, batch))
+    cpu_fn, (cpu_params, cpu_batch) = dryrun.entry(device="cpu")
+    want = float(cpu_fn(cpu_params, cpu_batch))
+    print("dryrun.entry() on the card: loss {:.7f}, on the CPU {:.7f}"
+          .format(got, want))
+    require(math.isfinite(got) and abs(got - want) <= 1e-5 * abs(want),
+            "entry()'s loss on the card differs from the CPU's")
+
+
+def data_parallel_two_ranks(params, config, decoded, plain_out, single,
+                            single_decode_ms):
+    """Phase (b) of "main path: data parallel": two ranks sharing the card
+    over gloo (NCCL refuses two ranks on one device), started by
+    ``parallel/launch.py``. Held to the single process: the streamed
+    ``train()`` of TRAIN_STEPS steps at batch TRAIN_BATCH (TRAIN_BATCH / 2
+    rows a rank; kernels 3, 4 and the helper), its logged losses atol
+    1e-5 and params rtol 3e-4 / atol 3e-5 (kernel 4's end-to-end bars)
+    against the train phase's run, both ranks' params bit for bit alike;
+    the sharded decode of the BATCH dev examples (BATCH / 2 a rank,
+    kernel 2): the decode phase's tokens under the near-tie rule; and
+    ``predict_and_save`` of DP_PREDICT_EXAMPLES examples: the single
+    process's predict.json at the ranks' batch byte for byte, and at the
+    whole batch every field but the attention weights equal, those at
+    rtol 1e-5 / atol 1e-6. ``single``: the train phase's
+    (state, train events, wall seconds); ``single_decode_ms``: the
+    unsharded decode's wall time."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.data.dataset import (
+        GroundedScanDataset)
+    from multimodal_seq2seq_gscan_tpu_torch.decode.greedy import (
+        GreedyDecodeOutput)
+    from multimodal_seq2seq_gscan_tpu_torch.decode.predict import (
+        predict_and_save)
+    from multimodal_seq2seq_gscan_tpu_torch.models.params import leaves
+    from multimodal_seq2seq_gscan_tpu_torch.parallel.launch import launch
+    single_state, single_events, single_train_s = single
+    last = single_state.step - 1
+    out_dir = tempfile.mkdtemp(prefix="gscan_chip_smoke_ranks_")
+    try:
+        begin = time.perf_counter()
+        seen = launch(_data_parallel_rank, 2, last, out_dir, device=DEVICE,
+                      share_device=True)
+        launch_s = time.perf_counter() - begin
+        with open(os.path.join(out_dir, "predict.json"), "rb") as f:
+            sharded_json = f.read()
+        small = GroundedScanDataset(str(FIXTURE / "dataset.txt"),
+                                    str(FIXTURE), split="dev")
+        small.read_dataset(max_examples=DP_PREDICT_EXAMPLES)
+        single_json, single_predict_s = {}, {}
+        for batch in (DP_PREDICT_EXAMPLES, DP_PREDICT_EXAMPLES // 2):
+            path = os.path.join(out_dir, "single_{}.json".format(batch))
+            begin = time.perf_counter()
+            predict_and_save(small, params, config, path, MAX_DECODING_STEPS,
+                             batch_size=batch, device=DEVICE)
+            single_predict_s[batch] = time.perf_counter() - begin
+            with open(path, "rb") as f:
+                single_json[batch] = f.read()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    times = seen["times"]
+    print("two ranks on the card over gloo: launch {:.2f} s in all".format(
+        launch_s))
+    print("launches on rank 0: training {}; decode {} (kernel 2)".format(
+        seen["launches_train"], seen["launches_decode"]))
+    require(all(seen["launches_train"][name] > 0 for name in (
+                "teacher_forced_forward", "teacher_forced_backward",
+                "teacher_forced_weight_grads", "decode_block"))
+            and seen["launches_decode"] > 0,
+            "a kernel of the data-parallel path was not launched")
+
+    # Training.
+    losses = [v["loss"] for kind, _, v in seen["events"] if kind == "train"]
+    want = [v["loss"] for kind, _, v in single_events if kind == "train"]
+    loss_err = max(abs(x - y) for x, y in zip(losses, want))
+    param_err = max(check_close_quiet(got.to(DEVICE), ref, 3e-4, 3e-5,
+                                      "two-rank train params")
+                    for got, ref in zip(seen["params"],
+                                        leaves(single_state.params)))
+    sums = seen["param_sums"]
+    print("two-rank train() of {} steps: logged losses {} against {} (max "
+          "|err| {:.3e}, atol 1e-5); params max |err| {:.3e} (rtol 3e-4, "
+          "atol 3e-5); the ranks' params {}; evaluations {}".format(
+              len(want) * PRINT_EVERY, ["{:.6f}".format(x) for x in losses],
+              ["{:.6f}".format(x) for x in want], loss_err, param_err,
+              "alike" if torch.equal(sums[0], sums[1]) else "DIFFER",
+              [v for kind, _, v in seen["events"] if kind == "eval"]))
+    require(len(losses) == len(want) and loss_err <= 1e-5,
+            "two-rank training losses differ")
+    require(seen["step"] == single_state.step, "two-rank step {}".format(
+        seen["step"]))
+    require(torch.equal(sums[0], sums[1]), "the ranks' params differ")
+
+    # Decode.
+    out = GreedyDecodeOutput(
+        tokens=seen["decode"]["tokens"].to(DEVICE),
+        emitted_mask=seen["decode"]["emitted_mask"].to(DEVICE),
+        lengths=seen["decode"]["lengths"].to(DEVICE),
+        attention_commands=None, attention_situations=None,
+        position_accuracy=None)
+    same = torch.equal(out.tokens, decoded.tokens)
+    ties = check_divergences(
+        "two-rank decode of {} vs plain".format(BATCH),
+        decode_divergences(out, plain_out, BATCH))
+    print("two-rank decode: tokens {} the decode phase's ({} near-ties)"
+          .format("equal to" if same else "differ from", ties))
+
+    # predict.json: byte for byte the single process's at the ranks'
+    # batch (the shapes each rank decodes); at the whole batch, the card's
+    # products take other algorithms (cuBLAS and cuDNN pick them by the
+    # batch, kernel 2 splits keys by the rows attending), so the attention
+    # weights part in their last bits: held there to the predict test's
+    # bars (tests/test_torch_predict.py), every other field equal.
+    half = DP_PREDICT_EXAMPLES // 2
+    print("two-rank predict.json of {} examples at batch {} ({} a rank): "
+          "{} bytes; against the single process's at batch {}: {}; at "
+          "batch {}: {}".format(
+              DP_PREDICT_EXAMPLES, DP_PREDICT_EXAMPLES, half,
+              len(sharded_json), half,
+              "byte-equal" if sharded_json == single_json[half]
+              else "DIFFERENT", DP_PREDICT_EXAMPLES,
+              "byte-equal" if sharded_json == single_json[DP_PREDICT_EXAMPLES]
+              else "not byte-equal"))
+    require(sharded_json == single_json[half],
+            "the two-rank predict.json differs from the single process's at "
+            "the ranks' batch")
+    got = json.loads(sharded_json)
+    want = json.loads(single_json[DP_PREDICT_EXAMPLES])
+    require(len(got) == len(want) == DP_PREDICT_EXAMPLES,
+            "predict.json holds {} and {} records".format(len(got),
+                                                          len(want)))
+    worst = {}
+    for record, ref in zip(got, want):
+        require(list(record) == list(ref) and all(
+            record[k] == ref[k] for k in (
+                "input", "prediction", "target", "derivation", "situation",
+                "accuracy", "exact_match")),
+            "a two-rank predict.json record differs from the single "
+            "process's at batch {}".format(DP_PREDICT_EXAMPLES))
+        for key in ("position_accuracy", "attention_weights_input",
+                    "attention_weights_situation"):
+            a = torch.tensor(record[key], dtype=torch.float64)
+            b = torch.tensor(ref[key], dtype=torch.float64)
+            require(a.shape == b.shape, "{} shapes differ".format(key))
+            worst[key] = max(worst.get(key, 0.0), check_close_quiet(
+                a, b, 1e-5, 1e-6, "two-rank predict.json " + key)
+                if a.numel() else 0.0)
+    print("two-rank predict.json against the single process's at batch {}: "
+          "every word, derivation, situation and accuracy equal; max |err| "
+          "{} (rtol 1e-5, atol 1e-6)".format(
+              DP_PREDICT_EXAMPLES, ", ".join(
+                  "{} {:.3e}".format(k, v) for k, v in worst.items())))
+    print("wall time, two ranks (in the ranks) against one process: "
+          "train() {:.3f} s against {:.3f} s; decode of {} {:.3f} ms "
+          "against {:.3f} ms; predict_and_save of {} {:.3f} s against "
+          "{:.3f} s".format(
+              times["train"], single_train_s, BATCH, times["decode"] * 1e3,
+              single_decode_ms,
+              DP_PREDICT_EXAMPLES, times["predict"],
+              single_predict_s[DP_PREDICT_EXAMPLES]))
+
+
 def check_close_quiet(got, want, rtol, atol, label):
     """Max |err|; fails past atol + rtol|want|."""
     diff = (got - want).abs()
@@ -2149,6 +2529,7 @@ def main():
         try:
             k1.launches, k2.launches = 0, 0
             tf.launches.update({name: 0 for name in tf.launches})
+            train_start = time.perf_counter()
             state, train_config = train(
                 str(FIXTURE / "dataset.txt"), str(FIXTURE),
                 training_batch_size=TRAIN_BATCH,
@@ -2158,6 +2539,8 @@ def main():
                 max_testing_examples=STEP_EXAMPLES, seed=SEED,
                 steps_per_execution=1, device=device, callback=report)
             sync()
+            single_train = (state, list(events),
+                            time.perf_counter() - train_start)
             launches_train = dict(tf.launches, decode_block=k2.launches,
                                   additive_attention=k1.launches)
             print("launches, training: {}".format(launches_train))
@@ -2283,6 +2666,15 @@ def main():
     with phase("main path: multi-seed training"), \
             encoder_precision(tf32_seen):
         multiseed_checks(train_set, train_config, sync)
+        print(smi)
+
+    with phase("main path: data parallel"), encoder_precision(tf32_seen):
+        single_decode_ms = data_parallel_one_rank(
+            train_set, train_config, params, config, inputs, kernel_out,
+            sync)
+        data_parallel_two_ranks(params, config, kernel_out, plain_out,
+                                single_train, single_decode_ms)
+        dryrun_entry_check()
         print(smi)
 
     with phase("data: native loader"), encoder_precision(tf32_seen):

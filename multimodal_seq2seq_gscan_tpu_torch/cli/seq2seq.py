@@ -12,9 +12,13 @@ It runs on the card (``main(flags, device="cuda")``; the tests pass
 configures only JAX's runtime, logged and left unused. ``--seeds`` with
 more than one seed trains a multi-seed campaign (``train/multiseed.py``)
 into ``<output_directory>/seed_<s>/``; ``--resume_from_file`` then names
-the campaign's output directory. ``--data_parallel > 1`` (ROADMAP A11) is
-refused by name. The dataset file is parsed once for every split, by the
-C++ scanner when it builds (``data/dataset.py``'s ``"auto"``).
+the campaign's output directory. ``--data_parallel=n`` (n > 1) runs
+``--mode=train`` or ``--mode=test`` on n ranks (``parallel/launch.py``):
+one GPU a rank over NCCL, refused when fewer than n GPUs exist; with
+``main(flags, device="cpu")`` n gloo ranks on the CPU. A campaign with
+``--data_parallel`` is refused, as JAX refuses it. The dataset file is
+parsed once for every split, by the C++ scanner when it builds
+(``data/dataset.py``'s ``"auto"``).
 """
 
 import argparse
@@ -24,7 +28,7 @@ from typing import Optional, Union
 
 import torch
 
-from multimodal_seq2seq_gscan_tpu_torch.utils.not_ported import not_ported
+from multimodal_seq2seq_gscan_tpu_torch.parallel.mesh import Mesh
 
 FORMAT = "%(asctime)-15s %(message)s"
 logger = logging.getLogger(__name__)
@@ -251,7 +255,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(flags: Optional[dict] = None,
          device: Union[str, torch.device] = "cuda"):
     """Run ``--mode=train`` or ``--mode=test`` with ``flags`` (the parsed
-    command line by default) on ``device``."""
+    command line by default) on ``device``, on ``--data_parallel`` ranks
+    when it is above 1."""
     if flags is None:
         flags = vars(build_parser().parse_args())
     for argument, value in flags.items():
@@ -260,9 +265,12 @@ def main(flags: Optional[dict] = None,
         logger.info("--compilation_cache_dir configures the JAX package's "
                     "runtime only; the port's CUDA kernels build into "
                     "build/torch_kernels/ at the root of the checkout.")
-    if flags.get("data_parallel", 0) and flags["data_parallel"] > 1:
-        not_ported("Data-parallel training and decoding (--data_parallel)",
-                   "A11")
+    ranks = flags.get("data_parallel") or 0
+    if ranks > 1 and len([s for s in str(flags.get("seeds") or "").split(
+            ",") if s.strip()]) > 1:
+        raise NotImplementedError(
+            "--seeds campaign training is single-chip; drop --data_parallel "
+            "or train seeds individually.")
 
     if not os.path.exists(flags["output_directory"]):
         os.makedirs(os.path.join(os.getcwd(), flags["output_directory"]),
@@ -280,6 +288,24 @@ def main(flags: Optional[dict] = None,
             "Luong attention is declared broken in the reference and is not "
             "implemented; use --attention_type=bahdanau.")
 
+    if flags["mode"] == "predict":
+        raise NotImplementedError()
+    if flags["mode"] not in ("train", "test"):
+        raise ValueError("Wrong value for parameters --mode ({}).".format(
+            flags["mode"]))
+    if ranks > 1:
+        from multimodal_seq2seq_gscan_tpu_torch.parallel.launch import launch
+        launch(run_mode, ranks, flags, device=device)
+    else:
+        run_mode(None, flags, device)
+
+
+def run_mode(mesh: Optional[Mesh], flags: dict,
+             device: Union[str, torch.device] = "cuda"):
+    """``--mode=train`` or ``--mode=test`` on this process, one rank of
+    ``mesh`` if given (its device then is the rank's)."""
+    if mesh is not None:
+        device = mesh.device
     data_path = os.path.join(flags["data_directory"], "dataset.txt")
     if flags["mode"] == "train":
         from multimodal_seq2seq_gscan_tpu_torch.train.loop import train
@@ -289,18 +315,14 @@ def main(flags: Optional[dict] = None,
             flags["teacher_forced_impl"], flags["teacher_forced_impl"])
         train(data_path=data_path,
               evaluation_batch_size=flags["test_batch_size"], device=device,
-              **options)
-    elif flags["mode"] == "test":
-        run_test(flags, data_path, device=device)
-    elif flags["mode"] == "predict":
-        raise NotImplementedError()
+              mesh=mesh, **options)
     else:
-        raise ValueError("Wrong value for parameters --mode ({}).".format(
-            flags["mode"]))
+        run_test(flags, data_path, device=device, mesh=mesh)
 
 
 def run_test(flags: dict, data_path: str,
-             device: Union[str, torch.device] = "cuda"):
+             device: Union[str, torch.device] = "cuda",
+             mesh: Optional[Mesh] = None):
     """Decode each of ``--splits`` into ``<split>_<output_file_name>``
     (``predict.json``'s records) from ``--resume_from_file``: a checkpoint
     of either package (msgpack), or a reference ``.pth.tar``, ``.pth`` or
@@ -384,7 +406,7 @@ def run_test(flags: dict, data_path: str,
             max_decoding_steps=flags["max_decoding_steps"],
             batch_size=flags["test_batch_size"],
             max_testing_examples=flags["max_testing_examples"],
-            decode_dtype=flags["decode_dtype"], device=device)
+            mesh=mesh, decode_dtype=flags["decode_dtype"], device=device)
         logger.info("Saved predictions to {}".format(output_file))
 
 

@@ -42,6 +42,8 @@ from multimodal_seq2seq_gscan_tpu_torch.models.model import (
 from multimodal_seq2seq_gscan_tpu_torch.models.params import ModelParams
 from multimodal_seq2seq_gscan_tpu_torch.ops.decode_block import (
     BlockOutput, decode_block_plain, fused_decode_block, pack_decoder_weights)
+from multimodal_seq2seq_gscan_tpu_torch.parallel.mesh import (
+    Mesh, all_true, check_mesh, gather_rows)
 from multimodal_seq2seq_gscan_tpu_torch.utils.precision import full_float32
 
 DECODE_IMPLS = ("block", "block_plain", "step")
@@ -74,7 +76,8 @@ class GreedyDecodeOutput(NamedTuple):
 def make_greedy_decoder(config: ModelConfig, max_decoding_steps: int,
                         exit_check_every: int = 32,
                         decode_impl: str = "block",
-                        compute_dtype: Optional[str] = None):
+                        compute_dtype: Optional[str] = None,
+                        mesh: Optional[Mesh] = None, gather: bool = True):
     """Build a batched greedy decoder ``decode(params, input_ids,
     input_lengths, situations, target_positions) -> GreedyDecodeOutput``.
 
@@ -83,6 +86,14 @@ def make_greedy_decoder(config: ModelConfig, max_decoding_steps: int,
     attention) in float32; for any other decoder or a bf16
     ``compute_dtype`` the decoder warns and runs ``"step"``
     (``models.config.decoder_impl``).
+
+    Under a data-parallel ``mesh`` (``parallel/mesh.py``) the inputs are
+    the rank's rows of the global batch (``shard_batch``), decoded through
+    the same kernels; the early exit after each block is a global all-done
+    (one all-reduce and one host sync a block), so every rank runs the
+    same blocks, and the output is the global batch's, gathered to every
+    rank in data order; with ``gather=False`` it is the rank's rows, for a
+    caller that gathers only the fields it reads (``decode/predict.py``).
     """
     if decode_impl not in DECODE_IMPLS:
         raise ValueError("decode_impl must be one of {}, got {!r}".format(
@@ -92,6 +103,7 @@ def make_greedy_decoder(config: ModelConfig, max_decoding_steps: int,
             COMPUTE_DTYPES, compute_dtype))
     decode_impl = decoder_impl(config, decode_impl, "decode_impl",
                                compute_dtype)
+    check_mesh(mesh)
     num_steps = max_decoding_steps + 1  # the reference loops while iter <= max
     block = max(1, min(exit_check_every, num_steps))
     num_blocks = -(-num_steps // block)
@@ -145,7 +157,7 @@ def make_greedy_decoder(config: ModelConfig, max_decoding_steps: int,
                                     eos_idx=config.target_eos_idx, **extra)
 
             for index in range(num_blocks):
-                if index and bool(done.all()):
+                if index and all_true(mesh, done):
                     break
                 # The step path stops at the cap; a block always runs whole
                 # and its steps past the cap are cut off below.
@@ -154,9 +166,14 @@ def make_greedy_decoder(config: ModelConfig, max_decoding_steps: int,
                 out = run(h, c, tokens, done, steps)
                 h, c, tokens, done = out.h, out.c, out.tokens, out.done
                 blocks.append(out)
-            return _assemble(config, blocks, gaps, num_steps, batch,
-                             proj_txt.shape[1], proj_vis.shape[1], device,
-                             target_positions)
+            output = _assemble(config, blocks, gaps, num_steps, batch,
+                               proj_txt.shape[1], proj_vis.shape[1], device,
+                               target_positions)
+            if mesh is None or not gather:
+                return output
+            return GreedyDecodeOutput(*(
+                None if field is None else gather_rows(mesh, field)
+                for field in output))
 
     return decode
 

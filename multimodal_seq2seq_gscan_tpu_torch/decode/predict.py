@@ -13,7 +13,16 @@ assembles batch i, whose outputs were copied to pinned host memory behind
 an event of their own, so the host's wait for them never includes batch
 i + 1's decode. ``decode_dtype`` is the decoder's ``compute_dtype``
 (``decode/greedy.py``: None or "float32", "bfloat16", "bfloat16_mixed",
-"bfloat16_keys"). A device mesh (ROADMAP A11) is refused by name.
+"bfloat16_keys").
+
+Under a data-parallel ``mesh`` (``parallel/mesh.py``) every rank walks the
+same batches, decodes its rows and receives the global outputs that its
+records read (``evaluate``'s leave out the two attention stacks), so every
+rank yields the same records and ``evaluate`` returns the same scores on
+each; ``predict_and_save`` writes the file on rank 0 alone. The data axis
+must divide every batch (a ``ValueError`` names the sizes): the last batch
+is padded to full size by default, as JAX's ``pad_to_full_batch`` keeps
+its shards equal.
 """
 
 import json
@@ -30,8 +39,9 @@ from multimodal_seq2seq_gscan_tpu_torch.decode.greedy import (
     GreedyDecodeOutput, make_greedy_decoder, strip_output_sequences)
 from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
 from multimodal_seq2seq_gscan_tpu_torch.models.params import ModelParams
+from multimodal_seq2seq_gscan_tpu_torch.parallel.mesh import (
+    Mesh, check_mesh, gather_rows, shard_batch)
 from multimodal_seq2seq_gscan_tpu_torch.utils.metrics import sequence_accuracy
-from multimodal_seq2seq_gscan_tpu_torch.utils.not_ported import not_ported
 
 logger = logging.getLogger(__name__)
 
@@ -48,26 +58,35 @@ class _Decoded(NamedTuple):
     derivation_reprs: List[Optional[str]]
 
 
-def _refuse(mesh):
-    if mesh is not None:
-        not_ported("Sharded prediction (mesh)", "A11")
+def _check_mesh(mesh: Optional[Mesh], batch_size: int,
+                device: Union[str, torch.device]) -> torch.device:
+    """The decode's device: ``mesh.device`` under a mesh, whose data axis
+    must divide ``batch_size``."""
+    if check_mesh(mesh) is None:
+        return torch.device(device)
+    if batch_size % mesh.data_parallel:
+        raise ValueError(
+            "batch_size {} does not split over the {} ranks of the data "
+            "axis".format(batch_size, mesh.data_parallel))
+    return mesh.device
 
 
 def _records(dataset: GroundedScanDataset, params: ModelParams,
              config: ModelConfig, max_decoding_steps: int, batch_size: int,
              max_examples_to_evaluate: Optional[int],
              pad_to_full_batch: bool, device: torch.device,
-             with_attention: bool,
-             decode_dtype: Optional[str]) -> Iterator[dict]:
+             with_attention: bool, decode_dtype: Optional[str],
+             mesh: Optional[Mesh]) -> Iterator[dict]:
     decoder = make_greedy_decoder(config, max_decoding_steps,
-                                  compute_dtype=decode_dtype)
+                                  compute_dtype=decode_dtype, mesh=mesh,
+                                  gather=False)
     start_time = time.time()
     produced = [0]
     done = [False]
 
     def launch(batch, idx, situation_reprs, derivation_reprs) -> _Decoded:
         input_lengths = batch.input_lengths.numpy()
-        batch = batch.to(device)
+        batch = shard_batch(mesh, batch).to(device)
         output = decoder(params, batch.input_ids, batch.input_lengths,
                          batch.situations, batch.target_positions)
         landed = None
@@ -76,12 +95,15 @@ def _records(dataset: GroundedScanDataset, params: ModelParams,
         if with_attention:
             fields.update(attention_commands=output.attention_commands,
                           attention_situations=output.attention_situations)
+        fields = {name: gather_rows(mesh, value)
+                  for name, value in fields.items()}
         if device.type == "cuda":
             fields = {name: value.to("cpu", non_blocking=True)
                       for name, value in fields.items()}
             landed = torch.cuda.Event()
             landed.record()
-        output = output._replace(**fields)
+        output = GreedyDecodeOutput(**{
+            name: fields.get(name) for name in GreedyDecodeOutput._fields})
         return _Decoded(output, landed, input_lengths, idx, situation_reprs,
                         derivation_reprs)
 
@@ -157,12 +179,13 @@ def predict(dataset: GroundedScanDataset, params: ModelParams,
             device: Union[str, torch.device] = "cuda") -> Iterator[dict]:
     """Greedy-decode the dataset in batches on ``device`` (where ``params``
     live); yield one record dict per example, at most
-    ``max_examples_to_evaluate``, with the JAX record's fields."""
-    _refuse(mesh)
+    ``max_examples_to_evaluate``, with the JAX record's fields. Under a
+    ``mesh`` the decode runs on the rank's device, ``mesh.device``."""
+    device = _check_mesh(mesh, batch_size, device)
     return _records(dataset, params, config, max_decoding_steps, batch_size,
                     max_examples_to_evaluate, pad_to_full_batch,
-                    torch.device(device), with_attention=True,
-                    decode_dtype=decode_dtype)
+                    device, with_attention=True,
+                    decode_dtype=decode_dtype, mesh=mesh)
 
 
 def predict_and_save(dataset: GroundedScanDataset, params: ModelParams,
@@ -171,7 +194,8 @@ def predict_and_save(dataset: GroundedScanDataset, params: ModelParams,
                      max_testing_examples: Optional[int] = None,
                      mesh=None, decode_dtype: Optional[str] = None,
                      device: Union[str, torch.device] = "cuda") -> str:
-    """Decode the dataset and write the canonical predict.json."""
+    """Decode the dataset and write the canonical predict.json (on rank 0
+    alone under a ``mesh``)."""
     output = []
     for record in predict(dataset, params, config, max_decoding_steps,
                           batch_size=batch_size,
@@ -198,9 +222,11 @@ def predict_and_save(dataset: GroundedScanDataset, params: ModelParams,
             "exact_match": accuracy == 100,
             "position_accuracy": record["position_accuracy"],
         })
-    with open(output_file_path, "w") as outfile:
-        logger.info("Wrote predictions for {} examples.".format(len(output)))
-        json.dump(output, outfile, indent=4)
+    if mesh is None or mesh.is_main:
+        with open(output_file_path, "w") as outfile:
+            logger.info("Wrote predictions for {} examples.".format(
+                len(output)))
+            json.dump(output, outfile, indent=4)
     return output_file_path
 
 
@@ -213,15 +239,16 @@ def evaluate(dataset: GroundedScanDataset, params: ModelParams,
     """(mean token accuracy, % exact match, mean aux position accuracy) of
     at most ``max_examples_to_evaluate`` examples, decoded in batches of
     ``batch_size`` (the last padded to full size) on ``device``. The records
-    it scores carry no attention lists or representations."""
-    _refuse(mesh)
+    it scores carry no attention lists or representations. Under a
+    ``mesh`` every rank returns the same scores."""
+    device = _check_mesh(mesh, batch_size, device)
     accuracies: List[float] = []
     target_accuracies: List[float] = []
     exact_match = 0
     for record in _records(dataset, params, config, max_decoding_steps,
                            batch_size, max_examples_to_evaluate, True,
-                           torch.device(device), with_attention=False,
-                           decode_dtype=decode_dtype):
+                           device, with_attention=False,
+                           decode_dtype=decode_dtype, mesh=mesh):
         accuracy = sequence_accuracy(record["output_ids"],
                                      record["target_ids"][1:-1].tolist())
         if accuracy == 100:

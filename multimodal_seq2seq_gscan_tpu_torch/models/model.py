@@ -17,7 +17,7 @@ from multimodal_seq2seq_gscan_tpu_torch.models.config import (
     TEACHER_FORCED_IMPLS, ModelConfig, decoder_impl)
 from multimodal_seq2seq_gscan_tpu_torch.models.nn import (
     additive_attention, dropout, embed, lstm_cell, masked_lstm_scan,
-    reverse_padded, sequence_mask, situation_cnn)
+    reverse_padded, sequence_mask, situation_cnn, uniform)
 from multimodal_seq2seq_gscan_tpu_torch.models.params import ModelParams
 from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf_ops
 from multimodal_seq2seq_gscan_tpu_torch.ops.decode_block import (
@@ -182,15 +182,16 @@ def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def decoder_drop_mask(config: ModelConfig, shape: Tuple[int, ...],
-                      device, generator: Optional[torch.Generator],
-                      deterministic: bool) -> torch.Tensor:
+                      device, generator, deterministic: bool) -> torch.Tensor:
     """A decoder dropout mask of ``shape`` (``[T, B, E]`` on the embedded
-    tokens, ``[T, L - 1, B, H]`` between layers): ``keep / (1 - p)`` with
-    ``keep ~ Bernoulli(1 - p)``, or ones (JAX ``models/model.py:272-277``)."""
+    tokens, ``[T, L - 1, B, H]`` between layers; the batch is the axis
+    before the last): ``keep / (1 - p)`` with ``keep ~ Bernoulli(1 - p)``,
+    or ones (JAX ``models/model.py:272-277``). ``generator``: see
+    ``nn.uniform``."""
     if deterministic or config.decoder_dropout_p == 0.0:
         return torch.ones(shape, device=device)
     keep = 1.0 - config.decoder_dropout_p
-    return (torch.rand(shape, generator=generator, device=device)
+    return (uniform(generator, shape, device, len(shape) - 2)
             < keep).float() / keep
 
 
@@ -283,52 +284,73 @@ def remove_start_of_sequence(targets: torch.Tensor) -> torch.Tensor:
 
 
 def get_loss(config: ModelConfig, target_log_probs: torch.Tensor,
-             targets: torch.Tensor) -> torch.Tensor:
-    """NLL averaged over non-pad target tokens (NLLLoss(ignore_index=pad))."""
+             targets: torch.Tensor,
+             total: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """NLL averaged over non-pad target tokens (NLLLoss(ignore_index=pad)):
+    the batch's sum over ``total`` (by default its own count of non-pad
+    tokens, at least 1; a sharded step passes the global batch's)."""
     targets = remove_start_of_sequence(targets).long()
     token_log_probs = torch.gather(target_log_probs, -1,
                                    targets[..., None])[..., 0]      # [B, T]
     mask = (targets != config.target_pad_idx).to(target_log_probs.dtype)
-    total = torch.clamp(mask.sum(), min=1.0)
+    if total is None:
+        total = torch.clamp(mask.sum(), min=1.0)
     return -(token_log_probs * mask).sum() / total
+
+
+def metric_counts(config: ModelConfig, target_log_probs: torch.Tensor,
+                  targets: torch.Tensor) -> torch.Tensor:
+    """``[correct tokens, non-pad tokens, exactly matched rows, rows with a
+    target]`` of the batch (int64); all-pad rows (the padding of a short
+    batch) are left out of exact match."""
+    targets = remove_start_of_sequence(targets).long()
+    mask = targets != config.target_pad_idx
+    correct = (torch.argmax(target_log_probs, dim=-1) == targets) & mask
+    per_example_total = mask.sum(dim=1)
+    valid_example = per_example_total > 0
+    matched = (correct.sum(dim=1) == per_example_total) & valid_example
+    return torch.stack([correct.sum(), mask.sum(), matched.sum(),
+                        valid_example.sum()])
+
+
+def metrics_from_counts(counts: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(token accuracy %, exact-match %) from ``metric_counts``."""
+    accuracy = 100.0 * counts[0] / torch.clamp(counts[1], min=1)
+    exact = 100.0 * counts[2] / torch.clamp(counts[3], min=1)
+    return accuracy, exact
+
+
+def auxiliary_counts(auxiliary_scores: torch.Tensor,
+                     target_positions: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """``[rows whose target cell is the argmax, valid rows]`` (float32);
+    ``valid`` masks padded batch rows."""
+    valid = valid.float()
+    correct = (torch.argmax(auxiliary_scores, dim=-1)
+               == target_positions.long()).float()
+    return torch.stack([(correct * valid).sum(), valid.sum()])
 
 
 def get_metrics(config: ModelConfig, target_log_probs: torch.Tensor,
                 targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(token accuracy %, exact-match %) over the batch; all-pad rows (the
-    padding of a short batch) are left out of exact match."""
-    targets = remove_start_of_sequence(targets).long()
-    mask = targets != config.target_pad_idx
-    correct = (torch.argmax(target_log_probs, dim=-1) == targets) & mask
-    accuracy = 100.0 * correct.sum() / torch.clamp(mask.sum(), min=1)
-    per_example_total = mask.sum(dim=1)
-    valid_example = per_example_total > 0
-    matched = (correct.sum(dim=1) == per_example_total) & valid_example
-    exact = 100.0 * matched.sum() / torch.clamp(valid_example.sum(), min=1)
-    return accuracy, exact
+    """(token accuracy %, exact-match %) over the batch."""
+    return metrics_from_counts(metric_counts(config, target_log_probs,
+                                             targets))
 
 
 def get_auxiliary_loss(auxiliary_log_probs: torch.Tensor,
                        target_positions: torch.Tensor,
-                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """NLL of the target grid cell; ``valid`` masks padded batch rows."""
+                       valid: Optional[torch.Tensor] = None,
+                       total: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """NLL of the target grid cell; ``valid`` masks padded batch rows, and
+    the sum goes over ``total`` (by default the count of valid rows, at
+    least 1)."""
     token_log_probs = torch.gather(auxiliary_log_probs, -1,
                                    target_positions.long()[:, None])[:, 0]
     if valid is None:
         return -token_log_probs.mean()
     weights = valid.to(token_log_probs.dtype)
-    return -(token_log_probs * weights).sum() / torch.clamp(weights.sum(),
-                                                            min=1.0)
-
-
-def get_auxiliary_accuracy(auxiliary_scores: torch.Tensor,
-                           target_positions: torch.Tensor,
-                           valid: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    predictions = torch.argmax(auxiliary_scores, dim=-1)
-    correct = (predictions == target_positions.long()).float()
-    if valid is None:
-        return 100.0 * correct.mean()
-    weights = valid.float()
-    return 100.0 * (correct * weights).sum() / torch.clamp(weights.sum(),
-                                                           min=1.0)
+    if total is None:
+        total = torch.clamp(weights.sum(), min=1.0)
+    return -(token_log_probs * weights).sum() / total

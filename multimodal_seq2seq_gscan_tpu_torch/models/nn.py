@@ -7,7 +7,7 @@ the same layouts at the public functions (NHWC situations, HWIO conv weights,
 inputs.
 """
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -126,12 +126,40 @@ def embed(embedding: torch.Tensor, token_ids: torch.Tensor,
     return vectors * (token_ids != padding_idx)[..., None].to(vectors.dtype)
 
 
-def dropout(generator: Optional[torch.Generator], x: torch.Tensor,
-            rate: float, deterministic: bool) -> torch.Tensor:
-    """Inverted dropout drawn from ``generator``; the identity when
-    ``deterministic`` or ``rate == 0``."""
+class RowShard(NamedTuple):
+    """A dropout generator of a data-parallel rank: it draws the masks of
+    the global batch of ``rows`` rows, as one process would, and keeps
+    the rank's rows ``start:start + len`` of each. Every rank draws the
+    same numbers, so the ranks together apply one process's masks."""
+
+    generator: torch.Generator
+    rows: int
+    start: int
+
+
+def uniform(generator, shape: Tuple[int, ...], device,
+            batch_axis: int = 0) -> torch.Tensor:
+    """``torch.rand(shape)`` from ``generator``, a torch.Generator or a
+    ``RowShard`` (then the global batch's draw, narrowed on
+    ``batch_axis``)."""
+    if not isinstance(generator, RowShard) \
+            or generator.rows == shape[batch_axis]:
+        if isinstance(generator, RowShard):
+            generator = generator.generator
+        return torch.rand(shape, generator=generator, device=device)
+    full = list(shape)
+    full[batch_axis] = generator.rows
+    draw = torch.rand(full, generator=generator.generator, device=device)
+    return draw.narrow(batch_axis, generator.start,
+                       shape[batch_axis]).contiguous()
+
+
+def dropout(generator, x: torch.Tensor, rate: float,
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout drawn from ``generator`` (see ``uniform``); the
+    identity when ``deterministic`` or ``rate == 0``."""
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = uniform(generator, x.shape, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))

@@ -39,12 +39,23 @@ score the subset of a single-seed run with seed s. The file is parsed
 by the dataset's default backend, ``"auto"`` (``data/dataset.py``: the C++
 scanner when it builds, else json), and the dev split shares the parse.
 
-Not ported, and refused by name rather than substituted or ignored: a
-device mesh (ROADMAP A11; with ``seeds``, refused as JAX refuses it) and
-the full RGB situation (``simple_situation_representation=False``, which
-the JAX package refuses too). Any other keyword raises ``TypeError``;
-``test_batch_size`` is taken and, as in the JAX ``train``, not used
-(``evaluation_batch_size`` sets the dev decode's batch).
+Data parallelism: with a ``mesh`` (``parallel/mesh.py``; every rank of
+it calls ``train`` alike, ``parallel/launch.py`` starts them) the state is
+replicated from rank 0, every rank walks the same global batch stream
+(the same ``seed``) and trains on its rows through the sharded step or
+chunk, which equal one process's on the global batch; evaluations run
+the sharded decode, so every rank sees the global exact match and picks
+the same ``model_best``; rank 0 alone logs, calls ``callback`` and writes
+files. The kernels run on every rank's rows (JAX falls back to XLA under
+a mesh, because XLA cannot partition a Pallas call; a rank here is a
+whole process on its device). The batch sizes must split over the data
+axis. A campaign with a mesh is refused, as JAX refuses it.
+
+Refused rather than substituted or ignored: the full RGB situation
+(``simple_situation_representation=False``, which the JAX package refuses
+too). Any other keyword raises ``TypeError``; ``test_batch_size`` is taken
+and, as in the JAX ``train``, not used (``evaluation_batch_size`` sets the
+dev decode's batch).
 """
 
 import logging
@@ -61,6 +72,8 @@ from multimodal_seq2seq_gscan_tpu_torch.data.prefetch import (
     prefetch_to_device)
 from multimodal_seq2seq_gscan_tpu_torch.decode.predict import evaluate
 from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
+from multimodal_seq2seq_gscan_tpu_torch.parallel.mesh import (
+    check_mesh, replicate, shard_batch, shard_rows)
 from multimodal_seq2seq_gscan_tpu_torch.train import checkpoint as ckpt
 from multimodal_seq2seq_gscan_tpu_torch.train.multiseed import (
     train_multiseed)
@@ -71,7 +84,6 @@ from multimodal_seq2seq_gscan_tpu_torch.train.state import (
     Adam, create_train_state)
 from multimodal_seq2seq_gscan_tpu_torch.train.step import train_step
 from multimodal_seq2seq_gscan_tpu_torch.utils.logging import log_parameters
-from multimodal_seq2seq_gscan_tpu_torch.utils.not_ported import not_ported
 from multimodal_seq2seq_gscan_tpu_torch.utils.profiling import StepProfiler
 
 logger = logging.getLogger(__name__)
@@ -96,16 +108,19 @@ def _train_resident(state, training_set, config, optimizer,
                     max_training_iterations, training_batch_size,
                     steps_per_execution, print_every, evaluate_every,
                     epoch_rng, profiler, log_metrics, run_evaluation, device,
-                    chunk_layout="full", stratified_options=None):
+                    chunk_layout="full", stratified_options=None, mesh=None):
     """Device-resident training in chunks (``train/resident.py``), the JAX
     ``_train_resident``: K is aligned so print and eval boundaries land on
     chunk ends; a misaligned prefix (a resume from any iteration) and the
     final partial chunk run as single steps on rows of the same stream.
     ``chunk_layout`` picks the index-block stream: "full" (every step at
-    the split's widest target) or "stratified" (width-sliced segments)."""
+    the split's widest target) or "stratified" (width-sliced segments).
+    Under a ``mesh`` every rank walks the same blocks and trains on its
+    columns."""
     k = resolve_chunk_size(steps_per_execution, print_every, evaluate_every)
     chunk_fn = make_train_chunk(config, optimizer,
-                                weight_target_loss=weight_target_loss)
+                                weight_target_loss=weight_target_loss,
+                                mesh=mesh)
     host_data = host_resident_data(training_set)
     data = build_resident_data(training_set, device)
     if chunk_layout == "stratified":
@@ -155,8 +170,10 @@ def _train_resident(state, training_set, config, optimizer,
     def single_steps(state, iteration, count):
         nonlocal window_steps
         for _ in range(count):
-            state, metrics = train_step(state, gather_batch(data, take_row()),
-                                        config, optimizer, weight_target_loss)
+            row = take_row()
+            state, metrics = train_step(
+                state, gather_batch(data, row[shard_rows(mesh, len(row))]),
+                config, optimizer, weight_target_loss, mesh=mesh)
             window_steps += 1
             at_boundaries(iteration, state, metrics)
             iteration += 1
@@ -228,12 +245,10 @@ def train(data_path: str, data_directory: str,
     campaign each seed's, with ``values["seed"]``.
     """
     seed_list = [int(s) for s in str(seeds or "").split(",") if s.strip()]
-    if mesh is not None and len(seed_list) > 1:
+    if check_mesh(mesh) is not None and len(seed_list) > 1:
         raise NotImplementedError(
             "--seeds campaign training is single-chip; drop --data_parallel "
             "or train seeds individually.")
-    if mesh is not None:
-        not_ported("Data-parallel training (mesh)", "A11")
     if not simple_situation_representation:
         raise NotImplementedError(
             "Full RGB input image not implemented. Implement or set "
@@ -242,7 +257,12 @@ def train(data_path: str, data_directory: str,
         raise NotImplementedError(
             "Luong attention not correctly implemented in the reference; "
             "only 'bahdanau' is supported.")
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else mesh.device
+    is_main = mesh is None or mesh.is_main
+    if mesh is not None:
+        # Both batches must split, before the first step (a ValueError).
+        shard_rows(mesh, training_batch_size)
+        shard_rows(mesh, evaluation_batch_size)
 
     training_set = GroundedScanDataset(
         data_path, data_directory, split="train",
@@ -336,9 +356,13 @@ def train(data_path: str, data_directory: str,
         best_exact_match = meta["best_exact_match"]
     else:
         state = create_train_state(seed, config, optimizer, device)
-    log_parameters(state.params)
+    state = replicate(mesh, state)
+    if is_main:
+        log_parameters(state.params)
 
     def log_metrics(iteration, metrics, steps_per_s):
+        if not is_main:
+            return
         values = {name: float(value) for name, value in metrics.items()}
         values["learning_rate"] = float(optimizer.schedule(iteration - 1))
         values["steps_per_s"] = steps_per_s
@@ -354,17 +378,20 @@ def train(data_path: str, data_directory: str,
 
     def run_evaluation(iteration, state):
         nonlocal best_accuracy, best_exact_match, best_iteration
-        logger.info("Evaluating..")
+        if is_main:
+            logger.info("Evaluating..")
         accuracy, exact_match, target_accuracy = evaluate(
             dev_set, state.params, config,
             max_decoding_steps=max_decoding_steps,
             batch_size=evaluation_batch_size,
-            max_examples_to_evaluate=max_testing_examples, device=device)
-        logger.info(
-            "  Evaluation Accuracy: %5.2f Exact Match: %5.2f "
-            " Target Accuracy: %5.2f"
-            % (accuracy, exact_match, target_accuracy))
-        if callback is not None:
+            max_examples_to_evaluate=max_testing_examples, mesh=mesh,
+            device=device)
+        if is_main:
+            logger.info(
+                "  Evaluation Accuracy: %5.2f Exact Match: %5.2f "
+                " Target Accuracy: %5.2f"
+                % (accuracy, exact_match, target_accuracy))
+        if callback is not None and is_main:
             callback("eval", iteration, {"accuracy": accuracy,
                                          "exact_match": exact_match,
                                          "target_accuracy": target_accuracy})
@@ -375,12 +402,14 @@ def train(data_path: str, data_directory: str,
             best_iteration = iteration
         # The running checkpoint is always written; the best copy only on a
         # better dev exact match (as in the JAX loop).
-        ckpt.save_checkpoint(
-            output_directory, state, is_best=is_best,
-            best_iteration=best_iteration, best_accuracy=best_accuracy,
-            best_exact_match=best_exact_match)
+        if is_main:
+            ckpt.save_checkpoint(
+                output_directory, state, is_best=is_best,
+                best_iteration=best_iteration, best_accuracy=best_accuracy,
+                best_exact_match=best_exact_match)
 
-    profiler = StepProfiler(profile_dir, start_step=start_iteration + 20)
+    profiler = StepProfiler(profile_dir if is_main else "",
+                            start_step=start_iteration + 20)
     epoch_rng = np.random.default_rng(seed)
     logger.info("Training starts..")
     if steps_per_execution > 1:
@@ -390,7 +419,7 @@ def train(data_path: str, data_directory: str,
             steps_per_execution, print_every, evaluate_every, epoch_rng,
             profiler, log_metrics, run_evaluation, device,
             chunk_layout=chunk_layout,
-            stratified_options=stratified_options)
+            stratified_options=stratified_options, mesh=mesh)
         profiler.close()
         logger.info("Finished training.")
         return state, config
@@ -398,14 +427,16 @@ def train(data_path: str, data_directory: str,
     training_iteration = start_iteration
     window_start = time.time()
     window_steps = 0
+    # Every rank walks the same global stream and keeps its rows.
     stream = prefetch_to_device(
-        epoch_stream(training_set, training_batch_size, epoch_rng),
+        ((shard_batch(mesh, batch),) + tuple(rest) for batch, *rest in
+         epoch_stream(training_set, training_batch_size, epoch_rng)),
         depth=prefetch_depth, device=device)
     try:
         for batch, _, _, _ in stream:
             profiler.maybe_start(training_iteration)
             state, metrics = train_step(state, batch, config, optimizer,
-                                        weight_target_loss)
+                                        weight_target_loss, mesh=mesh)
             profiler.maybe_stop(training_iteration)
             window_steps += 1
             if training_iteration % print_every == 0:

@@ -20,7 +20,10 @@ rewrites with its update. A multi-seed chunk (``train/multiseed.py``)
 captures every seed's K steps in one graph, one seed after another, each
 seed's state in its own row of that buffer. A graph that fails to capture
 or replay raises; there is no eager fallback on the card. On the CPU a
-chunk runs the same steps eagerly.
+chunk runs the same steps eagerly. Under a data-parallel mesh
+(``parallel/mesh.py``) each rank's chunk takes its columns of the block,
+and the graph captures the sharded step's NCCL all-reduces; the group's
+first collectives run in the warm-up before the capture.
 """
 
 import gc
@@ -35,6 +38,8 @@ from multimodal_seq2seq_gscan_tpu_torch.core.batch import Batch
 from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
 from multimodal_seq2seq_gscan_tpu_torch.models.params import (
     leaves, tree_unflatten)
+from multimodal_seq2seq_gscan_tpu_torch.parallel.mesh import (
+    Mesh, shard_rows)
 from multimodal_seq2seq_gscan_tpu_torch.train.state import (
     Adam, AdamState, TrainState)
 from multimodal_seq2seq_gscan_tpu_torch.train.step import (
@@ -173,17 +178,18 @@ def row_trees(row: torch.Tensor, template):
 
 def eager_chunk(state: TrainState, data: ResidentData, idx_block: np.ndarray,
                 segments, config: ModelConfig, optimizer: Adam,
-                weight_target_loss: float
+                weight_target_loss: float, mesh: Optional[Mesh] = None
                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """A chunk's steps one ``train_step`` at a time (the CPU's chunk):
-    (state, metrics of ``[K]`` tensors)."""
+    (state, metrics of ``[K]`` tensors). Under a ``mesh``, ``idx_block``
+    holds the rank's columns."""
     widths = _step_widths(segments, idx_block.shape[0],
                           data.target_ids.shape[1])
     metrics = []
     for row, width in zip(idx_block, widths):
         state, step_metrics = train_step(
             state, _narrowed(gather_batch(data, row), width), config,
-            optimizer, weight_target_loss)
+            optimizer, weight_target_loss, mesh=mesh)
         metrics.append(step_metrics)
     return state, _stacked(metrics)
 
@@ -196,9 +202,10 @@ class ChunkGraphs:
     the number of seeds for a multi-seed chunk (``train/multiseed.py``)."""
 
     def __init__(self, config: ModelConfig, optimizer: Adam,
-                 weight_target_loss: float):
+                 weight_target_loss: float, mesh: Optional[Mesh] = None):
         self.config, self.optimizer = config, optimizer
         self.weight_target_loss = weight_target_loss
+        self.mesh = mesh
         self.flat: Optional[torch.Tensor] = None
         self.template = None  # the first state's params: the rows' layout
         self.graphs: Dict[tuple, "_Graph"] = {}
@@ -306,7 +313,7 @@ class _Graph:
             new, metrics = train_step(
                 state, batch, owner.config, owner.optimizer,
                 owner.weight_target_loss, generator=self.generators[s][j],
-                adam_scalars=self.scalars[s, j])
+                adam_scalars=self.scalars[s, j], mesh=owner.mesh)
             flatten_state(new, target)
             self.metrics[s, j].copy_(torch.stack(
                 [metrics[name] for name in METRIC_NAMES]))
@@ -324,7 +331,8 @@ def _pinned(array: np.ndarray) -> torch.Tensor:
 
 
 def make_train_chunk(config: ModelConfig, optimizer: Adam,
-                     weight_target_loss: float = 0.3):
+                     weight_target_loss: float = 0.3,
+                     mesh: Optional[Mesh] = None):
     """``chunk(state, data, idx_block, segments=None) -> (state, metrics)``:
     K optimizer steps on the batches ``gather_batch(data, idx_block[k])``,
     the same state and metrics as K ``train_step`` calls on those batches.
@@ -337,15 +345,28 @@ def make_train_chunk(config: ModelConfig, optimizer: Adam,
     ``stratified_index_block_stream`` guarantees). On the card the steps
     replay a CUDA graph (module docstring). The state passed in is not
     modified.
+
+    Under a ``mesh`` every rank passes the same global block and the
+    replicated data, takes its columns of each row (JAX's
+    ``P(None, 'data')``) and runs the sharded ``train_step``; on the card
+    its graph holds the step's NCCL all-reduces. A graph cannot hold
+    gloo's collectives, so a gloo mesh on the card is refused.
     """
-    graphs = ChunkGraphs(config, optimizer, weight_target_loss)
+    graphs = ChunkGraphs(config, optimizer, weight_target_loss, mesh)
 
     def chunk(state: TrainState, data: ResidentData, idx_block,
               segments=None):
         idx_block = np.asarray(idx_block)
+        idx_block = idx_block[:, shard_rows(mesh, idx_block.shape[1])]
         if data.input_ids.device.type != "cuda":
             return eager_chunk(state, data, idx_block, segments, config,
-                               optimizer, weight_target_loss)
+                               optimizer, weight_target_loss, mesh)
+        if mesh is not None and mesh.backend != "nccl":
+            raise ValueError(
+                "a CUDA graph of the chunk captures NCCL collectives only; "
+                "this mesh's backend is {!r} (train the card's {!r} mesh "
+                "with steps_per_execution=1)".format(mesh.backend,
+                                                     mesh.backend))
         flat, metrics = graphs.replay([state], data, idx_block[None],
                                       segments)
         steps, opt = idx_block.shape[0], state.opt_state

@@ -12,8 +12,10 @@
   the bars of tests/test_torch_predict.py (words, derivations, situations,
   accuracies equal; attention stacks rtol 1e-5 / atol 1e-6), and
   ``--decode_dtype=bfloat16_keys`` predicts the same sequences.
-- ``--data_parallel`` above 1 (ROADMAP A11) is refused by name, with or
-  without ``--seeds`` (a campaign runs since A10: test_torch_multiseed.py).
+- ``--data_parallel=2 --mode=test`` on two gloo ranks writes the single
+  run's ``dev_predict.json`` byte for byte; ``--seeds`` with
+  ``--data_parallel`` is refused, as JAX refuses it, and on the card more
+  ranks than GPUs are refused.
 """
 
 import json
@@ -23,6 +25,7 @@ import flax.serialization
 import jax
 import numpy as np
 import pytest
+import torch
 
 from multimodal_seq2seq_gscan_tpu.cli.seq2seq import (
     build_parser as jax_build_parser)
@@ -147,11 +150,31 @@ def test_test_mode_bfloat16_keys(tmp_path, jax_records):
         [r["prediction"] for r in jax_records]
 
 
-@pytest.mark.parametrize("flags,item", [
-    (("--seeds=1,2", "--data_parallel=2"), "A11"),
-    (("--data_parallel=2",), "A11")])
-def test_seeds_and_data_parallel_are_refused_by_name(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("flags,device,error,match", [
+    (("--seeds=1,2", "--data_parallel=2"), "cpu", NotImplementedError,
+     "single-chip"),
+    (("--data_parallel=2",), "cuda", ValueError,
+     "2 ranks need 2 GPUs but only")])
+def test_seeds_and_data_parallel_are_refused_by_name(tmp_path, flags, device,
+                                                     error, match):
+    """A campaign with ``--data_parallel`` stays refused, as JAX refuses
+    it; on the card, more ranks than GPUs are refused (never run on fewer
+    ranks or on the CPU). This machine has no GPU."""
+    if device == "cuda" and torch.cuda.device_count() >= 2:
+        pytest.skip("this machine has two GPUs")
+    with pytest.raises(error, match=match):
         seq2seq.main(parse("--mode=train", "--data_directory=" + FIXTURE,
                            "--output_directory=" + str(tmp_path), *flags),
-                     device="cpu")
+                     device=device)
+
+
+def test_data_parallel_test_mode_equals_single_run(tmp_path):
+    """``--data_parallel=2 --mode=test`` on two gloo ranks writes the
+    single run's ``dev_predict.json`` byte for byte."""
+    (tmp_path / "single").mkdir()
+    (tmp_path / "ranks").mkdir()
+    run_test(tmp_path / "single")
+    run_test(tmp_path / "ranks", "--data_parallel=2")
+    single = (tmp_path / "single" / "dev_predict.json").read_bytes()
+    ranks = (tmp_path / "ranks" / "dev_predict.json").read_bytes()
+    assert ranks == single and b'"prediction"' in ranks

@@ -13,10 +13,12 @@
   inter-layer masks keep 1 - p of the values at scale 1 / (1 - p) and are
   drawn from the step's generator.
 - ``train`` refuses, by name, each keyword that the port does not honour
-  (and ``seeds`` with a mesh, as JAX does), and honours those it took
-  since (the resident trainer's layouts, ``profile_dir``,
-  ``prefetch_depth``, ``k`` under either dataset backend,
-  ``generate_vocabularies``).
+  (``seeds`` with a mesh, as JAX does, a ``mesh`` that is not a
+  ``parallel.mesh.Mesh``, by type, and under a mesh an evaluation batch
+  that does not split over the data axis, before the first step), and
+  honours those it took since (the resident trainer's layouts,
+  ``profile_dir``, ``prefetch_depth``, ``k`` under either dataset
+  backend, ``generate_vocabularies``).
 """
 
 import functools
@@ -54,6 +56,7 @@ from multimodal_seq2seq_gscan_tpu_torch.models.config import (
     ModelConfig, decoder_impl)
 from multimodal_seq2seq_gscan_tpu_torch.models.params import (
     leaves, params_from_numpy)
+from multimodal_seq2seq_gscan_tpu_torch.parallel.mesh import Mesh
 from multimodal_seq2seq_gscan_tpu_torch.train.loop import train
 from multimodal_seq2seq_gscan_tpu_torch.train.state import (
     Adam, AdamState, TrainState, create_train_state)
@@ -286,13 +289,20 @@ def test_two_layer_decoder_decodes_as_jax_and_refuses_teacher_forcing():
     ("simple_situation_representation", False, NotImplementedError,
      "RGB"),
     ("seeds", "1,2", NotImplementedError, "single-chip"),
-    ("mesh", object(), NotImplementedError, "A11"),
+    ("mesh", object(), TypeError, "Mesh"),
+    ("evaluation_batch_size", 3, ValueError,
+     "a batch of 3 rows does not split over the 2 ranks"),
     ("no_such_flag", 1, TypeError, "no_such_flag")])
 def test_train_refuses_keywords_it_does_not_honour(tmp_path, keyword, value,
                                                    error, match):
     """A campaign (``seeds``) is honoured since ROADMAP A10; with a mesh it
-    is refused, as JAX refuses it."""
-    extra = {"mesh": object()} if keyword == "seeds" else {}
+    is refused, as JAX refuses it. Under a mesh an evaluation batch that
+    does not split over the data axis is refused at start-up: this mesh
+    has no process group, so the refusal comes before the first
+    collective, and so before the first step."""
+    extra = {}
+    if keyword in ("seeds", "evaluation_batch_size"):
+        extra["mesh"] = Mesh(None, 0, 2, 2, 1, torch.device("cpu"), "gloo")
     with pytest.raises(error, match=match):
         train(DATASET, FIXTURE, output_directory=str(tmp_path),
               device="cpu", **{keyword: value}, **extra)

@@ -74,7 +74,8 @@ print(json.dumps({"imported": len(names) + 1, "leaked": leaked,
 REQUIRED = ("decode.predict", "train.resident", "utils.profiling",
             "train.loop", "ops.decode_block", "ops.teacher_forced",
             "cli.seq2seq", "data.prefetch", "models.torch_import",
-            "utils.logging", "train.multiseed", "data.native_loader")
+            "utils.logging", "train.multiseed", "data.native_loader",
+            "parallel.mesh", "parallel.launch", "parallel.dryrun")
 
 
 def test_every_module_imports_with_blocked_packages():

@@ -27,7 +27,9 @@ takes H past 448 (its plans without a ring, up to H = 1024 here), and the
 resident trainer's CUDA graph of the training step gives the eager steps'
 state and metrics, also for a decoder of two layers (the step unroll, its
 attentions kernel 1); the multi-seed chunk's one graph gives each seed's
-single-seed graphed chunk bit for bit. Kernel 1's bf16 form (bf16 keys; float32 or bf16
+single-seed graphed chunk bit for bit, and so does a chunk under a
+one-rank NCCL mesh, its all-reduces held in the graph, the unsharded
+chunk. Kernel 1's bf16 form (bf16 keys; float32 or bf16
 queries, energy vector and mask) equals its plain version on the same bf16
 inputs at the float32 form's bars, and is no further from float64 than
 twice the plain version.
@@ -896,6 +898,48 @@ def test_multiseed_graph_equals_single_seed_graphs(cuda):
         assert ref() is None
     finally:
         gc.enable()
+
+
+@pytest.mark.cuda
+def test_nccl_one_rank_chunk_graph_equals_unsharded(cuda, tmp_path):
+    """The resident chunk under a one-rank NCCL mesh, its CUDA graph
+    holding the step's all-reduces, against the unsharded graphed chunk:
+    params, moments and metrics bit for bit over two chunks (full layout,
+    dropout and the auxiliary task on), and one graph a chunk maker."""
+    import torch.distributed as dist
+    from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
+    from multimodal_seq2seq_gscan_tpu_torch.parallel.mesh import make_mesh
+    from multimodal_seq2seq_gscan_tpu_torch.train import resident
+    from multimodal_seq2seq_gscan_tpu_torch.train.state import (
+        Adam, create_train_state)
+    config = ModelConfig(input_vocabulary_size=12, target_vocabulary_size=8,
+                         num_cnn_channels=6, embedding_dimension=10,
+                         encoder_hidden_size=12, decoder_hidden_size=12,
+                         cnn_kernel_size=3, cnn_hidden_num_channels=6,
+                         auxiliary_task=True)
+    optimizer = Adam()
+    data = resident_toy(cuda)
+    blocks = resident.index_block_stream(data.num_examples, 8, 4,
+                                         np.random.default_rng(3))
+    dist.init_process_group("nccl", init_method="file://{}".format(
+        tmp_path / "store"), world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        assert mesh.backend == "nccl" and mesh.shape == (1, 1)
+        sharded = resident.make_train_chunk(config, optimizer, mesh=mesh)
+        plain = resident.make_train_chunk(config, optimizer)
+        a = b = create_train_state(5, config, optimizer, device=cuda)
+        for _ in range(2):
+            block = next(blocks)
+            a, a_metrics = sharded(a, data, block)
+            b, b_metrics = plain(b, data, block)
+            for name in resident.METRIC_NAMES:
+                assert torch.equal(a_metrics[name], b_metrics[name]), name
+            assert leaves_equal(a.params, b.params)
+            assert leaves_equal(a.opt_state.mu, b.opt_state.mu)
+            assert leaves_equal(a.opt_state.nu, b.opt_state.nu)
+    finally:
+        dist.destroy_process_group()
 
 
 def leaves_equal(a, b):

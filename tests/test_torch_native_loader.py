@@ -34,12 +34,13 @@ from multimodal_seq2seq_gscan_tpu_torch.decode.predict import (
 from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
 from multimodal_seq2seq_gscan_tpu_torch.train.state import (
     Adam, create_train_state)
-from tests.test_native_loader import test_native_loader_rejects_corrupt_files
+import tests.test_native_loader as jax_native_tests
 from tests.test_torch_decode_dtype import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 VOCABS = ("iv.txt", "tv.txt")
-PAYLOADS = test_native_loader_rejects_corrupt_files.pytestmark[0].args[1]
+PAYLOADS = (jax_native_tests.test_native_loader_rejects_corrupt_files
+            .pytestmark[0].args[1])
 
 
 @pytest.fixture(scope="module")

@@ -9,9 +9,11 @@ keys in the same order; ``input``, ``prediction``, ``target``,
 ``derivation``, ``situation``, ``accuracy`` and ``exact_match`` equal, and
 ``position_accuracy`` and both attention stacks within rtol 1e-5 / atol
 1e-6 (the JAX decode test's attention bar). ``evaluate`` with
-``max_examples_to_evaluate`` equals JAX's; ``mesh`` is refused by name,
-and a ``decode_dtype`` that is not one of the decoder's (the bf16 variants
-are taken since they were ported, tests/test_torch_decode_dtype.py) by a
+``max_examples_to_evaluate`` equals JAX's; a ``mesh`` whose data axis does
+not divide the batch is refused by a ``ValueError`` naming the sizes
+(sharded prediction: tests/test_torch_parallel.py), and a
+``decode_dtype`` that is not one of the decoder's (the bf16 variants are
+taken since they were ported, tests/test_torch_decode_dtype.py) by a
 ``ValueError`` naming the choices.
 """
 
@@ -22,6 +24,7 @@ import flax.serialization
 import jax
 import numpy as np
 import pytest
+import torch
 
 from multimodal_seq2seq_gscan_tpu.data.dataset import (
     GroundedScanDataset as JaxDataset)
@@ -36,6 +39,7 @@ from multimodal_seq2seq_gscan_tpu_torch.data.dataset import (
 from multimodal_seq2seq_gscan_tpu_torch.decode.predict import (
     evaluate, predict, predict_and_save)
 from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
+from multimodal_seq2seq_gscan_tpu_torch.parallel.mesh import Mesh
 from multimodal_seq2seq_gscan_tpu_torch.train.checkpoint import (
     load_params, read_checkpoint)
 
@@ -134,13 +138,14 @@ def test_evaluate_equals_jax(fixture, limit):
 
 
 @pytest.mark.parametrize("keyword,value,item", [
-    ("mesh", object(), "A11"), ("decode_dtype", "float16", "compute_dtype")])
+    ("mesh", Mesh(None, 0, 3, 3, 1, torch.device("cpu"), "gloo"),
+     "batch_size 256 does not split over the 3 ranks"),
+    ("decode_dtype", "float16", "compute_dtype")])
 @pytest.mark.parametrize("entry", ["predict", "evaluate"])
 def test_mesh_and_decode_dtype_are_refused(fixture, entry, keyword, value,
                                            item):
     port_data, config, params = fixture[1], fixture[3], fixture[5]
-    error = ValueError if keyword == "decode_dtype" else NotImplementedError
-    with pytest.raises(error, match=item):
+    with pytest.raises(ValueError, match=item):
         if entry == "predict":
             next(predict(port_data, params, config, 120, device="cpu",
                          **{keyword: value}))
