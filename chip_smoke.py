@@ -52,7 +52,14 @@ against the seeds' single-seed graphs replayed in turn. The port's C++
 dataset scanner is built from the checkout, loads the fixture as the json
 path does (arrays, strings, vocabularies), is what ``"auto"`` takes, and
 its ``--mode=test`` writes the json path's ``dev_predict.json`` byte for
-byte. The helper's library call is timed at the wide shapes too. Data
+byte. The dataset engine (``gscan/``, ``analysis/``, ``cli/gscan.py``)
+re-derives the target commands of all 4,608 fixture examples with its
+oracle, generates 2,000 generalization examples (statistics, SVG plots,
+PNG renders and GIFs checked), adds up to 200 by GECA (loaded alike by the
+native scanner and json), trains on them from a fresh init through
+``cli/seq2seq.py`` (20 steps in graphed chunks of 10: kernels 3, 4 and the
+helper, a falling loss), decodes their test split (kernel 2) and runs the
+three analysis modes on its ``predict.json``. The helper's library call is timed at the wide shapes too. Data
 parallelism (``parallel/``) runs twice: in process, a one-rank NCCL
 group trains a graphed resident chunk of 10 steps whose graph holds the
 step's all-reduces, bit for bit the unsharded chunk, and decodes the 4096
@@ -140,6 +147,11 @@ MULTISEED_K = 10
 MULTISEED_STEPS = 20
 # Data parallelism: the examples of the two-rank predict.json.
 DP_PREDICT_EXAMPLES = 512
+# The dataset engine: examples generated, GECA additions at most, and
+# predictions visualized.
+ENGINE_EXAMPLES = 2000
+ENGINE_GECA = 200
+ENGINE_VISUALIZED = 16
 
 # NVIDIA H100 SXM data sheet, full 700 W power limit: float32 outside the
 # tensor cores, and HBM3 bandwidth. A bound is the larger of operations over
@@ -1630,6 +1642,34 @@ def multiseed_checks(train_set, config, sync):
               "" if one <= s_graphs else " (slower here: see PERF.md)"))
 
 
+def require_same_split(split, got, want):
+    """A split loaded by the native scanner (``got``) and by json
+    (``want``): the same arrays, ids, strings and vocabularies."""
+    import numpy as np
+    require(got.backend == "native" and want.backend == "engine",
+            "backends {} and {}".format(got.backend, want.backend))
+    for name in ("_situations", "_input_lengths", "_target_lengths",
+                 "_agent_positions", "_target_positions"):
+        a, b = getattr(got, name), getattr(want, name)
+        require(a.dtype == b.dtype and np.array_equal(a, b),
+                "native {} {} differs".format(split, name))
+    require(got.num_examples == want.num_examples and all(
+        np.array_equal(a, b) for a, b in zip(got.input_ids, want.input_ids))
+        and all(np.array_equal(a, b) for a, b in zip(
+            got.target_ids, want.target_ids)),
+        "native {} ids differ".format(split))
+    require(all(got._situation_representations[i]
+                == want._situation_representations[i]
+                and got._derivation_representations[i]
+                == want._derivation_representations[i]
+                for i in range(got.num_examples)),
+            "native {} strings differ".format(split))
+    require(got.input_vocabulary.to_dict() == want.input_vocabulary.to_dict()
+            and got.target_vocabulary.to_dict()
+            == want.target_vocabulary.to_dict(),
+            "native {} vocabularies differ".format(split))
+
+
 def native_loader_checks(dataset, params, config, sync):
     """The port's C++ scanner on the card's host: built from the
     checkout's source, the fixture loaded by ``"native"`` and ``"engine"``
@@ -1637,7 +1677,6 @@ def native_loader_checks(dataset, params, config, sync):
     strings, both load times; ``"auto"`` must take native; and
     ``--mode=test`` of STEP_EXAMPLES records through the native backend
     must write the engine backend's ``dev_predict.json`` byte for byte."""
-    import numpy as np
     from multimodal_seq2seq_gscan_tpu_torch.cli import seq2seq
     from multimodal_seq2seq_gscan_tpu_torch.data import native_loader
     from multimodal_seq2seq_gscan_tpu_torch.data.dataset import (
@@ -1663,30 +1702,7 @@ def native_loader_checks(dataset, params, config, sync):
         loaded[backend] = (dev, train_split)
     for split, got, want in zip(("dev", "train"), loaded["native"],
                                 loaded["engine"]):
-        require(got.backend == "native" and want.backend == "engine",
-                "backends {} and {}".format(got.backend, want.backend))
-        for name in ("_situations", "_input_lengths", "_target_lengths",
-                     "_agent_positions", "_target_positions"):
-            a, b = getattr(got, name), getattr(want, name)
-            require(a.dtype == b.dtype and np.array_equal(a, b),
-                    "native {} {} differs".format(split, name))
-        require(got.num_examples == want.num_examples and all(
-            np.array_equal(a, b) for a, b in zip(got.input_ids,
-                                                 want.input_ids))
-            and all(np.array_equal(a, b) for a, b in zip(
-                got.target_ids, want.target_ids)),
-            "native {} ids differ".format(split))
-        require(all(got._situation_representations[i]
-                    == want._situation_representations[i]
-                    and got._derivation_representations[i]
-                    == want._derivation_representations[i]
-                    for i in range(got.num_examples)),
-                "native {} strings differ".format(split))
-        require(got.input_vocabulary.to_dict()
-                == want.input_vocabulary.to_dict()
-                and got.target_vocabulary.to_dict()
-                == want.target_vocabulary.to_dict(),
-                "native {} vocabularies differ".format(split))
+        require_same_split(split, got, want)
     print("fixture (dev {} + train {} examples) loaded: native {:.3f} s, "
           "engine {:.3f} s; arrays, ids, strings and vocabularies "
           "equal".format(loaded["native"][0].num_examples,
@@ -1726,6 +1742,324 @@ def native_loader_checks(dataset, params, config, sync):
     require(launches > 0, "--mode=test did not launch kernel 2")
     require(native_bytes == engine_bytes,
             "dev_predict.json differs between the backends")
+
+
+def read_png(path):
+    """A PNG of the port's writer (8-bit RGB, row filter 0) back to its
+    array, by zlib alone."""
+    import struct
+    import zlib
+    import numpy as np
+    with open(path, "rb") as f:
+        data = f.read()
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", path + ": not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        length, = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + length
+    width, height = header[:2]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        height, 1 + 3 * width)
+    require(header[2:] == (8, 2, 0, 0, 0) and not rows[:, 0].any(),
+            path + ": not 8-bit RGB with filter 0")
+    return rows[:, 1:].reshape(height, width, 3)
+
+
+def gif_images(path):
+    """The number of image descriptors of a GIF, by walking its blocks."""
+    with open(path, "rb") as f:
+        data = f.read()
+    require(data[:6] == b"GIF89a", path + ": not GIF89a")
+    pos = 13 + ((3 << ((data[10] & 7) + 1)) if data[10] & 0x80 else 0)
+    images = 0
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            pos += 2
+        elif data[pos] == 0x2C:
+            images += 1
+            flags = data[pos + 9]
+            pos += 10 + ((3 << ((flags & 7) + 1)) if flags & 0x80 else 0) + 1
+        else:
+            raise SmokeFailure("{}: unknown GIF block {:#x}".format(
+                path, data[pos]))
+        while data[pos]:
+            pos += data[pos] + 1
+        pos += 1
+    return images
+
+
+def check_visualizations(root, folders, replay):
+    """Each folder holds initial.png, situation_<i>.png for each step and a
+    movie.gif of as many images; ``replay(folder, frames)`` holds the
+    decoded PNGs to what they show. Returns the number of PNGs."""
+    count = 0
+    for folder in folders:
+        names = os.listdir(folder)
+        steps = sum(1 for n in names if n.startswith("situation_"))
+        require(sorted(names) == sorted(
+            ["initial.png", "movie.gif"]
+            + ["situation_{}.png".format(i) for i in range(steps)]),
+            "{}: files {}".format(folder, sorted(names)))
+        frames = [read_png(os.path.join(folder, "initial.png"))] + [
+            read_png(os.path.join(folder, "situation_{}.png".format(i)))
+            for i in range(steps)]
+        images = gif_images(os.path.join(folder, "movie.gif"))
+        require(images == len(frames), "{}: {} GIF images for {} PNGs".format(
+            os.path.relpath(folder, root), images, len(frames)))
+        replay(folder, frames)
+        count += len(frames)
+    return count
+
+
+def engine_checks(sync):
+    """The dataset engine and its analysis tools (``gscan/``,
+    ``analysis/``, ``cli/gscan.py``) on the card's host, feeding the card:
+    (1) the oracle re-derives the target commands of all the fixture's
+    examples; (2) ``--mode=generate`` of ENGINE_EXAMPLES generalization
+    examples (k-shot 5, a dev set, renders of one example a split), its
+    statistics, SVG plots, PNGs and GIFs checked; (3) ``--mode=augment_geca``
+    of up to ENGINE_GECA examples, reloaded by the native scanner and by
+    json alike; (4) ``cli/seq2seq.py --mode=train`` from a fresh init at
+    the fixture's widths, vocabularies from the generated train split,
+    TRAIN_STEPS steps at batch TRAIN_BATCH in graphed chunks of RESIDENT_K
+    (kernels 3, 4 and the helper; the last chunk's mean loss below the
+    first's), then ``--mode=test`` of the generated test split (kernel 2);
+    (5) ``--mode=error_analysis``, ``position_analysis`` and
+    ``execute_commands --only_save_errors`` (ENGINE_VISUALIZED examples) on
+    its predict.json. Outputs stay in chiprun_out/engine_smoke/, the
+    datasets, predictions and checkpoint removed at the end."""
+    import xml.etree.ElementTree as ElementTree
+    import numpy as np
+    from multimodal_seq2seq_gscan_tpu_torch.analysis.render import (
+        render_situation)
+    from multimodal_seq2seq_gscan_tpu_torch.cli import gscan as gscan_cli
+    from multimodal_seq2seq_gscan_tpu_torch.cli import seq2seq
+    from multimodal_seq2seq_gscan_tpu_torch.data.dataset import (
+        GroundedScanDataset)
+    from multimodal_seq2seq_gscan_tpu_torch.gscan import (
+        GroundedScan, Situation)
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    from multimodal_seq2seq_gscan_tpu_torch.train import loop
+
+    def gscan(*args):
+        gscan_cli.main(vars(gscan_cli.build_parser().parse_args(list(args))))
+
+    root = ROOT / "chiprun_out" / "engine_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    generated, geca, trained = (str(root / name) for name in
+                                ("generated", "geca", "trained"))
+    times = {}
+
+    # (1) The oracle on the fixture.
+    start = time.perf_counter()
+    fixture = GroundedScan.load_dataset_from_file(
+        str(FIXTURE / "dataset.txt"), str(root))
+    replayed = 0
+    for split in ("train", "dev"):
+        for example in fixture._data_pairs[split]:
+            commands, _, _ = fixture.demonstrate_command(
+                fixture.parse_derivation_repr(example["derivation"]),
+                Situation.from_representation(example["situation"]))
+            require(",".join(commands) == example["target_commands"],
+                    "oracle: {} example differs".format(split))
+            replayed += 1
+    times["oracle"] = time.perf_counter() - start
+    print("oracle: {} fixture examples (train {}, dev {}) re-derived to "
+          "their stored commands in {:.2f} s".format(
+              replayed, len(fixture._data_pairs["train"]),
+              len(fixture._data_pairs["dev"]), times["oracle"]))
+    require(replayed == 4608, "the fixture has {} examples".format(replayed))
+
+    # (2) Generation.
+    start = time.perf_counter()
+    gscan("--mode=generate", "--split=generalization", "--grid_size=6",
+          "--type_grammar=adverb", "--max_examples={}".format(ENGINE_EXAMPLES),
+          "--num_resampling=1", "--make_dev_set", "--k_shot_generalization=5",
+          "--seed=1", "--visualize_per_split=1",
+          "--output_directory=" + generated)
+    times["generate"] = time.perf_counter() - start
+    dataset_path = os.path.join(generated, "dataset.txt")
+    scan = GroundedScan.load_dataset_from_file(dataset_path, generated)
+    sizes = {split: len(examples)
+             for split, examples in scan._data_pairs.items() if examples}
+    print("--mode=generate: {:.2f} s; splits {}".format(times["generate"],
+                                                        sizes))
+    names = os.listdir(generated)
+    for split in ("train", "dev", "test", "visual", "situational_1",
+                  "situational_2", "contextual", "adverb_1", "adverb_2",
+                  "visual_easier"):
+        require(split + "_dataset_stats.txt" in names,
+                "no statistics of " + split)
+        if split in sizes:
+            require(os.path.getsize(os.path.join(
+                generated, split + "_dataset_stats.txt")) > 0,
+                "empty statistics of " + split)
+    svgs = [n for n in names if n.endswith(".svg")]
+    for name in svgs:
+        ElementTree.parse(os.path.join(generated, name))
+    require(len(svgs) >= 10 * len(sizes) - 10,
+            "{} SVG plots for {} splits".format(len(svgs), len(sizes)))
+    require(not [n for n in names if n.endswith(".png")],
+            "a plot was written as PNG")
+
+    def replay_example(folder, frames):
+        """The folder's initial frame is one example's situation, and its
+        steps the oracle's demonstration of it."""
+        command = os.path.basename(os.path.dirname(folder)).split("_")
+        for split_examples in scan._data_pairs.values():
+            for example in split_examples:
+                if example["command"].split(",") != command:
+                    continue
+                situation = Situation.from_representation(
+                    example["situation"])
+                if not np.array_equal(render_situation(situation),
+                                      frames[0]):
+                    continue
+                _, demonstration, _ = scan.demonstrate_command(
+                    scan.parse_derivation_repr(example["derivation"]),
+                    situation)
+                require(len(demonstration) + 1 == len(frames) and all(
+                    np.array_equal(render_situation(s), frame)
+                    for s, frame in zip(demonstration, frames[1:])),
+                    folder + ": frames differ from the demonstration")
+                return
+        raise SmokeFailure(folder + ": no example renders as initial.png")
+
+    folders = sorted(str(p.parent) for p in Path(generated).glob(
+        "*/situation_*/movie.gif"))
+    require(folders, "--mode=generate rendered no example")
+    pngs = check_visualizations(generated, folders, replay_example)
+    print("renders: {} examples, {} PNGs decoded (zlib) equal to their "
+          "situations rendered again; {} GIFs, one image a PNG; {} SVG "
+          "plots parsed as XML".format(len(folders), pngs, len(folders),
+                                       len(svgs)))
+
+    # (3) GECA.
+    start = time.perf_counter()
+    gscan("--mode=augment_geca", "--load_dataset_from=" + dataset_path,
+          "--max_augmented={}".format(ENGINE_GECA), "--seed=1",
+          "--output_directory=" + geca)
+    times["geca"] = time.perf_counter() - start
+    geca_path = os.path.join(geca, "dataset.txt")
+    loads = {}
+    for backend in ("native", "engine"):
+        split = GroundedScanDataset(geca_path, geca, split="train",
+                                    generate_vocabulary=True,
+                                    backend=backend)
+        split.read_dataset()
+        loads[backend] = split
+    require_same_split("train", loads["native"], loads["engine"])
+    added = loads["engine"].num_examples - sizes["train"]
+    print("--mode=augment_geca: {:.2f} s, {} examples added to train ({} "
+          "now); native and json loads equal".format(
+              times["geca"], added, loads["engine"].num_examples))
+    require(0 < added <= ENGINE_GECA, "GECA added {}".format(added))
+
+    # (4) Into the card.
+    chunk_losses = []
+    make_chunk = loop.make_train_chunk
+
+    def recording_chunk(*args, **kwargs):
+        chunk = make_chunk(*args, **kwargs)
+
+        def run(*chunk_args, **chunk_kwargs):
+            state, metrics = chunk(*chunk_args, **chunk_kwargs)
+            chunk_losses.append(metrics["loss"])
+            return state, metrics
+        return run
+
+    common = ["--data_directory=" + generated,
+              "--output_directory=" + trained, "--seed={}".format(SEED)]
+    k2.launches = 0
+    tf.launches.update({name: 0 for name in tf.launches})
+    loop.make_train_chunk = recording_chunk
+    try:
+        start = time.perf_counter()
+        seq2seq.main(vars(seq2seq.build_parser().parse_args(
+            ["--mode=train", "--generate_vocabularies",
+             "--training_batch_size={}".format(TRAIN_BATCH),
+             "--max_training_iterations={}".format(TRAIN_STEPS),
+             "--print_every={}".format(RESIDENT_K),
+             "--evaluate_every={}".format(TRAIN_STEPS),
+             "--steps_per_execution={}".format(RESIDENT_K)] + common)),
+            device=DEVICE)
+        sync()
+        times["train"] = time.perf_counter() - start
+    finally:
+        loop.make_train_chunk = make_chunk
+    train_launches = dict(tf.launches)
+    means = [float(losses.double().mean()) for losses in chunk_losses]
+    print("--mode=train: {:.2f} s, {} chunks of {} steps at batch {}, mean "
+          "losses {}; launches {}".format(
+              times["train"], len(means), RESIDENT_K, TRAIN_BATCH,
+              ["{:.4f}".format(m) for m in means], train_launches))
+    require(len(means) == TRAIN_STEPS // RESIDENT_K
+            and all(math.isfinite(m) for m in means) and means[-1] < means[0],
+            "training loss not finite and falling: {}".format(means))
+    require(all(count > 0 for count in train_launches.values()),
+            "a kernel of training was not launched: {}".format(
+                train_launches))
+    k2.launches = 0
+    start = time.perf_counter()
+    seq2seq.main(vars(seq2seq.build_parser().parse_args(
+        ["--mode=test", "--splits=test",
+         "--resume_from_file=" + os.path.join(trained, "checkpoint.msgpack"),
+         "--test_batch_size={}".format(TRAIN_BATCH)] + common)),
+        device=DEVICE)
+    sync()
+    times["test"] = time.perf_counter() - start
+    with open(os.path.join(trained, "test_predict.json")) as f:
+        records = json.load(f)
+    exact = sum(record["exact_match"] for record in records)
+    print("--mode=test: {:.2f} s, {} records ({} exact), kernel 2 launches "
+          "{}".format(times["test"], len(records), exact, k2.launches))
+    require(k2.launches > 0, "--mode=test did not launch kernel 2")
+    require(len(records) == sizes["test"], "{} records for {} test "
+            "examples".format(len(records), sizes["test"]))
+
+    # (5) Analysis.
+    start = time.perf_counter()
+    analysed = ["--load_dataset_from=" + dataset_path,
+                "--output_directory=" + trained,
+                "--predicted_commands_files=test_predict.json"]
+    gscan("--mode=error_analysis", *analysed)
+    gscan("--mode=position_analysis", *analysed)
+    gscan("--mode=execute_commands", "--only_save_errors",
+          "--max_visualized={}".format(ENGINE_VISUALIZED), *analysed)
+    times["analysis"] = time.perf_counter() - start
+    report = os.path.join(trained, "test_predict", "error_analysis.txt")
+    require(os.path.getsize(report) > 0, "empty error analysis")
+    for xls in (os.path.join(trained, "test_predict", "error_analysis.xls"),
+                os.path.join(trained, "position_analysis.xls")):
+        with open(xls, "rb") as f:
+            require(f.read(4) == b"\xd0\xcf\x11\xe0", xls + ": not OLE2")
+    folders = sorted(str(p.parent) for p in Path(trained).glob(
+        "errors/*/situation_*/movie.gif"))
+    require(len(folders) == min(ENGINE_VISUALIZED, len(records) - exact),
+            "{} visualized errors".format(len(folders)))
+    require(not (Path(trained) / "exact_matches").exists(),
+            "--only_save_errors saved an exact match")
+
+    def same_shape(folder, frames):
+        require(all(frame.shape == (6 * 60, 6 * 60, 3) for frame in frames),
+                folder + ": frames of another shape")
+
+    pngs = check_visualizations(trained, folders, same_shape)
+    print("analysis: {:.2f} s; error_analysis.txt, its .xls, "
+          "position_analysis.xls; {} visualized errors, {} PNGs and their "
+          "GIFs".format(times["analysis"], len(folders), pngs))
+    for path in (dataset_path, geca_path,
+                 os.path.join(trained, "test_predict.json"),
+                 os.path.join(trained, "checkpoint.msgpack")):
+        os.remove(path)
+    print("engine phase steps (s): {}".format(
+        {name: round(value, 3) for name, value in times.items()}))
 
 
 def data_parallel_one_rank(train_set, train_config, params, config, inputs,
@@ -2679,6 +3013,10 @@ def main():
 
     with phase("data: native loader"), encoder_precision(tf32_seen):
         native_loader_checks(dataset, params, config, sync)
+        print(smi)
+
+    with phase("dataset engine and analysis"), encoder_precision(tf32_seen):
+        engine_checks(sync)
         print(smi)
 
     print("TF32 flags (matmul, cuDNN) inside the entry points on the main "
