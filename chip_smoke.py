@@ -22,8 +22,11 @@ their plain versions on random inputs at B=200, T=56 and T=53, and, with the
 plain versions, to float64 on the fixture's train batches. Every kernel is
 then held, and timed, at three shapes past the attention's register-resident
 form and past the resident weight slices of kernels 3 and 4 (a 9x9 grid,
-H=E=136, H=E=256 with 72 command keys and a 12x12 grid), and kernel 2 past
-its ring plans (H=E=449, 640, 1024). The decode's examples are also
+H=E=136, H=E=256 with 72 command keys and a 12x12 grid; the helper beside
+its library call), and kernel 2 past its ring plans, on its grid plan
+(H=E=449, 640, 1024 at batch 1024, and a second block at H=E=640 with 90%
+of the rows done at entry); these rows also stand, as ``wide`` lists, on
+their kernels' entries of the final kernels line. The decode's examples are also
 written as ``predict.json`` (``predict_and_save``), held to the decode's
 tokens and exact match. The second main path resumes training from the
 fixture checkpoint for 20 steps at batch 200 through ``train()``, streamed
@@ -59,7 +62,7 @@ PNG renders and GIFs checked), adds up to 200 by GECA (loaded alike by the
 native scanner and json), trains on them from a fresh init through
 ``cli/seq2seq.py`` (20 steps in graphed chunks of 10: kernels 3, 4 and the
 helper, a falling loss), decodes their test split (kernel 2) and runs the
-three analysis modes on its ``predict.json``. The helper's library call is timed at the wide shapes too. Data
+three analysis modes on its ``predict.json``. Data
 parallelism (``parallel/``) runs twice: in process, a one-rank NCCL
 group trains a graphed resident chunk of 10 steps whose graph holds the
 step's all-reduces, bit for bit the unsharded chunk, and decodes the 4096
@@ -126,12 +129,13 @@ SEED = 42
 # TRAIN_T.
 WIDE_SHAPES = (("W1", 100, 16, 81), ("W2", 136, 16, 36), ("W3", 256, 72, 144))
 WIDE_T = 24
-# Kernel 2 past the plans that keep a step's gate items one per thread and
-# its buffers in shared memory (H <= 448 before them): (name, H = E), at
-# M_t = 16, M_v = 36, V = 9, K = 32 steps and batch PAST_448_BATCH (one
-# wave of the 8-row plans; each launch well under 2 s).
-PAST_448 = (("W4", 449), ("W5", 640), ("W6", 1024))
+# Kernel 2 past its ring plans (H <= 256), on its grid plan: (name, H = E,
+# share of rows done at entry), at M_t = 16, M_v = 36, V = 9, K = 32 steps
+# and batch PAST_448_BATCH (each launch well under 1 s).
+PAST_448 = (("W4", 449, 0.0), ("W5", 640, 0.0), ("W6", 1024, 0.0))
 PAST_448_BATCH = 1024
+# The share of rows done at entry of a second block timed at W5.
+PAST_448_DONE = 0.9
 # The resident trainer: chunks of RESIDENT_K steps held against single
 # steps; chunk time also at the JAX default of 50 steps.
 RESIDENT_K = 10
@@ -932,22 +936,29 @@ def wide_shape_rows(gen, device, vocab, sos_idx, eos_idx):
 
 def past_448_rows(gen, device, vocab, sos_idx, eos_idx):
     """Kernel 2 at PAST_448 (H = 449, 640, 1024; M_t = 16, M_v = 36, random
-    weights from SOS): held to its plain version at the JAX bars (tokens
+    weights from SOS), and a second block at W5 with PAST_448_DONE of the
+    rows done at entry: held to its plain version at the JAX bars (tokens
     and attention) and to float64 (attention, h and c;
     ``hold_decode_block``), then timed beside its plain version and its
-    bound, with the plan it takes. Returns one row per shape."""
+    bound, with the plan it takes (on an H100, the grid plan). Returns one
+    row per shape."""
+    import torch
     from multimodal_seq2seq_gscan_tpu_torch.ops import _build
     from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
     rows = []
     index = _build.device_index(device)
     batch, m_t, m_v = PAST_448_BATCH, 16, 36
-    for name, h in PAST_448:
-        label = "wide {} (H=E={}, M_t={}, M_v={}, B={})".format(
-            name, h, m_t, m_v, batch)
+    h100 = torch.cuda.get_device_name(device).startswith("NVIDIA H100")
+    for name, h, done in PAST_448 + (("W5", 640, PAST_448_DONE),):
+        label = "wide {} (H=E={}, M_t={}, M_v={}, B={}{})".format(
+            name, h, m_t, m_v, batch,
+            ", {:.0%} done at entry".format(done) if done else "")
         args = random_block_inputs(gen, device, batch, m_t, m_v, h, vocab,
-                                   sos_idx)
-        plan = k2.block_plan(h, vocab, m_t, m_v, index).describe()
-        print("{} decode_block: {}".format(label, plan))
+                                   sos_idx, done_fraction=done)
+        plan = k2.block_plan(h, vocab, m_t, m_v, index)
+        print("{} decode_block: {}".format(label, plan.describe()))
+        require(plan.grid or not h100, "{}: kernel 2 takes {} on an H100, "
+                "not its grid plan".format(label, plan.describe()))
         before = k2.launches
         # The JAX bars on the tokens and the attention; h and c, which the
         # plain version itself carries that far from float64 at these
@@ -969,10 +980,12 @@ def past_448_rows(gen, device, vocab, sos_idx, eos_idx):
             batch, m_t, m_v, h, vocab, EXIT_CHECK_EVERY,
             sum(w.numel() * 4 for w in args[7]), row_steps))
         print("{} decode_block: {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms "
-              "({}); {}".format(label, ms, plain_ms, *bound, plan))
+              "({}); {}".format(label, ms, plain_ms, *bound,
+                                plan.describe()))
         rows.append(dict(shape=name, kernel="decode_block", ms=ms,
                          plain_ms=plain_ms, bound_ms=bound[0],
-                         bound_by=bound[1], plan=plan, batch=batch))
+                         bound_by=bound[1], plan=plan.describe(), batch=batch,
+                         done_at_entry=done))
         del args
     return rows
 
@@ -3243,6 +3256,12 @@ def main():
             "launches": launches_train[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": library_ms})
+    # Each kernel's rows of the phase "kernels at wide shapes" (W1-W3, and
+    # kernel 2's W4-W6 and its second block at W5).
+    for entry in kernels:
+        rows = [row for row in wide_rows if row["kernel"] == entry["name"]]
+        if rows:
+            entry["wide"] = rows
     print("near-ties: block decode {}, step decode {}".format(ties_block,
                                                               ties_step))
     print("total wall time: {:.2f} s".format(

@@ -54,17 +54,30 @@
 //   device memory every step; as rows finish, fewer are read.
 // - Any H. The plans above keep a product's items one per thread and the
 //   [H][R + 4] buffers in shared memory, and a gate item's slices sum up to
-//   4H / S terms, too many past H = 256 (kMaxRingSum). Past them two plans
-//   read the weights straight from L2 (no ring): every item summed by 16
-//   threads, every product as many passes of items over the CTA's threads
-//   as it needs, a barrier before each product instead of the ring's, and
-//   each attention row in two passes over its keys (attend_row_wide, any
-//   H). One keeps the buffers in shared memory, the last in a per-CTA
-//   scratch in global memory (scratch, sized by the host), which L2 holds
-//   while the CTA runs; it needs only the logits, the row lists and the
-//   staged scores in shared memory, so it takes any H.
+//   4H / S terms, too many past H = 256 (kMaxRingSum). Past them the grid
+//   plan (decode_grid.cu) runs every product of a step grid-wide on
+//   product_core.cuh's 128 x 256 register tiles, so that each weight is
+//   read once a step for every 128 rows instead of once for every 8: one
+//   CTA per SM, the phases of a step separated by grid barriers, the
+//   activations in a global scratch (sized by the host). Its shared memory
+//   is the ring's at every H, M and V, so it takes every shape.
 // f32 on the CUDA cores only (TF32 would move the numbers off the JAX bars).
 #include "attend.cuh"
+
+// The grid plan (decode_grid.cu).
+size_t gscan_decode_grid_smem_bytes(int H, int Mt, int Mv);
+size_t gscan_decode_grid_scratch_floats(int B, int H, int V);
+int gscan_decode_grid(
+    const float* proj_txt, const float* cmd_mask, const float* proj_vis,
+    const float* h_in, const float* c_in, const int* tok_in,
+    const unsigned char* done_in, const float* txt_qw, const float* txt_ew,
+    const float* q2k_w, const float* q2k_b, const float* vis_qw,
+    const float* vis_ew, const float* emb, const float* w_ih,
+    const float* w_hh, const float* bias, const float* out_w,
+    const float* out_proj, float* h_out, float* c_out, int* tok_out,
+    unsigned char* done_out, int* step_tokens, float* step_emitted,
+    float* step_attn_cmd, float* step_attn_sit, float* scratch, int B,
+    int Mt, int Mv, int H, int V, int K, int eos, int vec, void* stream);
 
 namespace {
 
@@ -75,23 +88,24 @@ constexpr int kRT = 8;             // rows per register tile
 // took 1.11x as long on the fixture's first block; PERF.md).
 constexpr int kCT = 4;
 constexpr int kStages = 3;         // ring slots
-// Plans, in order of preference: rows per CTA, floats per ring slot (32 KB
-// slots measured faster than 16 KB ones: half the tiles per step; 0: no
-// ring, the weights read from L2) and whether the buffers live in a
-// per-CTA scratch in global memory.
+// Plans, in order of preference: rows per CTA and floats per ring slot
+// (32 KB slots measured faster than 16 KB ones: half the tiles per step),
+// or the grid plan (decode_grid.cu: the rows of the whole batch in every
+// product, one CTA per SM, its activations in a global scratch), which
+// takes every shape.
 struct Plan {
   int rows, slot_floats;
-  bool global;
+  bool grid;
 };
 constexpr Plan kPlans[] = {
     {32, 8192, false}, {32, 4096, false}, {16, 8192, false},
     {16, 4096, false}, {8, 8192, false},  {8, 4096, false},
-    {8, 0, false},     {8, 0, true}};
+    {0, 0, true}};
 // The longest sum of one slice of a ring plan's gate item (4H / S terms at
 // the plan's rows). Longer ones left the kernel's c further from float64
 // than the plain version's (twice that distance, PERF.md: H = 449 at 1796
-// terms); at W3's 1024 (H = 256) it is as close. Past it a plan without a
-// ring, whose slices sum 4H / 16 terms, takes H.
+// terms); at W3's 1024 (H = 256) it is as close. Past it the grid plan,
+// whose sums run over at most 1,024 terms, takes H.
 constexpr int kMaxRingSum = 1024;
 constexpr int kNumPlans = sizeof(kPlans) / sizeof(kPlans[0]);
 constexpr int kBuffers = 7;        // [H][R + kPad] shared buffers
@@ -312,10 +326,7 @@ __device__ __forceinline__ void mac_tile(float (&acc)[kCT][kRT],
 // the sum. kGate: hidden unit u = c, columns u + gH of the 4H gate
 // columns for gates g = 0..3 (cols[g]); else columns 4c .. 4c + 3 of H.
 // Columns past the last are clamped to it (or, read as a float4, read past
-// it) and never stored. The plans without a ring (kDirect) always take
-// S = kMaxSlices, which keeps each slice's sum short (4H / 16 terms for the
-// gates) however wide H is, and run the items in passes: pass p takes items
-// p * kThreads / S, ... (a ring plan's items take one pass).
+// it) and never stored.
 template <bool kGate>
 struct Item {
   bool busy, half;  // half: at most 4 rows (mac_tile's kHalf)
@@ -324,26 +335,19 @@ struct Item {
   float acc[kCT][kRT];
 
   // The product's items n and the threads S summing each.
-  __host__ __device__ static void shape(int rows, int H, bool direct, int& n,
-                                        int& S) {
+  __host__ __device__ static void shape(int rows, int H, int& n, int& S) {
     const int per_tile = kGate ? H : (H + kCT - 1) / kCT;
     n = (rows + kRT - 1) / kRT * per_tile;
     S = 1;
-    while (S < kMaxSlices && (direct || 2 * S * n <= kThreads)) S *= 2;
+    while (S < kMaxSlices && 2 * S * n <= kThreads) S *= 2;
   }
 
-  __device__ static int passes(int rows, int H, bool direct) {
-    int n, S;
-    shape(rows, H, direct, n, S);
-    return (n + kThreads / S - 1) / (kThreads / S);
-  }
-
-  __device__ Item(int rows, int H, bool direct, int pass) {
+  __device__ Item(int rows, int H) {
     const int per_tile = kGate ? H : (H + kCT - 1) / kCT;
     int n;
-    shape(rows, H, direct, n, S);
+    shape(rows, H, n, S);
     half = rows <= 4;
-    const int item = threadIdx.x / S + pass * (kThreads / S);
+    const int item = threadIdx.x / S;
     s = threadIdx.x % S;
     busy = item < n;
     rt = item / per_tile;
@@ -379,13 +383,6 @@ struct Item {
         mac(w, N, kt, x + (size_t)i * kt * ld + rt * kRT, ld,
             !kGate && ring.vec);
     }
-  }
-
-  // The whole of one segment's weights w [H][N], read from L2 (the plans
-  // without a ring), against inputs x [H][ld].
-  __device__ void direct(const float* w, const float* x, int ld, int H,
-                         bool vec) {
-    if (busy) mac(w, kGate ? 4 * H : H, H, x + rt * kRT, ld, !kGate && vec);
   }
 
   // Adds the slices' partial sums (every thread of the CTA calls this).
@@ -425,24 +422,16 @@ struct Item {
 };
 
 // One product over `rows` rows: feed(item) consumes its segments, the
-// slices' sums are added, finish(item) stores them. With the ring, one pass
-// (its tiles' barriers order the product after the writes it reads);
-// without (kDirect), a barrier first, then as many passes as the items
-// need. Every thread of the CTA calls this.
-template <bool kGate, bool kDirect, typename Feed, typename Finish>
+// slices' sums are added, finish(item) stores them (the ring's tiles'
+// barriers order the product after the writes it reads). Every thread of
+// the CTA calls this.
+template <bool kGate, typename Feed, typename Finish>
 __device__ __forceinline__ void product(int rows, int H, Feed&& feed,
                                         Finish&& finish) {
-  int passes = 1;
-  if constexpr (kDirect) {
-    __syncthreads();
-    passes = Item<kGate>::passes(rows, H, true);
-  }
-  for (int p = 0; p < passes; ++p) {
-    Item<kGate> item(rows, H, kDirect, p);
-    feed(item);
-    item.reduce();
-    finish(item);
-  }
+  Item<kGate> item(rows, H);
+  feed(item);
+  item.reduce();
+  finish(item);
 }
 
 // Keys per warp of the scores' shared-memory rows (0: staged in the
@@ -509,9 +498,7 @@ __device__ int select_rows(const unsigned char* __restrict__ done_in, int B,
 // keys (attend.cuh, AttendPass) and the chunks are combined through shared
 // memory (parts, [kWarps][H + 2]), so that few rows still keep many loads
 // in flight. ctx and pq are [H][ld] buffers; scores: [kWarps][m_s] (m_s = 0:
-// the weights output). NC = 0 (the plans without a ring, any H): one warp
-// a row, two passes over its keys (attend_row_wide). Every thread of the
-// CTA calls this.
+// the weights output). Every thread of the CTA calls this.
 template <int NC>
 __device__ void attend_rows(int n, const int* s_row, const float* pq,
                             int ld, const float* __restrict__ keys,
@@ -520,53 +507,39 @@ __device__ void attend_rows(int n, const int* s_row, const float* pq,
                             float* ctx, float* weights, float* scores,
                             int m_s, float* parts, bool vec) {
   const int warp = threadIdx.x >> 5;
-  if constexpr (NC == 0) {
-    for (int s = warp; s < n; s += kWarps) {
-      const size_t b = s_row[s];
-      float* row_weights = weights + b * M;
-      gscan::attend_row_wide(pq + s, ld, keys + b * M * H,
-                             mask != nullptr ? mask + b * M : nullptr, ew, M,
-                             H, ctx + s, ld, row_weights,
-                             m_s ? scores + warp * m_s : row_weights, vec);
+  int W = 1;
+  while (2 * W * n <= kWarps) W *= 2;
+  for (int task = warp; task < n * W; task += kWarps) {
+    const int s = task / W, w = task % W;
+    const size_t b = s_row[s];
+    float* row_weights = weights + b * M;
+    float* row_scores =
+        m_s ? scores + (W == 1 ? warp : s * W) * m_s : row_weights;
+    const float* row_mask = mask != nullptr ? mask + b * M : nullptr;
+    if (W == 1) {
+      gscan::attend_row<NC>(pq + s, ld, keys + b * M * H, row_mask, ew, M,
+                            H, ctx + s, ld, row_weights, row_scores, vec);
+      continue;
     }
-  } else {
-    int W = 1;
-    while (2 * W * n <= kWarps) W *= 2;
-    for (int task = warp; task < n * W; task += kWarps) {
-      const int s = task / W, w = task % W;
-      const size_t b = s_row[s];
-      float* row_weights = weights + b * M;
-      float* row_scores =
-          m_s ? scores + (W == 1 ? warp : s * W) * m_s : row_weights;
-      const float* row_mask = mask != nullptr ? mask + b * M : nullptr;
-      if (W == 1) {
-        gscan::attend_row<NC>(pq + s, ld, keys + b * M * H, row_mask, ew, M,
-                              H, ctx + s, ld, row_weights, row_scores, vec);
-        continue;
-      }
-      const int chunk = (M + W - 1) / W;
-      const int m_begin = min(M, w * chunk);
-      const gscan::AttendPass<NC> pass(pq + s, ld, keys + b * M * H, row_mask,
-                                       ew, m_begin, min(M, m_begin + chunk), M,
-                                       H, row_scores, vec);
-      pass.save(parts + task * (H + 2), H);
-    }
-    if (W == 1) return;
-    __syncthreads();
-    if (warp < n) {
-      const size_t b = s_row[warp];
-      gscan::attend_combine(parts + warp * W * (H + 2), W, M, H, ctx + warp,
-                            ld, weights + b * M,
-                            m_s ? scores + warp * W * m_s : weights + b * M);
-    }
+    const int chunk = (M + W - 1) / W;
+    const int m_begin = min(M, w * chunk);
+    const gscan::AttendPass<NC> pass(pq + s, ld, keys + b * M * H, row_mask,
+                                     ew, m_begin, min(M, m_begin + chunk), M,
+                                     H, row_scores, vec);
+    pass.save(parts + task * (H + 2), H);
+  }
+  if (W == 1) return;
+  __syncthreads();
+  if (warp < n) {
+    const size_t b = s_row[warp];
+    gscan::attend_combine(parts + warp * W * (H + 2), W, M, H, ctx + warp,
+                          ld, weights + b * M,
+                          m_s ? scores + warp * W * m_s : weights + b * M);
   }
 }
 
-// NC: attend.cuh's chunks of 128 features (chosen by the host from H; 0:
-// attend_row_wide). kDirect: a plan without a ring (slot_floats 0), the
-// weights read from L2; its buffers in scratch ([gridDim.x][kBuffers][H]
-// [R + kPad] floats) where that is not null, else in shared memory.
-template <int NC, bool kDirect>
+// NC: attend.cuh's chunks of 128 features (chosen by the host from H).
+template <int NC>
 __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
     const float* __restrict__ proj_txt, const float* __restrict__ cmd_mask,
     const float* __restrict__ proj_vis, const float* __restrict__ h_in,
@@ -577,7 +550,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
     int* __restrict__ step_tokens, float* __restrict__ step_emitted,
     float* step_attn_cmd, float* step_attn_sit, int B, int Mt, int Mv, int H,
     int V, int K, int eos, int R, int slot_floats, int kt_h, int kt_4h,
-    bool vec, float* __restrict__ scratch) {
+    bool vec) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -585,11 +558,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
   const int HR = H * LD;
   float* ring_base = smem;
   float* buf = ring_base + kStages * slot_floats;
-  float* tail = buf + kBuffers * HR;  // what follows the buffers in smem
-  if (kDirect && scratch != nullptr) {
-    buf = scratch + (size_t)blockIdx.x * kBuffers * HR;
-    tail = ring_base;
-  }
+  float* tail = buf + kBuffers * HR;  // what follows the buffers
   // The carried state (h, c) and the two scratch buffers (A: a projected
   // query, then the head's hidden layer; B: the visual query, then the new
   // hidden state) trade places at every step's compaction.
@@ -614,7 +583,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
   float* s_parts = s_scores + kWarps * m_s;
 
   Ring ring{ring_base, slot_floats, H, kt_h, kt_4h, vec};
-  if (!kDirect) ring.prologue(wt);
+  ring.prologue(wt);
 
   for (int i = tid; i < kBuffers * HR; i += kThreads) buf[i] = 0.f;
   int n_emit;
@@ -632,14 +601,10 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
 
   const int th = H / kt_h, t4 = H / kt_4h;  // tiles per segment
   // Segment seg of a step's weights (see Ring) into an item's sums, against
-  // the inputs x: through the ring, or read from L2 (kDirect).
+  // the inputs x, through the ring.
   auto feed = [&](auto& item, int seg, const float* x) {
-    if constexpr (kDirect) {
-      item.direct(segment_base(wt, seg, H), x, LD, H, vec);
-    } else {
-      const bool gate = seg >= 4 && seg < 8;
-      item.segment(ring, wt, x, LD, gate ? kt_4h : kt_h, gate ? t4 : th);
-    }
+    const bool gate = seg >= 4 && seg < 8;
+    item.segment(ring, wt, x, LD, gate ? kt_4h : kt_h, gate ? t4 : th);
   };
   const auto same = [](int, float v) { return v; };
   PhaseClock clock;
@@ -656,7 +621,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
     }
 
     // Textual query h W_q.
-    product<false, kDirect>(
+    product<false>(
         n_attn, H, [&](auto& item) { feed(item, 0, s_h); },
         [&](auto& item) { item.store(s_a, LD, H, same); });
     __syncthreads();
@@ -666,7 +631,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
                     s_scores, m_s, s_parts, vec);
     clock.mark(1);
     // Conditional visual query tanh([h; ctx_cmd] W + b).
-    product<false, kDirect>(
+    product<false>(
         n_attn, H,
         [&](auto& item) {
           feed(item, 1, s_h);
@@ -678,7 +643,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
           });
         });
     // Projected visual query.
-    product<false, kDirect>(
+    product<false>(
         n_attn, H, [&](auto& item) { feed(item, 3, s_b); },
         [&](auto& item) { item.store(s_a, LD, H, same); });
     __syncthreads();
@@ -691,7 +656,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
     if (n_emit > 0) {
       // LSTM gates [emb; ctx_cmd; ctx_sit] W_ih + h W_hh + b, and the cell;
       // c and the new h for the emitting rows only.
-      product<true, kDirect>(
+      product<true>(
           n_emit, H,
           [&](auto& item) {
             feed(item, 4, s_emb);
@@ -720,7 +685,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
       clock.mark(4);
       // Head's hidden layer [emb; h_new; ctx_cmd; ctx_sit] W_out, and the
       // carried h. Nothing here reads s_h.
-      product<false, kDirect>(
+      product<false>(
           n_emit, H,
           [&](auto& item) {
             feed(item, 8, s_emb);
@@ -839,7 +804,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
     p = s_row, s_row = s_row_next, s_row_next = p;
     p = s_tok, s_tok = s_tok_next, s_tok_next = p;
   }
-  if (!kDirect) ring.drain();
+  ring.drain();
 
   // Slots [0, n_emit) are still emitting; the rest are done.
   for (int i = tid; i < rows * H; i += kThreads) {
@@ -854,26 +819,14 @@ __global__ void __launch_bounds__(kThreads, 1) decode_block_kernel(
   }
 }
 
-// A plan without a ring takes any H: its attentions are attend_row_wide's
-// (kernel NC = 0), which stage no chunk states.
-bool direct(Plan plan) { return plan.slot_floats == 0; }
-
 size_t decode_block_smem_bytes(int H, int V, int Mt, int Mv, Plan plan) {
+  if (plan.grid) return gscan_decode_grid_smem_bytes(H, Mt, Mv);
   const size_t R = plan.rows;
   return ((size_t)kStages * plan.slot_floats +
-          (plan.global ? 0 : (size_t)kBuffers * H * (R + kPad)) +
-          (size_t)R * V + (size_t)kWarps * staged_keys(Mt, Mv) +
-          (direct(plan) ? 0 : (size_t)kWarps * (H + 2))) *
+          (size_t)kBuffers * H * (R + kPad) + (size_t)R * V +
+          (size_t)kWarps * staged_keys(Mt, Mv) + (size_t)kWarps * (H + 2)) *
              sizeof(float) +
          (5 * R + 2 * kWarps) * sizeof(int);
-}
-
-// Floats of the per-CTA scratch of a plan whose buffers are in global
-// memory (0 for the others).
-size_t decode_block_scratch_floats(int B, int H, Plan plan) {
-  if (!plan.global) return 0;
-  const size_t ctas = (B + plan.rows - 1) / plan.rows;
-  return ctas * kBuffers * H * (plan.rows + kPad);
 }
 
 // The largest divisor of H whose tile of that many rows of N columns fills
@@ -888,11 +841,11 @@ int tile_rows(int H, int N, int slot_floats) {
 // Whether a plan takes these shapes. A ring plan: every product's items one
 // per thread (ceil(R / 8) x H <= 512 for the gates), a gate slice's sum of
 // at most kMaxRingSum terms, a gate tile row in a slot, attend_row's
-// registers (H <= 512). A plan without a ring: any H.
+// registers (H <= 512). The grid plan: any H.
 bool plan_takes(Plan plan, int H) {
-  if (direct(plan)) return true;
+  if (plan.grid) return true;
   int n, S;
-  Item<true>::shape(plan.rows, H, false, n, S);
+  Item<true>::shape(plan.rows, H, n, S);
   const int attend = gscan::attend_chunks(H);
   return attend > 0 && attend <= 4 && n <= kThreads &&
          4 * H <= kMaxRingSum * S && 4 * H <= plan.slot_floats;
@@ -929,24 +882,26 @@ extern "C" int gscan_decode_block_plan(int H, int V, int Mt, int Mv,
   return -1;
 }
 
-// Rows per CTA, floats per ring slot (0: the weights read from L2) and
-// whether the buffers are in global memory, of a plan.
+// Rows per CTA and floats per ring slot (0 for the grid plan), and whether
+// it is the grid plan, of a plan.
 extern "C" int gscan_decode_block_plan_rows(int plan) {
   return plan >= 0 && plan < kNumPlans ? kPlans[plan].rows : 0;
 }
 extern "C" int gscan_decode_block_plan_slot_floats(int plan) {
   return plan >= 0 && plan < kNumPlans ? kPlans[plan].slot_floats : 0;
 }
-extern "C" int gscan_decode_block_plan_global(int plan) {
-  return plan >= 0 && plan < kNumPlans && kPlans[plan].global;
+extern "C" int gscan_decode_block_plan_grid(int plan) {
+  return plan >= 0 && plan < kNumPlans && kPlans[plan].grid;
 }
 
-// Floats of the scratch gscan_decode_block needs at batch B (0: none).
+// Floats of the scratch gscan_decode_block needs at batch B (0: none; the
+// grid plan's activations).
 extern "C" long long gscan_decode_block_scratch_floats(int plan, int B,
-                                                       int H) {
-  if (plan < 0 || plan >= kNumPlans || B <= 0 || H <= 0) return 0;
-  return static_cast<long long>(
-      decode_block_scratch_floats(B, H, kPlans[plan]));
+                                                       int H, int V) {
+  if (plan < 0 || plan >= kNumPlans || !kPlans[plan].grid || B <= 0 ||
+      H <= 0 || V <= 0)
+    return 0;
+  return static_cast<long long>(gscan_decode_grid_scratch_floats(B, H, V));
 }
 
 // plan from gscan_decode_block_plan; vec: H % 4 == 0 and the keys and
@@ -967,14 +922,20 @@ extern "C" int gscan_decode_block(
   if (B <= 0 || K <= 0 || V <= 0 || H <= 0 || Mt <= 0 || Mv <= 0 ||
       plan_index < 0 || plan_index >= kNumPlans ||
       !plan_takes(kPlans[plan_index], H) ||
-      (kPlans[plan_index].global != (scratch != nullptr)))
+      (kPlans[plan_index].grid != (scratch != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Plan plan = kPlans[plan_index];
+  if (plan.grid)
+    return gscan_decode_grid(
+        proj_txt, cmd_mask, proj_vis, h_in, c_in, tok_in, done_in, txt_qw,
+        txt_ew, q2k_w, q2k_b, vis_qw, vis_ew, emb, w_ih, w_hh, bias, out_w,
+        out_proj, h_out, c_out, tok_out, done_out, step_tokens, step_emitted,
+        step_attn_cmd, step_attn_sit, scratch, B, Mt, Mv, H, V, K, eos, vec,
+        stream);
   const int attend = gscan::attend_chunks(H);
-  auto kernel = direct(plan)  ? decode_block_kernel<0, true>
-                : attend == 1 ? decode_block_kernel<1, false>
-                : attend == 2 ? decode_block_kernel<2, false>
-                              : decode_block_kernel<4, false>;
+  auto kernel = attend == 1   ? decode_block_kernel<1>
+                : attend == 2 ? decode_block_kernel<2>
+                              : decode_block_kernel<4>;
   const size_t smem = decode_block_smem_bytes(H, V, Mt, Mv, plan);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -983,14 +944,12 @@ extern "C" int gscan_decode_block(
   const DecoderWeights wt{txt_qw, txt_ew, q2k_w, q2k_b, vis_qw, vis_ew,
                           emb,    w_ih,   w_hh,  bias,  out_w,  out_proj};
   const dim3 grid((B + plan.rows - 1) / plan.rows);
-  // Without a ring a segment is one tile of H rows.
-  const int kt_h = direct(plan) ? H : tile_rows(H, H, plan.slot_floats);
-  const int kt_4h =
-      direct(plan) ? H : tile_rows(H, 4 * H, plan.slot_floats);
+  const int kt_h = tile_rows(H, H, plan.slot_floats);
+  const int kt_4h = tile_rows(H, 4 * H, plan.slot_floats);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       proj_txt, cmd_mask, proj_vis, h_in, c_in, tok_in, done_in, wt, h_out,
       c_out, tok_out, done_out, step_tokens, step_emitted, step_attn_cmd,
       step_attn_sit, B, Mt, Mv, H, V, K, eos, plan.rows, plan.slot_floats,
-      kt_h, kt_4h, vec != 0, scratch);
+      kt_h, kt_4h, vec != 0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -54,6 +54,7 @@
 #include <cstdint>
 
 #include "attend.cuh"
+#include "product_core.cuh"
 
 namespace {
 
@@ -1372,28 +1373,44 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The helper kernel: the weight gradients out = X^T dY, summed over N
-// row-steps of the stash, for 14 products (~241k outputs at H = E = 100).
+// The helper kernels: the weight gradients out = X^T dY, summed over N
+// row-steps of the stash, for 14 products (~241k outputs at H = E = 100,
+// ~1.58M at H = E = 256).
 //
-// Bound on the H100: operations (2 flops per output per row-step) over
-// ~70 MB of stash read once. Design: a CTA owns a 64 x 64 tile of one
-// product's output AND one chunk of the N row-steps, so the grid holds
-// tiles x chunks CTAs (the chunk count is the one whose waves of resident
-// CTAs take least time). The X and dY rows of the chunk go through shared
-// memory 32 rows at a time in 3 stages of cp.async (16 bytes at a time
-// where the rows are aligned), so later rows load while the current ones
-// are summed; each thread keeps a 4 x 4 block of outputs in registers (one
-// float4 of X and one of dY per 16 fmas). Each 32-row block is summed on
-// its own and added to the chunk's sum with Kahan compensation. A second
-// kernel adds the chunks' sums in chunk order, again compensated. A sum
-// over row-steps alone (a bias) is a last column of ones of another
-// product's X. The order of every sum is fixed by the shapes and the card:
-// no atomics.
+// Bound on the H100: operations (2 flops per output per row-step) over the
+// stash read once. A CTA owns one tile of one product's output AND one
+// chunk of the N row-steps, so a grid holds tiles x chunks CTAs (the chunk
+// count is the one whose waves of resident CTAs take least time). The X and
+// dY rows of the chunk go through shared memory 32 rows at a time in 3
+// stages of cp.async (16 bytes at a time where the rows are aligned), so
+// later rows load while the current ones are summed. Two tile sizes, two
+// kernels:
+// - weight_grads_kernel: a 64 x 64 tile, each thread a 4 x 4 block of
+//   outputs; each 32-row block is summed on its own and added to the
+//   chunk's sum with Kahan compensation. 4 CTAs per SM. It takes the
+//   products whose outputs a 128 x 256 tile would pad by more than a
+//   quarter: every product at H = E = 100 and 136, so those widths keep
+//   their numbers.
+// - weight_grads_wide_kernel: the other products take product_core.cuh's
+//   128 x 256 tile, each thread an 8 x 16 block (128 fmas per 24 floats
+//   read from shared memory); its sums run in row-step order over runs of
+//   at most kMaxChain row-steps, one run a chunk where the room for chunks
+//   allows, else each run's sums added in order to the chunk's. The
+//   4 x 4 tile's compensated blocks would take it to 8 x 8 blocks (192
+//   registers of sums a thread), where shared memory, not the FMA pipe,
+//   bounds it: 30.7 against 44.0 TFLOP/s (PERF.md).
+// A third kernel adds the chunks' sums in chunk order, compensated. A sum
+// over row-steps alone (a bias, an energy vector) is a product with a
+// column of ones: the last column of a small product's X, or a one-row
+// product of its own (a wide product's bias row); in such a one-row
+// product only the threads of row 0 sum. The order of every sum is fixed
+// by the shapes and the card: no atomics.
 // ---------------------------------------------------------------------------
 constexpr int kMaxProblems = 16;
 constexpr int kTileI = 64, kTileJ = 64, kRowsPerStage = 32, kStages = 3;
 constexpr int kGradThreads = 256;
 constexpr int kSplits = 12;  // at most this many chunks of row-steps
+static_assert(kRowsPerStage == gscan::core::kDepth, "one stage, one block");
 
 struct GradProblem {
   const float* x;   // [N, ldx] from column 0; null: a column of ones
@@ -1405,7 +1422,9 @@ struct GradProblem {
   float* out_ones;
   int tile0, tiles_j;
   size_t part0;     // offset of this product in each chunk's partial sums
+  int splits;       // chunks of row-steps of its kernel
   bool vec_x, vec_y;  // rows 16-byte aligned: load 4 floats at a time
+  bool transposed;  // out is [cols, rows]: the product of out^T
 };
 
 struct GradProblems {
@@ -1457,6 +1476,9 @@ __global__ void __launch_bounds__(kGradThreads, kHelperMinBlocks)
   const int n_begin = split * probs.chunk;
   const int n_end = min(probs.N, n_begin + probs.chunk);
   const int stages = (n_end - n_begin + kRowsPerStage - 1) / kRowsPerStage;
+  // Threads whose rows are all past the product's last (a one-row product
+  // of a column of ones, the embedding's V rows) sum nothing.
+  const bool active = ty * 4 < P.rows - i0;
 
   // One stage: rows n_begin + s * 32 .. +32 of X (columns i0..i0+63) and dY
   // (j0..j0+63); out-of-range elements are zero-filled.
@@ -1514,17 +1536,21 @@ __global__ void __launch_bounds__(kGradThreads, kHelperMinBlocks)
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int b = 0; b < 4; ++b) part[a][b] = 0.f;
+    if (active)
 #pragma unroll 8
-    for (int nn = 0; nn < kRowsPerStage; ++nn) {
-      const float4 xv = *reinterpret_cast<const float4*>(&xs[buf][nn][ty * 4]);
-      const float4 dv = *reinterpret_cast<const float4*>(&ds[buf][nn][tx * 4]);
-      const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-      const float da[4] = {dv.x, dv.y, dv.z, dv.w};
+      for (int nn = 0; nn < kRowsPerStage; ++nn) {
+        const float4 xv =
+            *reinterpret_cast<const float4*>(&xs[buf][nn][ty * 4]);
+        const float4 dv =
+            *reinterpret_cast<const float4*>(&ds[buf][nn][tx * 4]);
+        const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+        const float da[4] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int b = 0; b < 4; ++b) part[a][b] = fmaf(xa[a], da[b], part[a][b]);
-    }
+          for (int b = 0; b < 4; ++b)
+            part[a][b] = fmaf(xa[a], da[b], part[a][b]);
+      }
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -1541,6 +1567,94 @@ __global__ void __launch_bounds__(kGradThreads, kHelperMinBlocks)
     }
 }
 
+// The wide products (no column of ones): blockIdx.x = split * tiles +
+// tile, a 128 x 256 tile of product_core.cuh over one chunk of row-steps
+// (its sums in k order, at most kMaxChain row-steps a chunk); the chunk's
+// sums to partial as weight_grads_kernel's. One CTA per SM: the ring is
+// 147 KB of dynamic shared memory and a thread's 128 sums and two rows of
+// operands take ~240 registers.
+__global__ void __launch_bounds__(gscan::core::kThreads, 1)
+    weight_grads_wide_kernel(const GradProblems probs,
+                             float* __restrict__ partial) {
+  namespace core = gscan::core;
+  extern __shared__ float4 wide_smem4[];
+  float* smem = reinterpret_cast<float*>(wide_smem4);
+  const int tile = blockIdx.x % probs.tiles, split = blockIdx.x / probs.tiles;
+  int k = 0;
+  while (k + 1 < probs.count && probs.p[k + 1].tile0 <= tile) ++k;
+  const GradProblem& P = probs.p[k];
+  const int local = tile - P.tile0;
+  const int i0 = (local / P.tiles_j) * core::kTileM;
+  const int j0 = (local % P.tiles_j) * core::kTileN;
+  const int n_begin = split * probs.chunk;
+  const int n_end = min(probs.N, n_begin + probs.chunk);
+  const int stages = (n_end - n_begin + core::kDepth - 1) / core::kDepth;
+  float* out = partial + (size_t)split * probs.outputs + P.part0;
+  // A thread's columns come in runs of 4: one float4 each where the run is
+  // whole and 16-byte aligned.
+  const bool vec = (reinterpret_cast<uintptr_t>(out) | P.cols * 4) % 16 == 0;
+  using Sums = float[core::kRows][core::kCols];
+  // The sums of stages [r0, r0 + count) into acc.
+  const auto sums = [&](int r0, int count, Sums& acc) {
+    core::tile_sums(count, smem,
+                    [&](int s, float* a, float* b) {
+                      const int n0 = n_begin + (r0 + s) * core::kDepth;
+                      const int rows = min(core::kDepth, n_end - n0);
+                      core::load_stage<core::kTileM>(
+                          a, P.x + (size_t)n0 * P.ldx + i0, P.ldx, rows,
+                          P.rows - i0, P.vec_x);
+                      core::load_stage<core::kTileN>(
+                          b, P.dy + (size_t)n0 * P.ldy + j0, P.ldy, rows,
+                          P.cols - j0, P.vec_y);
+                    },
+                    acc);
+  };
+  // acc into out (add: added to what out holds).
+  const auto store = [&](const Sums& acc, bool add) {
+#pragma unroll
+    for (int a = 0; a < core::kRows; ++a) {
+      const int i = i0 + core::row_of(a);
+      if (i >= P.rows) continue;
+#pragma unroll
+      for (int run = 0; run < core::kCols / 4; ++run) {
+        const int j = j0 + core::col_of(4 * run);
+        float* dst = out + (size_t)i * P.cols + j;
+        if (vec && j + 3 < P.cols) {
+          float4 v = make_float4(acc[a][4 * run], acc[a][4 * run + 1],
+                                 acc[a][4 * run + 2], acc[a][4 * run + 3]);
+          if (add) {
+            const float4 sum = *reinterpret_cast<const float4*>(dst);
+            v = make_float4(sum.x + v.x, sum.y + v.y, sum.z + v.z,
+                            sum.w + v.w);
+          }
+          *reinterpret_cast<float4*>(dst) = v;
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (j + q < P.cols)
+              dst[q] = add ? dst[q] + acc[a][4 * run + q]
+                           : acc[a][4 * run + q];
+        }
+      }
+    }
+  };
+  // No sum runs over more than kMaxChain row-steps: a longer chunk is
+  // summed in runs, each run's sums added in order to the chunk's in out.
+  // The first run apart: in the loop below, the one-run chunks of W3
+  // (H = E = 256) took 1.017 against 0.948 ms (PERF.md).
+  constexpr int kRunStages = core::kMaxChain / core::kDepth;
+  {
+    Sums acc;
+    sums(0, min(kRunStages, stages), acc);
+    store(acc, false);
+  }
+  for (int r0 = kRunStages; r0 < stages; r0 += kRunStages) {
+    Sums acc;
+    sums(r0, min(kRunStages, stages - r0), acc);
+    store(acc, true);
+  }
+}
+
 // Adds the chunks' sums of every output in chunk order, compensated.
 __global__ void __launch_bounds__(256) weight_grads_combine_kernel(
     const GradProblems probs, const float* __restrict__ partial) {
@@ -1548,14 +1662,22 @@ __global__ void __launch_bounds__(256) weight_grads_combine_kernel(
   if (e >= probs.outputs) return;
   int k = 0;
   while (k + 1 < probs.count && probs.p[k + 1].part0 <= e) ++k;
-  float sum = 0.f, comp = 0.f;
-  for (int s = 0; s < probs.splits; ++s)
-    kahan_add(sum, comp, partial[(size_t)s * probs.outputs + e]);
   const GradProblem& P = probs.p[k];
   const size_t local = e - P.part0;
+  // Every chunk's load issued before the first add.
+  float v[kSplits];
+#pragma unroll
+  for (int s = 0; s < kSplits; ++s)
+    v[s] = s < P.splits ? partial[(size_t)s * probs.outputs + e] : 0.f;
+  float sum = 0.f, comp = 0.f;
+#pragma unroll
+  for (int s = 0; s < kSplits; ++s)
+    if (s < P.splits) kahan_add(sum, comp, v[s]);
   const size_t last = (size_t)(P.rows - 1) * P.cols;
   if (P.out_ones != nullptr && local >= last)
     P.out_ones[local - last] = sum;
+  else if (P.transposed)
+    P.out[(local % P.cols) * P.rows + local / P.cols] = sum;
   else
     P.out[local] = sum;
 }
@@ -1793,60 +1915,114 @@ extern "C" int gscan_teacher_forced_weight_grads(
        G},
       {h_res, s + lay.d_gates, g_w_hh, H, W, H + 1, G, g_bias},
       {s + lay.emb, s + lay.d_ph, g_out_w, W, W, E + 3 * H, H},
-      {s + lay.ph, dlogits, g_out_proj, W, V, H, V},
+      // out_proj^T = dlogits^T ph: its V rows, not its V columns, are the
+      // thin side, which the small tile skips.
+      {dlogits, s + lay.ph, g_out_proj, V, W, V, H},
   };
-  GradProblems probs{};
-  probs.count = static_cast<int>(sizeof(list) / sizeof(list[0]));
-  probs.N = N;
   auto aligned = [](const float* ptr, int ld) {
     return ptr != nullptr && ld % 4 == 0 &&
            reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
   };
-  int tiles = 0;
+  // Every product in list order (the partial sums' layout, the combine's
+  // list), and the tiles of each kernel. A product (without its row of
+  // ones) is wide where its 128 x 256 tiles pad its outputs by at most a
+  // quarter; its row of ones, if any, becomes a one-row product of its own.
+  // The others keep the 64 x 64 tile, which pads less at their widths.
+  namespace core = gscan::core;
+  GradProblems all{}, narrow{}, wide{};
+  all.N = narrow.N = wide.N = N;
   size_t outputs = 0;
-  for (int i = 0; i < probs.count; ++i) {
-    GradProblem p = list[i];
-    p.tile0 = tiles;
-    p.tiles_j = (p.cols + kTileJ - 1) / kTileJ;
+  bool is_wide[kMaxProblems] = {};
+  auto add = [&](GradProblems& to, GradProblem p, int tile_i, int tile_j) {
+    is_wide[all.count] = &to == &wide;
+    p.tile0 = to.tiles;
+    p.tiles_j = (p.cols + tile_j - 1) / tile_j;
     p.part0 = outputs;
     p.vec_x = aligned(p.x, p.ldx);
     p.vec_y = aligned(p.dy, p.ldy);
-    tiles += ((p.rows + kTileI - 1) / kTileI) * p.tiles_j;
+    to.tiles += ((p.rows + tile_i - 1) / tile_i) * p.tiles_j;
     outputs += (size_t)p.rows * p.cols;
-    probs.p[i] = p;
+    to.p[to.count++] = p;
+    all.p[all.count++] = p;
+  };
+  for (GradProblem p : list) {
+    p.transposed = p.out == g_out_proj;
+    const int x_rows = p.rows - (p.out_ones != nullptr);
+    const long long padded =
+        (long long)((x_rows + core::kTileM - 1) / core::kTileM) *
+        core::kTileM *
+        ((p.cols + core::kTileN - 1) / core::kTileN) * core::kTileN;
+    if (p.x != nullptr && x_rows >= core::kTileM && p.cols >= core::kTileN &&
+        4 * padded <= 5LL * x_rows * p.cols) {
+      GradProblem body = p;
+      body.rows = x_rows;
+      body.out_ones = nullptr;
+      add(wide, body, core::kTileM, core::kTileN);
+      if (p.out_ones != nullptr)
+        add(narrow, GradProblem{nullptr, p.dy, p.out_ones, 0, p.ldy, 1,
+                                p.cols},
+            kTileI, kTileJ);
+    } else {
+      add(narrow, p, kTileI, kTileJ);
+    }
   }
-  probs.tiles = tiles;
-  probs.outputs = outputs;
-  // The number of chunks: the one whose waves of resident CTAs take the
-  // least time, waves / chunks (a function of the card and the shapes).
-  static int resident = 0;
-  if (resident == 0) {
+  all.outputs = narrow.outputs = wide.outputs = outputs;
+  const int room = min(kSplits, static_cast<int>(partial_floats / outputs));
+  if (room < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // Each kernel's chunk count: the one whose waves of resident CTAs take
+  // the least time, waves / chunks (a function of the card and the shapes).
+  auto chunk = [&](GradProblems& probs, int resident, int least) {
+    int best = min(room, least);
+    for (int s = best + 1;
+         s <= min(room, (N + kRowsPerStage - 1) / kRowsPerStage); ++s) {
+      const long long waves_s =
+          (probs.tiles * (long long)s + resident - 1) / resident;
+      const long long waves_b =
+          (probs.tiles * (long long)best + resident - 1) / resident;
+      if (waves_s * best <= waves_b * s) best = s;
+    }
+    const int per = (N + best - 1) / best;
+    probs.chunk = (per + kRowsPerStage - 1) / kRowsPerStage * kRowsPerStage;
+    probs.splits = (N + probs.chunk - 1) / probs.chunk;
+    for (int i = 0; i < probs.count; ++i) probs.p[i].splits = probs.splits;
+  };
+  static int resident_narrow = 0, resident_wide = 0;
+  if (resident_narrow == 0) {
     int device = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, weight_grads_kernel, kGradThreads, 0);
-    resident = max(1, sms * per_sm);
+    resident_narrow = max(1, sms * per_sm);
+    cudaError_t err = cudaFuncSetAttribute(
+        weight_grads_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(core::kSmemBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, weight_grads_wide_kernel, core::kThreads, core::kSmemBytes);
+    resident_wide = max(1, sms * per_sm);
   }
-  const int room = min(kSplits, static_cast<int>(partial_floats / outputs));
-  if (room < 1) return static_cast<int>(cudaErrorInvalidValue);
-  int best = 1;
-  for (int s = 2; s <= min(room, (N + kRowsPerStage - 1) / kRowsPerStage);
-       ++s) {
-    const long long waves_s = (tiles * (long long)s + resident - 1) / resident;
-    const long long waves_b =
-        (tiles * (long long)best + resident - 1) / resident;
-    if (waves_s * best <= waves_b * s) best = s;
-  }
-  const int per = (N + best - 1) / best;
-  probs.chunk = (per + kRowsPerStage - 1) / kRowsPerStage * kRowsPerStage;
-  probs.splits = (N + probs.chunk - 1) / probs.chunk;
+  chunk(narrow, resident_narrow, 1);
+  // The wide tile's chunks: at most kMaxChain row-steps each where the room
+  // allows, so that each is summed in one run.
+  chunk(wide, resident_wide, (N + core::kMaxChain - 1) / core::kMaxChain);
+  for (int i = 0; i < all.count; ++i)
+    all.p[i].splits = is_wide[i] ? wide.splits : narrow.splits;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  weight_grads_kernel<<<tiles * probs.splits, kGradThreads, 0, st>>>(probs,
-                                                                    partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = cudaSuccess;
+  if (narrow.count > 0) {
+    weight_grads_kernel<<<narrow.tiles * narrow.splits, kGradThreads, 0,
+                          st>>>(narrow, partial);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (wide.count > 0) {
+    weight_grads_wide_kernel<<<wide.tiles * wide.splits, core::kThreads,
+                               core::kSmemBytes, st>>>(wide, partial);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   weight_grads_combine_kernel<<<(unsigned)((outputs + 255) / 256), 256, 0,
-                                st>>>(probs, partial);
+                                st>>>(all, partial);
   return static_cast<int>(cudaGetLastError());
 }

@@ -150,11 +150,11 @@ def library() -> ctypes.CDLL:
         lib.gscan_decode_block_plan.restype = ctypes.c_int
         for name in ("gscan_decode_block_plan_rows",
                      "gscan_decode_block_plan_slot_floats",
-                     "gscan_decode_block_plan_global"):
+                     "gscan_decode_block_plan_grid"):
             getattr(lib, name).argtypes = [_I]
             getattr(lib, name).restype = ctypes.c_int
-        # plan, B, H
-        lib.gscan_decode_block_scratch_floats.argtypes = [_I] * 3
+        # plan, B, H, V
+        lib.gscan_decode_block_scratch_floats.argtypes = [_I] * 4
         lib.gscan_decode_block_scratch_floats.restype = ctypes.c_longlong
         # kernel, H, E, V, Mt, Mv, the bytes available, the bytes needed (out)
         lib.gscan_teacher_forced_plan.argtypes = [_I] * 6 + [

@@ -33,16 +33,19 @@ CTA and 32 or 16 KB ring slots: the first that takes H and fits the
 device's shared memory per CTA at these shapes. The ring plans take H up to
 256: past it a gate item's sum runs over more than 1024 terms in one
 thread, and the kernel's c drifted further from float64 than the plain
-version's (PERF.md). Past them, two plans of 8 rows read the weights
-straight from L2, each item summed by 16 threads, each product in as many
-passes of items over the CTA's threads as it needs, and each attention row
-in two passes over its keys: the first keeps the buffers in shared memory
-(to H of about 680 on the H100), the last in a per-CTA scratch in global
-memory that the wrapper allocates (``7 H (R + 4)`` floats a CTA). That last
-plan holds only the logits, the row lists and the staged attention scores
-in shared memory (``4 (8 V + 16 m) + 288`` bytes, m = max(M_t, M_v), or 0
-past 256 keys, whose scores are staged in the output), so on the H100
-(232,448 bytes a CTA) it takes every H and M at every V up to 6,743.
+version's (PERF.md). Past them the grid plan (``csrc/decode_grid.cu``) runs
+each product of a step over the whole batch's rows at once, on the shared
+128 x 256 register tiles of ``csrc/product_core.cuh``: a persistent
+cooperative launch of one CTA per SM, the step's phases separated by grid
+barriers, the activations in a global scratch that the wrapper allocates
+(``9 H + P`` floats a row, slots padded to 4, where the products' k-split
+sums take P = ``16 H``, or more where the widest product needs more parts
+to keep every sum within 1,024 terms; and the folded head ``W_out W_proj``,
+``4 H V`` floats), so that each weight is read once a step for every 128
+rows rather than once for every 8. Its shared memory is the product ring's
+147,456 bytes at every H, M and V (past H = 1,024 an attention row's query
+is staged in the scratch), so on the H100 (232,448 bytes a CTA) the table
+takes every shape.
 
 ``fused_decode_block`` is the wrapper: the plain version for CPU tensors, the
 kernel for CUDA tensors. The kernel takes any M and H, and the wrapper
@@ -178,17 +181,17 @@ class BlockPlan(NamedTuple):
     """A plan of kernel 2 (``csrc/decode_block.cu``'s plan table)."""
 
     index: int
-    rows: int         # batch rows per CTA
-    slot_floats: int  # floats per weight-ring slot; 0: weights from L2
-    global_buffers: bool  # the [H][rows + 4] buffers in global scratch
+    rows: int         # batch rows per CTA (0: the grid plan)
+    slot_floats: int  # floats per weight-ring slot (0: the grid plan)
+    grid: bool        # the grid plan (``csrc/decode_grid.cu``)
 
     def describe(self) -> str:
-        if self.slot_floats:
-            return "plan {}: {} rows per CTA, {}-float weight slots".format(
-                self.index, self.rows, self.slot_floats)
-        return "plan {}: {} rows per CTA, weights from L2, buffers in " \
-            "{}".format(self.index, self.rows, "global scratch"
-                        if self.global_buffers else "shared memory")
+        if self.grid:
+            return "plan {}: grid-wide products (one CTA per SM, 128 x 256 " \
+                "register tiles), weights read once a step".format(
+                    self.index)
+        return "plan {}: {} rows per CTA, {}-float weight slots".format(
+            self.index, self.rows, self.slot_floats)
 
 
 @functools.lru_cache(maxsize=None)
@@ -208,7 +211,7 @@ def block_plan(hidden: int, vocab: int, m_t: int, m_v: int,
         _build.refuse_shared_memory("fused_decode_block", need.value, have)
     return BlockPlan(plan, lib.gscan_decode_block_plan_rows(plan),
                      lib.gscan_decode_block_plan_slot_floats(plan),
-                     bool(lib.gscan_decode_block_plan_global(plan)))
+                     bool(lib.gscan_decode_block_plan_grid(plan)))
 
 
 def fused_decode_block(proj_textual: torch.Tensor, cmd_mask: torch.Tensor,
@@ -272,7 +275,7 @@ def fused_decode_block(proj_textual: torch.Tensor, cmd_mask: torch.Tensor,
     plan = block_plan(hidden, vocab, m_t, m_v, _build.device_index(device))
     lib = _build.library()
     scratch_floats = lib.gscan_decode_block_scratch_floats(plan.index, batch,
-                                                           hidden)
+                                                           hidden, vocab)
     scratch = empty((scratch_floats,)) if scratch_floats else None
     vec = hidden % 4 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (proj_textual, proj_visual, *weights))

@@ -5,6 +5,7 @@
                                        [--repeats R] [--set NAME=VALUE]
                                        [--hidden H] [--m-v M]
                                        [--end-to-end]
+                                       [--wide [--alternative]]
 
 Imports ``multimodal_seq2seq_gscan_tpu_torch`` from DIR (default: this
 checkout), builds DIR's kernels, and times with CUDA events, at the training
@@ -40,6 +41,19 @@ same way.
   the streamed ``train()`` (``steps_per_execution=1``) from the same
   checkpoint at batch 200, by the wall clock between its loss reports
   (batching, any prefetch, the step and the report included).
+- ``--wide`` times, instead of all the above, the wide shapes: kernel 2, one
+  32-step launch from SOS at B = 1024, M_t = 16, M_v = 36, V = 9 and H = E =
+  449, 640 and 1024 (W4-W6), every row emitting at every step (an EOS token
+  outside the vocabulary), beside its plain version and its bound, with the
+  plan it takes, and at W5 with 90% of the rows done at entry and EOS 2 (a
+  decode's second block); and the helper at B = 200, T = 56 and W1-W3 (H =
+  E = 100 with a 9x9 grid, 136, 256) and its library call, both replayed
+  from CUDA graphs, with the helper's kernels' device times apart
+  (``torch.profiler``). ``--alternative`` adds the cluster layout that
+  kernel 2 could have taken instead of its grid plan, as kernel 3
+  (``forward_cluster_kernel``: 8 CTAs of a cluster each own H / 8 units,
+  16 rows a cluster) runs it: one teacher-forced launch of the same step's
+  products at W4-W6's shapes (B = 1024, T = 32), beside its bound.
 
 Prints one JSON line, with the card's name and power limit. Compare two
 checkouts in one call, one process each, in turns: parent, change, change,
@@ -212,6 +226,114 @@ def decode_kernel_times(cs, s, repeats):
     return times
 
 
+WIDE_BATCH, WIDE_M_T, WIDE_M_V, WIDE_VOCAB, SOS, EOS = 1024, 16, 36, 9, 1, 2
+WIDE = (("W4", 449), ("W5", 640), ("W6", 1024))
+WIDE_HELPER = (("W1", 100, 16, 81), ("W2", 136, 16, 36),
+               ("W3", 256, 72, 144))
+
+
+def wide_times(cs, alternative):
+    """Kernel 2 at W4-W6 (and W5 with 90% of the rows done), the helper at
+    W1-W3 beside its library call, and with ``alternative`` the cluster
+    layout at W4-W6: a list of rows, each printed as it is taken."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_seq2seq_gscan_tpu_torch.ops import _build
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    device = torch.device("cuda")
+    index = _build.device_index(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = []
+
+    def keep(row):
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+
+    # W4-W6 with an EOS token outside the vocabulary: every row emits at
+    # every step (the most work a launch can have); W5 with 90% of the rows
+    # done at entry and EOS 2.
+    cases = [(name, h, 0.0, WIDE_VOCAB) for name, h in WIDE] + [
+        ("W5 90% done", 640, 0.9, EOS)]
+    for name, h, done, eos in cases:
+        block = cs.random_block_inputs(gen, device, WIDE_BATCH, WIDE_M_T,
+                                       WIDE_M_V, h, WIDE_VOCAB, SOS,
+                                       done_fraction=done)
+
+        def kernel():
+            return k2.fused_decode_block(*block, num_steps=32, eos_idx=eos)
+
+        out = kernel()
+        bound = cs.bound_ms(*cs.decode_block_work(
+            WIDE_BATCH, WIDE_M_T, WIDE_M_V, h, WIDE_VOCAB, 32,
+            sum(w.numel() * 4 for w in block[7]),
+            int(out.step_emitted.sum())))
+        keep(dict(kernel="decode_block", shape=name, h=h,
+                  ms=cs.cuda_ms(kernel, 2, warmup=1),
+                  plain_ms=cs.cuda_ms(lambda: k2.decode_block_plain(
+                      *block, num_steps=32, eos_idx=eos), 1, warmup=1),
+                  bound_ms=bound[0], bound_by=bound[1],
+                  plan=k2.block_plan(h, WIDE_VOCAB, WIDE_M_T, WIDE_M_V,
+                                     index).describe(),
+                  row_steps=int(out.step_emitted.sum())))
+        del block, out
+    for name, h, m_t, m_v in WIDE_HELPER:
+        steps = cs.TRAIN_T - 3
+        inputs, (dlogits, g_asum) = cs.random_teacher_forced_inputs(
+            gen, device, cs.TRAIN_BATCH, cs.TRAIN_T, steps, m_t, m_v, h,
+            WIDE_VOCAB, SOS)
+        _, h_res, c_res, _ = tf.teacher_forced_forward(*inputs,
+                                                       num_steps=steps)
+        stash = tf.teacher_forced_backward(
+            *inputs[:3], *inputs[5:], h_res, c_res, dlogits, g_asum,
+            num_steps=steps)[4]
+        operands = cs.helper_library_operands(
+            stash, h_res, dlogits, inputs[7].embedding.shape[1])
+
+        def helper():
+            return tf.teacher_forced_weight_grads(stash, h_res, dlogits)
+
+        first = cs.graph_ms(helper, 20)
+        library = cs.graph_ms(lambda: cs.helper_library(operands), 20)
+        again = cs.graph_ms(helper, 20)
+        bound = cs.bound_ms(*cs.teacher_forced_work(
+            cs.TRAIN_BATCH, cs.TRAIN_T, m_t, m_v, h, h, WIDE_VOCAB)[2])
+        # The helper's kernels apart: device time a call, by name.
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                helper()
+            torch.cuda.synchronize()
+        keep(dict(kernel="teacher_forced_weight_grads", shape=name, h=h,
+                  helper_graph_ms=[first, again], library_graph_ms=library,
+                  bound_ms=bound[0],
+                  kernels_ms={e.key: e.device_time_total / 5e3
+                              for e in prof.key_averages()
+                              if e.device_time_total > 0}))
+        del inputs, dlogits, g_asum, h_res, c_res, stash, operands
+    for name, h in (reversed(WIDE) if alternative else ()):
+        steps = 32
+        row = dict(kernel="teacher_forced_forward (the cluster layout)",
+                   shape=name, h=h)
+        try:
+            plan = tf.shared_memory_plan("teacher_forced_forward", WIDE_M_T,
+                                         WIDE_M_V, h, h, WIDE_VOCAB, index)
+        except ValueError as refused:  # its shared memory does not fit
+            row.update(refused=str(refused))
+        else:
+            inputs, _ = cs.random_teacher_forced_inputs(
+                gen, device, WIDE_BATCH, steps, steps, WIDE_M_T, WIDE_M_V,
+                h, WIDE_VOCAB, SOS)
+            bound = cs.bound_ms(*cs.teacher_forced_work(
+                WIDE_BATCH, steps, WIDE_M_T, WIDE_M_V, h, h, WIDE_VOCAB)[0])
+            row.update(batch=WIDE_BATCH, steps=steps, plan=str(plan),
+                       ms=cs.cuda_ms(lambda: tf.teacher_forced_forward(
+                           *inputs, num_steps=steps), 2, warmup=1),
+                       bound_ms=bound[0], bound_by=bound[1])
+            del inputs
+        keep(row)
+    return rows
+
+
 def fixture(cs):
     """(params, config, the first 4096 dev examples as one batch, the train
     split) of the fixture, on the card."""
@@ -339,6 +461,11 @@ def main():
     parser.add_argument("--hidden", type=int, default=SHAPES["hidden"])
     parser.add_argument("--m-v", type=int, default=SHAPES["m_v"])
     parser.add_argument("--end-to-end", action="store_true")
+    parser.add_argument("--wide", action="store_true",
+                        help="time kernel 2 and the helper at the wide "
+                             "shapes only")
+    parser.add_argument("--alternative", action="store_true",
+                        help="with --wide: also the cluster layout")
     parser.add_argument("--build-only", action="store_true",
                         help="build the checkout's (or variant's) kernels "
                              "and stop, so that several build at once")
@@ -363,6 +490,12 @@ def main():
             if any(word in line for word in ("compiled in", "Compiling entry",
                                              "spill", "registers")):
                 print("  " + line.strip()[:150])
+        return 0
+    if args.wide:
+        with torch.no_grad(), full_float32():
+            rows = wide_times(cs, args.alternative)
+        print(json.dumps(dict(label=args.label, package=str(root),
+                              sets=args.set, card=card(), wide=rows)))
         return 0
     shapes = dict(SHAPES, hidden=args.hidden, m_v=args.m_v)
     fix = fixture(cs)

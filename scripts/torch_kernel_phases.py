@@ -2,7 +2,7 @@
 """Where the time of kernels 3 and 4, or of kernel 2, goes, phase by phase,
 on the card.
 
-    python3 scripts/torch_kernel_phases.py [--repeats R] [--kernel 2]
+    python3 scripts/torch_kernel_phases.py [--repeats R] [--kernel 2|grid]
 
 With ``--kernel 2``: builds a copy with ``kPhaseTiming = 1`` in
 ``csrc/decode_block.cu`` (``build/variants/decode-phase-timing``), in which
@@ -11,7 +11,17 @@ counter (a phase ends at a barrier), and runs kernel 2 on the fixture's two
 decode blocks (``chip_smoke.fixture_blocks``) and on one 32-step block from
 SOS on random inputs, printing each phase's cycles per CTA-step and share.
 
-Without it:
+With ``--kernel grid``: a copy with ``kGridPhaseTiming = 1`` in
+``csrc/decode_grid.cu`` (``build/variants/decode-grid-phase-timing``), in
+which thread 0 of CTA 0 of kernel
+2's grid plan (``csrc/decode_grid.cu``) adds each phase's clock cycles
+(barrier to barrier, so the slowest CTA's) and its waits in the grid
+barriers to counters; runs one 32-step launch from SOS at B = 1024, M_t =
+16, M_v = 36, V = 9 and H = E = 449, 640, 1024, every row emitting every
+step (EOS outside the vocabulary), and at H = E = 640 with 90% of the rows
+done at entry (EOS 2), printing each phase's milliseconds per launch.
+
+Without either:
 
 Builds a timed copy of the port's kernels in ``build/variants/phase-timing``
 (``scripts/kernel_phase_timing.patch`` applied to
@@ -118,18 +128,82 @@ def decode_block_phases(repeats):
     return 0
 
 
+DECODE_GRID = ("entry: rows to slots, the folded head", "textual query",
+               "textual attention", "visual query", "visual query tanh",
+               "visual projection", "visual attention", "gate product",
+               "cell", "logits product", "argmax",
+               "compaction, retiring rows")
+
+
+def decode_grid_phases(repeats):
+    """The grid plan's phases (kGridPhaseTiming) at W4-W6 and W5 90%
+    done."""
+    import torch
+    from torch_kernel_ab import load_chip_smoke, variant_checkout
+    sys.path.insert(0, str(variant_checkout(ROOT, "decode-grid-phase-timing",
+                                            ["kGridPhaseTiming=1"])))
+    cs = load_chip_smoke()
+    from multimodal_seq2seq_gscan_tpu_torch.ops import _build
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    from multimodal_seq2seq_gscan_tpu_torch.utils.precision import (
+        full_float32)
+    lib = _build.library()
+    lib.gscan_decode_grid_phase_cycles.argtypes = [ctypes.c_void_p]
+    counters = (ctypes.c_ulonglong * (len(DECODE_GRID) + 2))()
+    device = torch.device("cuda")
+    clock_hz = torch.cuda.get_device_properties(device).clock_rate * 1e3
+    with torch.no_grad(), full_float32():
+        gen = torch.Generator(device=device).manual_seed(0)
+        # EOS 9 lies outside the vocabulary: every row emits every step.
+        for name, h, done, eos in (("W4", 449, 0.0, 9), ("W5", 640, 0.0, 9),
+                                   ("W6", 1024, 0.0, 9),
+                                   ("W5 90% done", 640, 0.9, 2)):
+            args = cs.random_block_inputs(gen, device, 1024, 16, 36, h, 9, 1,
+                                          done_fraction=done)
+
+            def run():
+                k2.fused_decode_block(*args, num_steps=cs.EXIT_CHECK_EVERY,
+                                      eos_idx=eos)
+            run()
+            torch.cuda.synchronize()
+            _build.check(lib.gscan_decode_grid_phase_cycles(counters),
+                         "phase read")
+            ms = cs.cuda_ms(run, repeats, warmup=0)
+            _build.check(lib.gscan_decode_grid_phase_cycles(counters),
+                         "phase read")
+            n = len(DECODE_GRID)
+            total = sum(counters[:n])
+            print("{}; kernel 2's grid plan, {} (H={}; timed build): {:.4f} "
+                  "ms per launch, {:.1f} steps per launch, {:.4f} ms by CTA "
+                  "0's clock at {:.0f} MHz, of them {:.4f} ms in grid "
+                  "barriers".format(
+                      cs.nvidia_smi_line(), name, h, ms,
+                      counters[n + 1] / repeats,
+                      total / repeats / clock_hz * 1e3, clock_hz / 1e6,
+                      counters[n] / repeats / clock_hz * 1e3))
+            for i, phase in enumerate(DECODE_GRID):
+                print("  {:9.4f} ms {:5.1f}%  {}".format(
+                    counters[i] / repeats / clock_hz * 1e3,
+                    100 * counters[i] / max(total, 1), phase))
+            del args
+    return 0
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--repeats", type=int, default=5)
-    parser.add_argument("--kernel", type=int, choices=(2, 3), default=3,
-                        help="2: kernel 2; 3 (default): kernels 3 and 4")
+    parser.add_argument("--kernel", choices=("2", "grid", "3"), default="3",
+                        help="2: kernel 2; grid: kernel 2's grid plan; 3 "
+                        "(default): kernels 3 and 4")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("torch_kernel_phases: needs a CUDA device", file=sys.stderr)
         return 1
-    if args.kernel == 2:
+    if args.kernel == "2":
         return decode_block_phases(args.repeats)
+    if args.kernel == "grid":
+        return decode_grid_phases(args.repeats)
     from torch_kernel_ab import load_chip_smoke, variant_checkout
     sys.path.insert(0, str(variant_checkout(ROOT, "phase-timing",
                                             patch=PATCH)))

@@ -23,7 +23,8 @@ same bars, and kernels 1 and 2 also where 16-byte loads do not apply
 H = 1024. Kernel 1's gradients (its backward is the plain
 ``attention_vjp_plain``) match autograd through its plain version at rtol
 1e-4 / atol 1e-5, the bar of float32 sums in two orders. Kernel 2 also
-takes H past 448 (its plans without a ring, up to H = 1024 here), and the
+takes H past its ring plans (its grid plan, H = 257 to 2048 and V up to
+6,743 here), and the
 resident trainer's CUDA graph of the training step gives the eager steps'
 state and metrics, also for a decoder of two layers (the step unroll, its
 attentions kernel 1); the multi-seed chunk's one graph gives each seed's
@@ -211,16 +212,18 @@ def misaligned(tensor):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["h102", "misaligned"])
+@pytest.mark.parametrize("case", ["h102", "misaligned", "h449_misaligned"])
 def test_kernels_1_and_2_without_16_byte_loads(cuda, case):
     """Kernels 1 and 2 where 16-byte loads do not apply: H % 4 != 0
     (H = 102, M_t = 16, M_v = 36), or keys and weights passed 4 bytes past
-    a 16-byte boundary (H = 100). Kernel 1 then reads its keys a float at a
-    time, and kernel 2 also fills its weight ring by 4-byte copies and reads
-    its tiles a column at a time. The JAX bars against the plain versions,
-    and the launch counts rise."""
-    h = 102 if case == "h102" else 100
-    move = misaligned if case == "misaligned" else (lambda t: t)
+    a 16-byte boundary (H = 100; and H = 449, where kernel 2 takes its grid
+    plan). Kernel 1 then reads its keys a float at a time, and kernel 2
+    also fills its weight ring (or its product tiles) by 4-byte copies and
+    reads its tiles a column at a time. The JAX bars against the plain
+    versions, and the launch counts rise; at H = 449 kernel 2 is held as in
+    ``test_decode_block_past_448`` (h and c to float64, two runs bit-equal)."""
+    h = {"h102": 102, "misaligned": 100, "h449_misaligned": 449}[case]
+    move = misaligned if case.endswith("misaligned") else (lambda t: t)
     for m, lengths in ((16, np.random.RandomState(1).randint(
             0, 17, size=300)), (36, None)):
         pq, keys, mask, energy = [
@@ -238,6 +241,9 @@ def test_kernels_1_and_2_without_16_byte_loads(cuda, case):
     args = list(block_inputs(cuda, 300, 0.5, seed=7, h=h))
     args[0], args[2] = move(args[0]), move(args[2])
     args[7] = k2.DecoderWeights(*(move(w) for w in args[7]))
+    if h > 256:
+        hold_wide_block(args, steps=12)
+        return
     before = k2.launches
     out = k2.fused_decode_block(*args, num_steps=12, eos_idx=2)
     torch.cuda.synchronize()
@@ -295,12 +301,25 @@ def test_decode_block_kernel_mostly_done(cuda):
     assert finished > 0  # some rows emit EOS inside the block
 
 
-# Kernel 2 past its ring plans: (H = E, batch, the plan it takes on the
-# H100). The ring plans take H <= 256 (their gate sums); H = 257 to about
-# 680 takes the plan without a ring with the buffers in shared memory (6),
-# wider ones the one with a global scratch (7).
-PAST_448 = {"H257": (257, 96, 6), "W4": (449, 96, 6), "W5": (640, 64, 6),
-            "W6": (1024, 64, 7)}
+# Kernel 2 past its ring plans: (H = E, batch, share of rows done at entry,
+# V). The ring plans take H <= 256 (their gate sums); past them the grid
+# plan (6) takes every shape. H257: the first width past the ring; B1000: a
+# batch that is no multiple of a tile's 128 rows; B5: fewer rows than one
+# tile; mostly_done: 90% of the rows done at entry, as in a decode's second
+# block; V64 and V6743: wider vocabularies (6,743: C.7's, where the logits
+# product's four segments need two parts a sum); H1536, H2048: past H = 1,024,
+# where an attention row's query is staged in the scratch and the gates
+# need 6 and 8 parts a sum to keep each within 1,024 terms.
+# The last entry is the inputs' seed.
+PAST_448 = {"H257": (257, 96, 0.1, 9, 257), "W4": (449, 96, 0.1, 9, 449),
+            "W5": (640, 64, 0.1, 9, 640), "W6": (1024, 64, 0.1, 9, 1024),
+            "W5_B1000": (640, 1000, 0.1, 9, 1),
+            "W4_B5": (449, 5, 0.1, 9, 2),
+            "W5_mostly_done": (640, 1000, 0.9, 9, 3),
+            "W4_V64": (449, 96, 0.1, 64, 4),
+            "W4_V6743": (449, 96, 0.1, 6743, 5),
+            "H1536": (1536, 64, 0.1, 9, 6), "H2048": (2048, 48, 0.1, 9, 7)}
+GRID_PLAN = 6
 
 
 def as_float64(args):
@@ -319,18 +338,19 @@ def as_float64(args):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(PAST_448) + ["decode_H640"])
 def test_decode_block_past_448(cuda, name):
-    """Kernel 2 past its ring plans (H = 257, and W4-W6: H = 449, 640 and
-    1024, the last past shared memory): M_t = 16, M_v = 36, V = 9, K = 32
-    steps from SOS with a tenth of the rows done at entry, weights drawn as
-    the JAX package initialises them. The JAX decode test's bars against
-    the plain version: tokens, done and emitted flags equal, attention rtol
-    1e-5 / atol 1e-6. The float64 referee (PERF.md section 2) for the
-    attention and the carried h and c: no further from a float64
-    evaluation than twice the plain version (or 1e-6), on the rows where
-    float64 takes the same tokens. At these widths the plain version's own
-    h and c lie about as far from float64 as the attention bar (c 6e-6 at
-    H = 449), so two float32 evaluations may part by more than it: h and c
-    are held to float64 only.
+    """Kernel 2 past its ring plans, on the grid plan (PAST_448: H = 257,
+    W4-W6: H = 449, 640 and 1024, and H = 1536 and 2048; a batch of 1000
+    rows, of 5, 90% of the rows done at entry, V = 64 and 6,743): M_t = 16, M_v = 36, K = 32 steps from
+    SOS, weights drawn as the JAX package initialises them; each case run
+    twice, every bit the same. The JAX decode test's bars against the plain
+    version: tokens, done and emitted flags equal, attention rtol 1e-5 /
+    atol 1e-6. The float64 referee (PERF.md section 2) for the attention
+    and the carried h and c: no further from a float64 evaluation than
+    twice the plain version (or 1e-6), on the rows where float64 takes the
+    same tokens. At these widths the plain version's own h and c lie about
+    as far from float64 as the attention bar (c 6e-6 at H = 449), so two
+    float32 evaluations may part by more than it: h and c are held to
+    float64 only.
     decode_H640: a greedy decode of a model with H = 640 through
     decode_impl="block" launches kernel 2 and gives the tokens of
     "block_plain" apart from rows parting at argmax near-ties (top-2 logit
@@ -381,21 +401,35 @@ def test_decode_block_past_448(cuda, name):
                                    ref.attention_situations[~rows],
                                    rtol=1e-5, atol=1e-6)
         return
-    h, batch, index = PAST_448[name]
-    plan = k2.block_plan(h, 9, 16, 36, torch.cuda.current_device())
-    if torch.cuda.get_device_name(cuda).startswith("NVIDIA H100"):
-        assert plan.index == index, plan
-    inputs, _ = teacher_forced_inputs(cuda, batch, 1, 1, h=h, seed=h)
-    rng = np.random.RandomState(h)
+    h, batch, done_fraction, vocab, seed = PAST_448[name]
+    plan = k2.block_plan(h, vocab, 16, 36, torch.cuda.current_device())
+    assert plan.index == GRID_PLAN and plan.grid, plan
+    inputs, _ = teacher_forced_inputs(cuda, batch, 1, 1, h=h, vocab=vocab,
+                                      seed=seed)
+    rng = np.random.RandomState(seed)
     args = (inputs[0], inputs[1], inputs[2], inputs[3], inputs[4],
             torch.ones(batch, dtype=torch.int32, device=cuda),
-            torch.from_numpy(rng.rand(batch) < 0.1).to(cuda), inputs[7])
+            torch.from_numpy(rng.rand(batch) < done_fraction).to(cuda),
+            inputs[7])
+    hold_wide_block(args)
+
+
+def hold_wide_block(args, steps=32):
+    """Kernel 2 on ``args`` (one launch of ``steps`` steps, EOS 2), run
+    twice: every bit the same. Against the plain version: tokens, done and
+    emitted flags equal, attention rtol 1e-5 / atol 1e-6; and the float64
+    referee for the attention and the carried h and c (no further from a
+    float64 evaluation than twice the plain version, or 1e-6), on the rows
+    where float64 takes the same tokens."""
     before = k2.launches
-    out = k2.fused_decode_block(*args, num_steps=32, eos_idx=2)
+    out = k2.fused_decode_block(*args, num_steps=steps, eos_idx=2)
+    again = k2.fused_decode_block(*args, num_steps=steps, eos_idx=2)
     torch.cuda.synchronize()
-    assert k2.launches == before + 1
+    assert k2.launches == before + 2
+    for field, first, second in zip(k2.BlockOutput._fields, out, again):
+        assert torch.equal(first, second), field
     gaps = []
-    ref = k2.decode_block_plain(*args, num_steps=32, eos_idx=2,
+    ref = k2.decode_block_plain(*args, num_steps=steps, eos_idx=2,
                                 top2_gap=gaps)
     for field in ("tokens", "done", "step_tokens", "step_emitted"):
         assert torch.equal(getattr(out, field), getattr(ref, field)), \
@@ -404,7 +438,8 @@ def test_decode_block_past_448(cuda, name):
     for field in ("step_attn_cmd", "step_attn_sit"):
         torch.testing.assert_close(getattr(out, field), getattr(ref, field),
                                    rtol=1e-5, atol=1e-6)
-    exact = k2.decode_block_plain(*as_float64(args), num_steps=32, eos_idx=2)
+    exact = k2.decode_block_plain(*as_float64(args), num_steps=steps,
+                                  eos_idx=2)
     agree = torch.nonzero((exact.step_tokens == ref.step_tokens).all(
         dim=0)).flatten()
     assert len(agree) > 0
@@ -421,11 +456,13 @@ def test_decode_block_past_448(cuda, name):
 
 
 def teacher_forced_inputs(device, batch, steps, num_steps, m_t=16, m_v=36,
-                          h=100, vocab=9, seed=0):
-    """Flagship widths; weights drawn as the JAX package initialises them,
-    N(0, 1) keys, command lengths in 1..M_t, a p=0.3 dropout mask, tokens
-    uniform over the vocabulary with pad past num_steps."""
+                          h=100, vocab=9, seed=0, e=None):
+    """Flagship widths (embedding width e = h unless given); weights drawn as
+    the JAX package initialises them, N(0, 1) keys, command lengths in
+    1..M_t, a p=0.3 dropout mask, tokens uniform over the vocabulary with
+    pad past num_steps."""
     rng = np.random.RandomState(seed)
+    e = h if e is None else e
 
     def t(array):
         return torch.from_numpy(np.asarray(array, np.float32)).to(device)
@@ -433,19 +470,19 @@ def teacher_forced_inputs(device, batch, steps, num_steps, m_t=16, m_v=36,
     def uniform(shape, fan_in):
         return t(rng.uniform(-1, 1, shape) / np.sqrt(fan_in))
 
-    embedding = rng.randn(vocab, h)
+    embedding = rng.randn(vocab, e)
     embedding[0] = 0.0
     weights = k2.DecoderWeights(
         uniform((h, h), h), uniform((h, 1), h), uniform((2 * h, h), 2 * h),
         uniform((1, h), 2 * h), uniform((h, h), h), uniform((h, 1), h),
-        t(embedding), uniform((3 * h, 4 * h), h), uniform((h, 4 * h), h),
-        uniform((1, 4 * h), h), uniform((4 * h, h), 4 * h),
+        t(embedding), uniform((e + 2 * h, 4 * h), h), uniform((h, 4 * h), h),
+        uniform((1, 4 * h), h), uniform((e + 3 * h, h), e + 3 * h),
         uniform((h, vocab), h))
     lengths = rng.randint(1, m_t + 1, size=batch)
     mask = t(np.arange(m_t)[None] < lengths[:, None])
     tokens = rng.randint(0, vocab, size=(steps, batch))
     tokens[num_steps:] = 0
-    drop = (rng.rand(steps, batch, h) > 0.3) / 0.7
+    drop = (rng.rand(steps, batch, e) > 0.3) / 0.7
     h0 = np.tanh(rng.randn(batch, h))
     inputs = (t(rng.randn(batch, m_t, h)), mask, t(rng.randn(batch, m_v, h)),
               t(h0), t(rng.randn(batch, h) * 0.5),
@@ -581,12 +618,25 @@ def kernel4_and_helper(inputs, dlogits, g_asum, num_steps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,steps,num_steps", [
-    (203, 13, 11),   # B not a multiple of the rows per cluster
-    (16, 1, 1),      # T = 1
-    (200, 7, 7),     # N = 1400 row-steps, not a multiple of the chunks
-    (5, 3, 2)])      # smaller than one cluster's rows
-def test_kernel4_and_helper_match_plain_twins(cuda, batch, steps, num_steps):
+@pytest.mark.parametrize("batch,steps,num_steps,h,e", [
+    # B not a multiple of the rows per cluster
+    pytest.param(203, 13, 11, 100, 100, id="203-13-11"),
+    pytest.param(16, 1, 1, 100, 100, id="16-1-1"),  # T = 1
+    # N = 1400 row-steps, not a multiple of the chunks
+    pytest.param(200, 7, 7, 100, 100, id="200-7-7"),
+    # smaller than one cluster's rows
+    pytest.param(5, 3, 2, 100, 100, id="5-3-2"),
+    # W3-like widths with E != H: the helper's 128 x 256 tiles with masked
+    # edges (H = 320), its bias rows as one-row products, 2,639 row-steps
+    pytest.param(203, 13, 11, 320, 256, id="203-13-11-H320-E256"),
+    # 14,336 row-steps: more than its 12 chunks of at most 1,024, so each
+    # wide chunk is summed in two runs. 12 steps of gradients, the rest
+    # padding: with all 56, weight_grads_plain's own float32 sums of out_w
+    # (values up to ~80) part from float64 by more than the bar allows
+    # between it and the helper
+    pytest.param(256, 56, 12, 320, 256, id="256-56-12-H320-E256")])
+def test_kernel4_and_helper_match_plain_twins(cuda, batch, steps, num_steps,
+                                              h, e):
     """Kernel 4 (one cluster per row group) against its plain twin
     ``teacher_forced_backward_plain`` and the helper (split over chunks of
     row-steps) against ``weight_grads_plain``, on the same residuals, at
@@ -594,7 +644,7 @@ def test_kernel4_and_helper_match_plain_twins(cuda, batch, steps, num_steps):
     same."""
     from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
     inputs, (dlogits, g_asum) = teacher_forced_inputs(
-        cuda, batch, steps, num_steps, seed=batch + steps)
+        cuda, batch, steps, num_steps, h=h, e=e, seed=batch + steps)
     dlogits[num_steps:] = 0.0
     raw, grads, (h_res, c_res) = kernel4_and_helper(inputs, dlogits, g_asum,
                                                     num_steps)
@@ -610,6 +660,16 @@ def test_kernel4_and_helper_match_plain_twins(cuda, batch, steps, num_steps):
                                plain_grads):
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5,
                                    msg=name)
+    # The float64 referee: the helper no further from the same sums in
+    # float64 than twice the plain version (or 1e-6).
+    exact = tf.weight_grads_plain(raw[4].double(), h_res.double(),
+                                  dlogits.double())
+    for name, got, want, truth in zip(k2.DecoderWeights._fields, grads,
+                                      plain_grads, exact):
+        kernel_err = float((got.double() - truth).abs().max())
+        plain_err = float((want.double() - truth).abs().max())
+        assert kernel_err <= max(2 * plain_err, 1e-6), (name, kernel_err,
+                                                         plain_err)
     again_raw, again_grads, _ = kernel4_and_helper(inputs, dlogits, g_asum,
                                                    num_steps)
     for name, first, second in zip(names + list(k2.DecoderWeights._fields),

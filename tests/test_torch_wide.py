@@ -135,10 +135,13 @@ def keys_and_state(rng, batch, m_t, m_v, h):
             (rng.randn(batch, h) * 0.5).astype(np.float32)]
 
 
-def test_decode_block_wide_matches_pallas():
+@pytest.mark.parametrize("h,m_v", [(136, 81), (449, 36), (1024, 36)])
+def test_decode_block_wide_matches_pallas(h, m_v):
     """Two chained 4-step blocks from SOS at H = 136, M_v = 81 (a 9x9
-    grid); one row starts done."""
-    batch, m_t, m_v, h = 4, 16, 81, 136
+    grid), and at the widths the card serves with kernel 2's grid plan (H =
+    449 and 1024, M_v = 36): the plain version (the card's referee) against
+    the Pallas kernel in interpret mode; one row starts done."""
+    batch, m_t = 4, 16
     rng = np.random.RandomState(3)
     state = keys_and_state(rng, batch, m_t, m_v, h)
     weights = decoder_weights(rng, h, h, VOCAB)
