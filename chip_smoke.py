@@ -25,8 +25,10 @@ form and past the resident weight slices of kernels 3 and 4 (a 9x9 grid,
 H=E=136, H=E=256 with 72 command keys and a 12x12 grid; the helper beside
 its library call), and kernel 2 past its ring plans, on its grid plan
 (H=E=449, 640, 1024 at batch 1024, and a second block at H=E=640 with 90%
-of the rows done at entry); these rows also stand, as ``wide`` lists, on
-their kernels' entries of the final kernels line. The decode's examples are also
+of the rows done at entry), and kernels 3 and 4 past every cluster plan, on
+their grid plans (H=E=449, 512, 640, 1024 at B=200, T=56); these rows also
+stand, as ``wide`` lists, on their kernels' entries of the final kernels
+line. The decode's examples are also
 written as ``predict.json`` (``predict_and_save``), held to the decode's
 tokens and exact match. The second main path resumes training from the
 fixture checkpoint for 20 steps at batch 200 through ``train()``, streamed
@@ -36,6 +38,10 @@ the third trains on the resident path: chunks of 10 steps replayed from
 CUDA graphs, held to as many eager steps (full and stratified layouts),
 timed against the streamed step with the device busy share of each, then
 ``train(steps_per_execution=10)`` to step 200020 with its dev evaluation.
+At H=E=512, a decoder width no cluster plan of kernels 3 and 4 fits, the
+default "fused" path on random weights trains a graphed resident chunk of 4
+steps (kernels 3 and 4 on their grid plans), held to 4 eager steps of the
+plain unroll at the JAX bars.
 The command line runs in process (``cli/seq2seq.py``'s ``main``):
 ``--mode=train`` resumed to 200020 in graphed chunks with a dev evaluation
 of 512 examples, then ``--mode=test``, whose ``dev_predict.json`` must hold
@@ -129,6 +135,17 @@ SEED = 42
 # TRAIN_T.
 WIDE_SHAPES = (("W1", 100, 16, 81), ("W2", 136, 16, 36), ("W3", 256, 72, 144))
 WIDE_T = 24
+# Kernels 3 and 4 past every cluster plan, on their grid plans: (name, H =
+# E), at M_t = 16, M_v = 36, the training batch, held at T = WIDE_T and
+# timed at TRAIN_T. H512 is C.12's width, the first the cluster plans
+# refused.
+WIDE_TEACHER_FORCED = (("W4", 449), ("H512", 512), ("W5", 640),
+                       ("W6", 1024))
+# The training main path at a decoder width no cluster plan fits (C.12):
+# H = E = WIDE_TRAIN_H on random weights, a graphed resident chunk of
+# WIDE_TRAIN_K steps.
+WIDE_TRAIN_H = 512
+WIDE_TRAIN_K = 4
 # Kernel 2 past its ring plans (H <= 256), on its grid plan: (name, H = E,
 # share of rows done at entry), at M_t = 16, M_v = 36, V = 9, K = 32 steps
 # and batch PAST_448_BATCH (each launch well under 1 s).
@@ -802,6 +819,134 @@ def hold_teacher_forced(label, inputs, dlogits, g_asum, num_steps):
     return err
 
 
+def teacher_forced_times(gen, device, label, h, m_t, m_v, vocab, sos_idx,
+                         helper):
+    """Kernels 3 and 4 (and, with ``helper``, the weight-gradient helper
+    beside its library call) at the training shapes (B = TRAIN_BATCH, T =
+    TRAIN_T, H = E = h): (kernel, ms, plain ms, bound, plan[, library ms])
+    rows for ``time_rows``."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.ops import _build
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    index = _build.device_index(device)
+    inputs, (dlogits, g_asum) = random_teacher_forced_inputs(
+        gen, device, TRAIN_BATCH, TRAIN_T, TRAIN_T - 3, m_t, m_v, h, vocab,
+        sos_idx)
+    num_steps = TRAIN_T - 3
+    _, h_res, c_res, _ = tf.teacher_forced_forward(*inputs,
+                                                   num_steps=num_steps)
+    stash = tf.teacher_forced_backward(
+        *inputs[:3], *inputs[5:], h_res, c_res, dlogits, g_asum,
+        num_steps=num_steps)[4]
+    work = teacher_forced_work(TRAIN_BATCH, TRAIN_T, m_t, m_v, h, h, vocab)
+    plans = {kernel: tf.shared_memory_plan(kernel, m_t, m_v, h, h, vocab,
+                                           index)
+             for kernel in tf.KERNEL_NUMBERS}
+    times = [
+        ("teacher_forced_forward", cuda_ms(
+            lambda: tf.teacher_forced_forward(*inputs, num_steps=num_steps),
+            10),
+         cuda_ms(lambda: tf.teacher_forced_forward_plain(
+             *inputs, num_steps=num_steps), 1, warmup=1),
+         bound_ms(*work[0]), plans["teacher_forced_forward"]),
+        ("teacher_forced_backward", cuda_ms(
+            lambda: tf.teacher_forced_backward(
+                *inputs[:3], *inputs[5:], h_res, c_res, dlogits, g_asum,
+                num_steps=num_steps), 10),
+         cuda_ms(lambda: tf.teacher_forced_backward_plain(
+             *inputs[:3], *inputs[5:], h_res, c_res, dlogits, g_asum,
+             num_steps=num_steps), 1, warmup=1),
+         bound_ms(*work[1]), plans["teacher_forced_backward"])]
+    if helper:
+        # The helper's library call, timed with the helper as CUDA graphs
+        # (as on the main path). Its sums of B x T row-steps run in
+        # another order than the helper's, so both are held to the same
+        # products in float64: the library call within twice the helper's
+        # error, or within the helper's bars.
+        operands = helper_library_operands(stash, h_res, dlogits,
+                                           inputs[7].embedding.shape[1])
+        exact = helper_library([(a.double(), b.double())
+                                for a, b in operands])
+        for grad, got, want, ref in zip(
+                GRAD_NAMES[4:], helper_library(operands),
+                tf.teacher_forced_weight_grads(stash, h_res, dlogits),
+                exact):
+            library_err = float((got.double() - ref).abs().max())
+            helper_err = float((want.double() - ref).abs().max())
+            require(library_err <= max(2 * helper_err, 2e-5 + 2e-4 * float(
+                ref.abs().max())), "{} helper library call d{}: max |err| "
+                "vs float64 {:.3e}, the helper's {:.3e}".format(
+                    label, grad, library_err, helper_err))
+        del exact
+        library_ms = graph_ms(lambda: helper_library(operands), 10)
+        helper_graph_ms = graph_ms(lambda: tf.teacher_forced_weight_grads(
+            stash, h_res, dlogits), 10)
+        del operands
+        times.append(
+            ("teacher_forced_weight_grads", cuda_ms(
+                lambda: tf.teacher_forced_weight_grads(stash, h_res,
+                                                       dlogits), 10),
+             cuda_ms(lambda: tf.weight_grads_plain(stash, h_res, dlogits),
+                     3),
+             bound_ms(*work[2]),
+             "from a CUDA graph {:.4f} ms; its library call (14 "
+             "torch.matmul) from a CUDA graph {:.4f} ms".format(
+                 helper_graph_ms, library_ms), library_ms))
+    del inputs, dlogits, g_asum, h_res, c_res, stash
+    torch.cuda.empty_cache()
+    return times
+
+
+def time_rows(name, label, times):
+    """Prints each (kernel, ms, plain ms, bound, plan[, ...]) row of a
+    shape and returns them as the wide rows of the kernels line."""
+    rows = []
+    for kernel, ms, plain_ms, bound, plan, *_ in times:
+        plan_text = plan if isinstance(plan, str) else "plan {} ({}, " \
+            "{} bytes per CTA)".format(*plan)
+        print("{} {}: {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms "
+              "({}); {}".format(label, kernel, ms, plain_ms, *bound,
+                                plan_text))
+        rows.append(dict(shape=name, kernel=kernel, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound[0],
+                         bound_by=bound[1], plan=plan_text))
+    return rows
+
+
+def wide_teacher_forced_rows(gen, device, vocab, sos_idx):
+    """Kernels 3, 4 and the helper at WIDE_TEACHER_FORCED (M_t = 16, M_v =
+    36, past every cluster plan): held to the plain unroll and to float64
+    at T = WIDE_T (``hold_teacher_forced``, each run twice bit for bit),
+    the grid plan required on an H100; then kernels 3 and 4 timed at the
+    training shapes beside their plain versions and bounds
+    (``teacher_forced_times``). Returns one row per kernel and shape."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.ops import _build
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    rows = []
+    index = _build.device_index(device)
+    m_t, m_v = 16, 36
+    h100 = torch.cuda.get_device_name(device).startswith("NVIDIA H100")
+    for name, h in WIDE_TEACHER_FORCED:
+        label = "wide {} (H=E={}, M_t={}, M_v={}, B={})".format(
+            name, h, m_t, m_v, TRAIN_BATCH)
+        for kernel in tf.KERNEL_NUMBERS:
+            plan = tf.shared_memory_plan(kernel, m_t, m_v, h, h, vocab,
+                                         index)
+            require(plan[1].startswith("grid") or not h100,
+                    "{}: {} takes {} on an H100, not its grid plan".format(
+                        label, kernel, plan[1]))
+        inputs, (dlogits, g_asum) = random_teacher_forced_inputs(
+            gen, device, TRAIN_BATCH, WIDE_T, WIDE_T - 3, m_t, m_v, h, vocab,
+            sos_idx)
+        hold_teacher_forced(label + " teacher_forced T={}".format(WIDE_T),
+                            inputs, dlogits, g_asum, WIDE_T - 3)
+        del inputs, dlogits, g_asum
+        rows += time_rows(name, label, teacher_forced_times(
+            gen, device, label, h, m_t, m_v, vocab, sos_idx, helper=False))
+    return rows
+
+
 def wide_shape_rows(gen, device, vocab, sos_idx, eos_idx):
     """Every kernel at WIDE_SHAPES: held to its plain version and to float64
     (hold_attention, hold_decode_block, hold_teacher_forced), then timed
@@ -810,7 +955,6 @@ def wide_shape_rows(gen, device, vocab, sos_idx, eos_idx):
     from multimodal_seq2seq_gscan_tpu_torch.ops import _build
     from multimodal_seq2seq_gscan_tpu_torch.ops import additive_attention as k1
     from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
-    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
     wide_rows = []
     index = _build.device_index(device)
     for name, h, w_m_t, w_m_v in WIDE_SHAPES:
@@ -858,79 +1002,10 @@ def wide_shape_rows(gen, device, vocab, sos_idx, eos_idx):
                  weights_bytes, row_steps)),
              k2.block_plan(h, vocab, w_m_t, w_m_v, index).describe())]
         del calls, block_args
-        inputs, (dlogits, g_asum) = random_teacher_forced_inputs(
-            gen, device, TRAIN_BATCH, TRAIN_T, TRAIN_T - 3, w_m_t, w_m_v,
-            h, vocab, sos_idx)
-        num_steps = TRAIN_T - 3
-        _, h_res, c_res, _ = tf.teacher_forced_forward(
-            *inputs, num_steps=num_steps)
-        stash = tf.teacher_forced_backward(
-            *inputs[:3], *inputs[5:], h_res, c_res, dlogits, g_asum,
-            num_steps=num_steps)[4]
-        work = teacher_forced_work(TRAIN_BATCH, TRAIN_T, w_m_t, w_m_v, h,
-                                   h, vocab)
-        plans = {kernel: tf.shared_memory_plan(
-            kernel, w_m_t, w_m_v, h, h, vocab, index)
-            for kernel in tf.KERNEL_NUMBERS}
-        # The helper's library call, timed with the helper as CUDA graphs
-        # (as on the main path). Its sums of B x T row-steps run in
-        # another order than the helper's, so both are held to the same
-        # products in float64: the library call within twice the helper's
-        # error, or within the helper's bars.
-        operands = helper_library_operands(stash, h_res, dlogits,
-                                           inputs[7].embedding.shape[1])
-        exact = helper_library([(a.double(), b.double())
-                                for a, b in operands])
-        for grad, got, want, ref in zip(
-                GRAD_NAMES[4:], helper_library(operands),
-                tf.teacher_forced_weight_grads(stash, h_res, dlogits),
-                exact):
-            library_err = float((got.double() - ref).abs().max())
-            helper_err = float((want.double() - ref).abs().max())
-            require(library_err <= max(2 * helper_err, 2e-5 + 2e-4 * float(
-                ref.abs().max())), "{} helper library call d{}: max |err| "
-                "vs float64 {:.3e}, the helper's {:.3e}".format(
-                    label, grad, library_err, helper_err))
-        del exact
-        helper_library_ms = graph_ms(lambda: helper_library(operands), 10)
-        helper_graph_ms = graph_ms(lambda: tf.teacher_forced_weight_grads(
-            stash, h_res, dlogits), 10)
-        del operands
-        times += [
-            ("teacher_forced_forward", cuda_ms(
-                lambda: tf.teacher_forced_forward(
-                    *inputs, num_steps=num_steps), 10),
-             cuda_ms(lambda: tf.teacher_forced_forward_plain(
-                 *inputs, num_steps=num_steps), 1, warmup=1),
-             bound_ms(*work[0]), plans["teacher_forced_forward"]),
-            ("teacher_forced_backward", cuda_ms(
-                lambda: tf.teacher_forced_backward(
-                    *inputs[:3], *inputs[5:], h_res, c_res, dlogits,
-                    g_asum, num_steps=num_steps), 10),
-             cuda_ms(lambda: tf.teacher_forced_backward_plain(
-                 *inputs[:3], *inputs[5:], h_res, c_res, dlogits,
-                 g_asum, num_steps=num_steps), 1, warmup=1),
-             bound_ms(*work[1]), plans["teacher_forced_backward"]),
-            ("teacher_forced_weight_grads", cuda_ms(
-                lambda: tf.teacher_forced_weight_grads(
-                    stash, h_res, dlogits), 10),
-             cuda_ms(lambda: tf.weight_grads_plain(stash, h_res,
-                                                   dlogits), 3),
-             bound_ms(*work[2]),
-             "from a CUDA graph {:.4f} ms; its library call (14 "
-             "torch.matmul) from a CUDA graph {:.4f} ms".format(
-                 helper_graph_ms, helper_library_ms))]
-        del inputs, dlogits, g_asum, h_res, c_res, stash
-        for kernel, ms, plain_ms, bound, plan in times:
-            plan_text = plan if isinstance(plan, str) else "plan {} ({}, " \
-                "{} bytes per CTA)".format(*plan)
-            print("{} {}: {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms "
-                  "({}); {}".format(label, kernel, ms, plain_ms, *bound,
-                                    plan_text))
-            wide_rows.append(dict(shape=name, kernel=kernel, ms=ms,
-                                  plain_ms=plain_ms, bound_ms=bound[0],
-                                  bound_by=bound[1], plan=plan_text))
-        wide_rows[-1]["library_ms"] = helper_library_ms
+        times += teacher_forced_times(gen, device, label, h, w_m_t, w_m_v,
+                                      vocab, sos_idx, helper=True)
+        wide_rows += time_rows(name, label, times)
+        wide_rows[-1]["library_ms"] = times[-1][5]
     return wide_rows
 
 
@@ -1228,6 +1303,115 @@ def resident_checks(train_set, config, events, streamed_batch, sync):
     print("resident training: dev exact match {:.4f}% on {} examples at "
           "{}".format(evaluations[-1][1]["exact_match"], STEP_EXAMPLES,
                       evaluations[-1][0]))
+
+
+def wide_training_checks(train_set, sync):
+    """C.12's witness: the default training path ("fused", kernels 3 and 4
+    and the helper) at H = E = WIDE_TRAIN_H, a decoder width no cluster plan
+    of kernels 3 and 4 fits (their grid plans, required on an H100), on
+    random weights from SEED with a non-zero Adam state at step 7 and the
+    fixture's train split on the card: one ``loss_and_grads`` against
+    ``teacher_forced_impl="plain"`` (loss rtol 1e-5, gradients rtol 3e-4 /
+    atol 3e-5), then a graphed resident chunk of WIDE_TRAIN_K steps against
+    as many eager plain steps on the same index rows and dropout (per-step
+    loss rtol 1e-5, params atol 1e-6: the JAX bars); its ms a step."""
+    import numpy as np
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
+    from multimodal_seq2seq_gscan_tpu_torch.models.params import (
+        leaves, tree_map)
+    from multimodal_seq2seq_gscan_tpu_torch.ops import _build
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    from multimodal_seq2seq_gscan_tpu_torch.train import resident
+    from multimodal_seq2seq_gscan_tpu_torch.train.state import (
+        Adam, create_train_state)
+    from multimodal_seq2seq_gscan_tpu_torch.train.step import (
+        loss_and_grads, train_step)
+    h = WIDE_TRAIN_H
+    config = ModelConfig(
+        input_vocabulary_size=train_set.input_vocabulary_size,
+        target_vocabulary_size=train_set.target_vocabulary_size,
+        num_cnn_channels=train_set.image_channels, encoder_hidden_size=h,
+        decoder_hidden_size=h)
+    require(config.teacher_forced_impl == "fused",
+            "the default teacher_forced_impl is {}".format(
+                config.teacher_forced_impl))
+    plain_config = config._replace(teacher_forced_impl="plain")
+    optimizer = Adam()
+    start = create_train_state(SEED, config, optimizer, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    mu = tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                        device=DEVICE) * 1e-3, start.params)
+    nu = tree_map(lambda p: torch.rand(p.shape, generator=gen,
+                                       device=DEVICE) * 9e-6 + 1e-6,
+                  start.params)
+    start = start._replace(step=7, opt_state=start.opt_state._replace(
+        count=7, mu=mu, nu=nu, schedule_count=7))
+    data = resident.build_resident_data(train_set, DEVICE)
+    block = next(resident.index_block_stream(
+        data.num_examples, TRAIN_BATCH, WIDE_TRAIN_K,
+        np.random.default_rng(SEED)))
+    m_t = data.input_ids.shape[1]
+    m_v = data.situations.shape[1] * data.situations.shape[2]
+    index = _build.device_index(torch.device(DEVICE))
+    h100 = torch.cuda.get_device_name(0).startswith("NVIDIA H100")
+    for kernel in tf.KERNEL_NUMBERS:
+        plan = tf.shared_memory_plan(kernel, m_t, m_v, h, h,
+                                     config.target_vocabulary_size, index)
+        print("H = {}: {} takes {}".format(h, kernel, plan))
+        require(plan[1].startswith("grid") or not h100,
+                "{} takes {} at H = {} on an H100, not its grid plan".format(
+                    kernel, plan[1], h))
+
+    first = resident.gather_batch(data, block[0])
+    got, want = (loss_and_grads(start, first, c)
+                 for c in (config, plain_config))
+    rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    grad_err = max(check_close_quiet(a, b, 3e-4, 3e-5, "H={} step 1".format(
+        h)) for a, b in zip(leaves(got[2]), leaves(want[2])))
+    print("H = {}, step 1, fused vs plain: loss {:.8f} vs {:.8f} (rel err "
+          "{:.3e}, rtol 1e-5); gradients max |err| {:.3e} (rtol 3e-4, atol "
+          "3e-5)".format(h, float(got[0]), float(want[0]), rel, grad_err))
+    require(rel <= 1e-5, "H = {}: the step-1 loss differs".format(h))
+    del got, want
+
+    tf.launches.update({name: 0 for name in tf.launches})
+    chunk = resident.make_train_chunk(config, optimizer)
+    chunk_state, chunk_metrics = chunk(start, data, block)
+    sync()
+    launches = dict(tf.launches)
+    print("launches, H = {} graphed chunk (warm-up and capture; replays are "
+          "not counted): {}".format(h, launches))
+    require(all(count > 0 for count in launches.values()),
+            "a kernel of the H = {} training path was not launched".format(h))
+    state, losses = start, []
+    for row in block:
+        state, metrics = train_step(state, resident.gather_batch(data, row),
+                                    plain_config, optimizer)
+        losses.append(float(metrics["loss"]))
+    chunk_losses = [float(x) for x in chunk_metrics["loss"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(chunk_losses, losses))
+    param_err = max(float((a - b).abs().max()) for a, b in zip(
+        leaves(chunk_state.params), leaves(state.params)))
+    print("H = {}, graphed chunk of {} fused steps vs eager plain steps: "
+          "losses {} vs {} (max rel err {:.3e}, rtol 1e-5); params max |err| "
+          "{:.3e} (atol 1e-6)".format(
+              h, WIDE_TRAIN_K, ["{:.6f}".format(x) for x in chunk_losses],
+              ["{:.6f}".format(x) for x in losses], rel, param_err))
+    require(all(math.isfinite(x) for x in chunk_losses) and rel <= 1e-5,
+            "H = {}: the chunk's losses differ from the plain path's".format(
+                h))
+    require(param_err <= 1e-6, "H = {}: the chunk's params differ from the "
+            "plain path's".format(h))
+    again = chunk(start, data, block)
+    sync()
+    require(leaves_equal(again[0].params, chunk_state.params),
+            "H = {}: the graphed chunk is not bit-identical on a "
+            "replay".format(h))
+    ms = cuda_ms(lambda: chunk(start, data, block), 2, warmup=1)
+    print("H = {}: graphed chunk {:.3f} ms a step (B={}, T={}); replayed "
+          "bit for bit".format(h, ms / WIDE_TRAIN_K, TRAIN_BATCH,
+                               data.target_ids.shape[1]))
 
 
 def as_bf16(args, small):
@@ -2785,6 +2969,8 @@ def main():
                                     config.target_eos_idx)
         wide_rows += past_448_rows(gen, device, vocab, config.target_sos_idx,
                                    config.target_eos_idx)
+        wide_rows += wide_teacher_forced_rows(gen, device, vocab,
+                                              config.target_sos_idx)
         print("wide shapes: {}".format(json.dumps(wide_rows)))
 
     tf32_seen = set()
@@ -3001,6 +3187,10 @@ def main():
     with phase("main path: resident training from the fixture "
                "checkpoint"), encoder_precision(tf32_seen):
         resident_checks(train_set, train_config, events, batches[0], sync)
+
+    with phase("main path: train at H = {}".format(WIDE_TRAIN_H)), \
+            encoder_precision(tf32_seen):
+        wide_training_checks(train_set, sync)
 
     with phase("main path: the command line, --mode=train and --mode=test"), \
             encoder_precision(tf32_seen):

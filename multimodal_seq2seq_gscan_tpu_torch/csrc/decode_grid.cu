@@ -24,7 +24,9 @@
 // Layout: a persistent kernel of one CTA per SM (a cooperative launch, so
 // that every CTA is resident), 256 threads, the step as phases separated by
 // grid barriers (an arrival counter in the scratch, acquire loads, a trap
-// after a minute instead of a hang):
+// after a minute instead of a hang; grid_core.cuh, with the products, the
+// attention rows and the visual query's and the cell's passes, shared with
+// kernels 3 and 4's grid plans):
 //   textual query | textual attention | visual query (its k-split sums,
 //   then tanh in a pass) | visual query projection | visual attention |
 //   gates | the cell | logits | argmax | the compaction and the retiring
@@ -69,22 +71,15 @@
 #include <climits>
 #include <cstdint>
 
-#include "attend.cuh"
-#include "product_core.cuh"
+#include "grid_core.cuh"
 
 namespace {
 
 namespace core = gscan::core;
+using namespace gscan::grid;
 
-constexpr int kThreads = core::kThreads;
-constexpr int kWarps = kThreads / 32;
-constexpr int kDepth = core::kDepth;
-constexpr int kMaxSplits = 16;    // k-split parts taken to fill the grid
 constexpr int kPartColumns = 16;  // room for the parts: at least 16 H a slot
-constexpr int kStagedKeys = 256;  // scores in shared memory up to M keys
 constexpr int kChunk = 1024;      // slots a CTA places at a time
-// Clock cycles a grid barrier waits before it traps (about a minute).
-constexpr long long kBarrierTimeout = 120000000000LL;
 // Phase timing (scripts/torch_kernel_phases.py --kernel grid builds a copy
 // with 1): thread 0 of CTA 0 adds the clock cycles of each phase (from the
 // barrier before it to the barrier after it) to gscan_decode_grid_cycles,
@@ -131,14 +126,6 @@ struct GridArgs {
   bool vec;
 };
 
-// The parts a product of `segs` input segments (H rows each, in stages of
-// kDepth) needs so that no sum runs over more than kMaxChain terms.
-__host__ __device__ int chain_parts(int segs, int H) {
-  return (segs * ((H + kDepth - 1) / kDepth) * kDepth + core::kMaxChain -
-          1) /
-         core::kMaxChain;
-}
-
 // The scratch, in floats: [H][ld] buffers, the parts' [P][ld], the folded
 // head [4H][V], then [ld] int arrays and the barrier's counter. P, the
 // parts' columns: 16 H, or more where the widest product (N = 4H gates, or
@@ -163,40 +150,6 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// A barrier of the whole (co-resident) grid: each CTA adds one to the
-// counter and waits for the count of this barrier (target).
-struct GridBarrier {
-  unsigned* count;
-  unsigned target;
-  __device__ void sync() {
-    target += gridDim.x;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      __threadfence();
-      atomicAdd(count, 1u);
-      const long long start = clock64();
-      while (true) {
-        unsigned seen;
-        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-                     : "=r"(seen)
-                     : "l"(count)
-                     : "memory");
-        if (seen >= target) break;
-        if (clock64() - start > kBarrierTimeout) __trap();
-      }
-      __threadfence();
-      if constexpr (kGridPhaseTiming != 0)
-        if (blockIdx.x == 0)
-          gscan_decode_grid_cycles[kPhases] += clock64() - start;
-    }
-    __syncthreads();
-  }
-};
-
 // Thread 0 of CTA 0 adds the cycles since the last mark to phase p (timing
 // builds).
 struct PhaseClock {
@@ -211,355 +164,8 @@ struct PhaseClock {
   }
 };
 
-// A product's input segment: H rows of activations x ([H][ld]) against H
-// rows of weights w ([H][N]).
-struct Segment {
-  const float* x;
-  const float* w;
-};
-
-// A product's k-split sums: ks parts of [N][pld] floats (pld: its rows
-// rounded up to 4), part p at p N pld.
-struct Parts {
-  int ks;
-  size_t pld;
-};
-
-// The k-split of a product of `tiles` tiles and `stages` stages: the parts
-// ks (at least enough that no sum runs over more than kMaxChain terms,
-// which the Layout's room always holds; more up to kMaxSplits, the stages
-// and the room) whose rounds of tasks over the grid times stages a part
-// are least.
-__device__ int split_count(int tiles, int stages, size_t room) {
-  const int least = (stages * kDepth + core::kMaxChain - 1) / core::kMaxChain;
-  const int most = max(
-      least, (int)min((size_t)min(kMaxSplits, stages), room));
-  int best = least;
-  long long best_cost = LLONG_MAX;
-  for (int ks = least; ks <= most; ++ks) {
-    const long long rounds =
-        ((long long)tiles * ks + gridDim.x - 1) / gridDim.x;
-    const long long cost = rounds * ((stages + ks - 1) / ks);
-    if (cost < best_cost) best_cost = cost, best = ks;
-  }
-  return best;
-}
-
-// out: part p of the product, [N][pld] at p N pld for p < ks: part p's
-// share of sum over the segments g and k < H of segs[g].x[k][s]
-// segs[g].w[k][n], for s < M and n < N. room: floats of out. Every thread
-// of every CTA calls this.
-template <int kSegs>
-__device__ __noinline__ Parts product(const Segment (&segs)[kSegs], int M,
-                                      int N, int H, size_t ld, float* out,
-                                      size_t room, bool vec, float* smem) {
-  using core::kTileM;
-  using core::kTileN;
-  // The tile's 128 rows are slots and its 256 columns output columns, or,
-  // where that pads the product less (N = 640: 768 columns against 640),
-  // flipped: 128 output columns by 256 slots.
-  const long long pad_rows = (long long)(M + kTileM - 1) / kTileM * kTileM *
-                             ((N + kTileN - 1) / kTileN * kTileN);
-  const long long pad_flip = (long long)(N + kTileM - 1) / kTileM * kTileM *
-                             ((M + kTileN - 1) / kTileN * kTileN);
-  const bool flip = pad_flip < pad_rows;
-  const int tiles_m = flip ? (M + kTileN - 1) / kTileN
-                           : (M + kTileM - 1) / kTileM;
-  const int tiles_n = flip ? (N + kTileM - 1) / kTileM
-                           : (N + kTileN - 1) / kTileN;
-  const int per_seg = (H + kDepth - 1) / kDepth, stages = kSegs * per_seg;
-  const size_t pld = ((size_t)M + 3) / 4 * 4;
-  const int ks = split_count(tiles_m * tiles_n, stages, room / (N * pld));
-  const int tasks = tiles_m * tiles_n * ks;
-  for (int task = blockIdx.x; task < tasks; task += gridDim.x) {
-    const int m0 = task % tiles_m * (flip ? kTileN : kTileM);
-    const int n0 = task / tiles_m % tiles_n * (flip ? kTileM : kTileN);
-    const int p = task / (tiles_m * tiles_n);
-    const int s0 = p * stages / ks, s1 = (p + 1) * stages / ks;
-    float acc[core::kRows][core::kCols];
-    // Without the core's prefetch of the next k's operands: with it, a
-    // launch took 1.11x as long at H = 640 (PERF.md).
-    core::tile_sums<false>(
-        s1 - s0, smem,
-        [&](int s, float* a, float* b) {
-          const int g = (s0 + s) / per_seg;
-          const int k0 = (s0 + s) % per_seg * kDepth;
-          const int rows = min(kDepth, H - k0);
-          const float* x = segs[g].x + k0 * ld + m0;
-          const float* w = segs[g].w + (size_t)k0 * N + n0;
-          if (flip) {
-            core::load_stage<kTileM>(a, w, N, rows, N - n0, vec);
-            core::load_stage<kTileN>(b, x, ld, rows, M - m0, true);
-          } else {
-            core::load_stage<kTileM>(a, x, ld, rows, M - m0, true);
-            core::load_stage<kTileN>(b, w, N, rows, N - n0, vec);
-          }
-        },
-        acc);
-    float* o = out + (size_t)p * N * pld;
-    if (flip) {
-      // acc[i][j]: column n0 + row_of(i), slot m0 + col_of(j), the slots
-      // in runs of 4.
-#pragma unroll
-      for (int i = 0; i < core::kRows; ++i) {
-        const int n = n0 + core::row_of(i);
-        if (n >= N) continue;
-#pragma unroll
-        for (int run = 0; run < core::kCols / 4; ++run) {
-          const int s = m0 + core::col_of(4 * run);
-          float* dst = o + (size_t)n * pld + s;
-          if (s + 3 < M) {
-            *reinterpret_cast<float4*>(dst) =
-                make_float4(acc[i][4 * run], acc[i][4 * run + 1],
-                            acc[i][4 * run + 2], acc[i][4 * run + 3]);
-          } else {
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              if (s + q < M) dst[q] = acc[i][4 * run + q];
-          }
-        }
-      }
-      continue;
-    }
-#pragma unroll
-    for (int j = 0; j < core::kCols; ++j) {
-      const int n = n0 + core::col_of(j);
-      if (n >= N) continue;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int s = m0 + core::row_of(4 * half);
-        float* dst = o + (size_t)n * pld + s;
-        if (s + 3 < M) {
-          *reinterpret_cast<float4*>(dst) =
-              make_float4(acc[4 * half][j], acc[4 * half + 1][j],
-                          acc[4 * half + 2][j], acc[4 * half + 3][j]);
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            if (s + q < M) dst[q] = acc[4 * half + q][j];
-        }
-      }
-    }
-  }
-  return Parts{ks, pld};
-}
-
-// The sums of a product's ks parts (`stride` apart) at kN elements i[e]
-// (where valid[e]), each in part order; read past L1, as everything another
-// CTA wrote. Every element's loads of a block of kPartBlock parts are
-// issued before their adds, so that up to kN kPartBlock loads wait on L2
-// together (one after another, the passes below waited once for each).
-constexpr int kPartBlock = 4;
-template <int kN>
-__device__ __forceinline__ void part_sums(const float* part, int ks,
-                                          size_t stride,
-                                          const size_t (&i)[kN],
-                                          const bool (&valid)[kN],
-                                          float (&sum)[kN]) {
-  for (int p0 = 0; p0 < ks; p0 += kPartBlock) {
-    float v[kN][kPartBlock];
-#pragma unroll
-    for (int e = 0; e < kN; ++e)
-#pragma unroll
-      for (int p = 0; p < kPartBlock; ++p)
-        v[e][p] = valid[e] && p0 + p < ks
-                      ? __ldcg(part + (p0 + p) * stride + i[e])
-                      : 0.f;
-#pragma unroll
-    for (int e = 0; e < kN; ++e)
-#pragma unroll
-      for (int p = 0; p < kPartBlock; ++p)
-        if (p0 + p < ks) sum[e] = p0 + p == 0 ? v[e][p] : sum[e] + v[e][p];
-  }
-}
-
-// Elements a thread sums at once in the passes over a product's parts.
-constexpr int kBatch = 4;
-
-// One of a step's attentions for slots [0, n), the projected query the sum
-// of a product's parts ([H][pld] each): slot s runs in CTA s % G. NC > 0:
-// W warps a row, W the largest power of two that the CTA's 8 warps hold at
-// its rows, the queries and the chunks combined through shared memory;
-// NC = 0: one warp a row, attend_row_wide, slot s's query staged at
-// stage + s H (so that shared memory does not grow with H). ctx: [H][ld];
-// weights_out: the step's [B][M] attention rows (also the scores' scratch
-// past kStagedKeys keys).
-template <int NC>
-__device__ __noinline__ void attention(int n, const int* slot_row,
-                                       const float* part,
-                          Parts q, size_t ld, int H,
-                          const float* __restrict__ keys,
-                          const float* __restrict__ mask,
-                          const float* __restrict__ ew, int M, float* ctx,
-                          float* weights_out, bool vec, float* smem,
-                          float* stage) {
-  const int G = gridDim.x, cta = blockIdx.x, warp = threadIdx.x / 32;
-  const int mine = n > cta ? (n - cta + G - 1) / G : 0;
-  if (mine == 0) return;
-  const int m_s = M <= kStagedKeys ? M : 0;
-  int W = 1;
-  if constexpr (NC > 0)
-    while (2 * W * mine <= kWarps) W *= 2;
-  const int R = kWarps / W;  // rows a round
-  float* parts = smem + (NC > 0 ? R * H : 0);  // [kWarps][H + 2] (W > 1)
-  float* scores = parts + (NC > 0 ? kWarps * (H + 2) : 0);  // [kWarps][m_s]
-  for (int base = 0; base < mine; base += R) {
-    const int rows = min(R, mine - base);
-    // Row r's query: [R][H] in shared memory, or in the stage (NC = 0).
-    const auto query = [&](int r) {
-      return NC > 0 ? smem + r * H
-                    : stage + (size_t)(cta + G * (base + r)) * H;
-    };
-    for (int i = threadIdx.x; i < rows * H; i += kThreads) {
-      const int r = i / H, h = i % H;
-      const size_t at[1] = {h * q.pld + cta + (size_t)G * (base + r)};
-      const bool valid[1] = {true};
-      float v[1];
-      part_sums(part, q.ks, H * q.pld, at, valid, v);
-      query(r)[h] = v[0];
-    }
-    __syncthreads();
-    const int r = warp / W, w = warp % W;
-    if (r < rows) {
-      const int s = cta + G * (base + r);
-      const size_t b = __ldcg(slot_row + s);
-      const float* row_keys = keys + b * M * H;
-      const float* row_mask = mask != nullptr ? mask + b * M : nullptr;
-      float* row_weights = weights_out + b * M;
-      if constexpr (NC == 0) {
-        gscan::attend_row_wide(query(r), 1, row_keys, row_mask, ew, M, H,
-                               ctx + s, static_cast<int>(ld), row_weights,
-                               m_s ? scores + warp * m_s : row_weights, vec);
-      } else if (W == 1) {
-        gscan::attend_row<NC>(query(r), 1, row_keys, row_mask, ew, M, H,
-                              ctx + s, static_cast<int>(ld), row_weights,
-                              m_s ? scores + warp * m_s : row_weights, vec);
-      } else {
-        const int chunk = (M + W - 1) / W;
-        const int m_begin = min(M, w * chunk);
-        const gscan::AttendPass<NC> pass(
-            query(r), 1, row_keys, row_mask, ew, m_begin,
-            min(M, m_begin + chunk), M, H,
-            m_s ? scores + r * W * m_s : row_weights, vec);
-        pass.save(parts + warp * (H + 2), H);
-      }
-    }
-    if (NC > 0 && W > 1) {
-      __syncthreads();
-      if (warp < rows) {
-        const int s = cta + G * (base + warp);
-        const size_t b = __ldcg(slot_row + s);
-        gscan::attend_combine(parts + warp * W * (H + 2), W, M, H, ctx + s,
-                              static_cast<int>(ld), weights_out + b * M,
-                              m_s ? scores + warp * W * m_s
-                                  : weights_out + b * M);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// attend.cuh's chunks of 128 features for H: the fewest that hold H, up to
-// 8 (1,024 features); 0 past that (attend_row_wide).
-__host__ __device__ int grid_chunks(int H) {
-  const int chunks = (H + 127) / 128;
-  return chunks <= 4 ? 4 : chunks <= 8 ? chunks : 0;
-}
-
-// attention<NC> for NC = grid_chunks(H): one kernel, its attentions in the
-// chunks the width needs (a lane's features padded to 32 would compute
-// 1,024 features' tanh for 640 at H = 640).
-__device__ void attention_any(int n, const int* slot_row, const float* part,
-                              Parts q, size_t ld, int H,
-                              const float* __restrict__ keys,
-                              const float* __restrict__ mask,
-                              const float* __restrict__ ew, int M,
-                              float* ctx, float* weights_out, bool vec,
-                              float* smem, float* stage) {
-  switch (grid_chunks(H)) {
-#define GSCAN_ATTENTION(NC)                                                  \
-  case NC:                                                                   \
-    attention<NC>(n, slot_row, part, q, ld, H, keys, mask, ew, M, ctx,      \
-                  weights_out, vec, smem, stage);                            \
-    break;
-    GSCAN_ATTENTION(4)
-    GSCAN_ATTENTION(5)
-    GSCAN_ATTENTION(6)
-    GSCAN_ATTENTION(7)
-    GSCAN_ATTENTION(8)
-    GSCAN_ATTENTION(0)
-#undef GSCAN_ATTENTION
-  }
-}
-
-// The step's passes over the products' sums, each a function of its own
-// (registers of its own, not the kernel's). Each walks its elements
-// grid-stride, [feature][slot], the slots fastest.
-
-// The visual query tanh(sums + b) for slots [0, n) into vq [H][ld].
-__device__ __noinline__ void visual_query(const float* part, Parts q,
-                                          const float* __restrict__ bias,
-                                          int n, int H, size_t ld,
-                                          float* vq) {
-  const size_t total = (size_t)H * n, threads = (size_t)gridDim.x * kThreads;
-  for (size_t first = (size_t)blockIdx.x * kThreads + threadIdx.x;
-       first < total; first += kBatch * threads) {
-    size_t at[kBatch];
-    bool valid[kBatch];
-    float v[kBatch];
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      const size_t i = first + b * threads;
-      valid[b] = i < total;
-      at[b] = i / n * q.pld + i % n;
-    }
-    part_sums(part, q.ks, H * q.pld, at, valid, v);
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      const size_t i = first + b * threads, u = i / n;
-      if (valid[b]) vq[u * ld + i % n] = tanhf(v[b] + __ldg(bias + u));
-    }
-  }
-}
-
-// The LSTM cell for the emitting slots [0, n): gates (i, f, g, o) the
-// product's sums [4H][pld] plus b; c in place, the new h into hn.
-__device__ __noinline__ void cell(const float* part, Parts q,
-                                  const float* __restrict__ bias, int n,
-                                  int H, size_t ld, float* c, float* hn) {
-  const size_t total = (size_t)H * n, threads = (size_t)gridDim.x * kThreads;
-  const size_t stride = 4 * (size_t)H * q.pld, gate = H * q.pld;
-  constexpr int kCells = kBatch / 2;  // two cells' four gates at once
-  for (size_t first = (size_t)blockIdx.x * kThreads + threadIdx.x;
-       first < total; first += kCells * threads) {
-    size_t at[4 * kCells];
-    bool valid[4 * kCells];
-    float g[4 * kCells];
-#pragma unroll
-    for (int b = 0; b < kCells; ++b) {
-      const size_t i = first + b * threads;
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        valid[4 * b + x] = i < total;
-        at[4 * b + x] = x * gate + i / n * q.pld + i % n;
-      }
-    }
-    part_sums(part, q.ks, stride, at, valid, g);
-#pragma unroll
-    for (int b = 0; b < kCells; ++b) {
-      const size_t i = first + b * threads, u = i / n, s = i % n;
-      if (!valid[4 * b]) continue;
-      float gi = g[4 * b] + __ldg(bias + u);
-      float gf = g[4 * b + 1] + __ldg(bias + H + u);
-      float gg = g[4 * b + 2] + __ldg(bias + 2 * H + u);
-      float go = g[4 * b + 3] + __ldg(bias + 3 * H + u);
-      const float c_new = sigmoidf(gf) * __ldcg(c + u * ld + s) +
-                          sigmoidf(gi) * tanhf(gg);
-      hn[u * ld + s] = sigmoidf(go) * tanhf(c_new);
-      c[u * ld + s] = c_new;
-    }
-  }
-}
+// The step's passes over the products' sums (grid_core.cuh: visual_query,
+// cell; here the argmax), each a function of its own.
 
 // The argmax (first maximum wins) of the emitting slots [0, n), their
 // logits the product's sums [V][pld]: a thread per slot; the step's
@@ -644,7 +250,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   int* tok_next = reinterpret_cast<int*>(base + lay.tok[1]);
   int* const newtok = reinterpret_cast<int*>(base + lay.newtok);
   int* const cls = reinterpret_cast<int*>(base + lay.cls);
-  GridBarrier barrier{reinterpret_cast<unsigned*>(base + lay.counter), 0u};
+  GridBarrier<kGridPhaseTiming != 0> barrier{
+      reinterpret_cast<unsigned*>(base + lay.counter), 0u,
+      gscan_decode_grid_cycles + kPhases};
   PhaseClock clock;
   clock.mark(-1);
   // Shared memory of the placing phases (the products' ring otherwise).
@@ -723,8 +331,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // Textual query h W_q, and the textual attention.
     const size_t room = lay.head - lay.part;
-    Parts q = product<1>({Segment{h_cur, wt.txt_qw}}, n_attn, H, H, ld, part,
-                         room, a.vec, smem);
+    Parts q = product<1>({Segment{h_cur, wt.txt_qw, H}}, n_attn, H, ld,
+                         part, room, a.vec, smem);
     barrier.sync();
     clock.mark(1);
     attention_any(n_attn, row, part, q, ld, H, a.proj_txt, a.cmd_mask,
@@ -734,15 +342,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     clock.mark(2);
     // Conditional visual query tanh([h; ctx_cmd] W + b), its projection,
     // and the visual attention.
-    q = product<2>({Segment{h_cur, wt.q2k_w},
-                    Segment{ctxc, wt.q2k_w + (size_t)H * H}},
-                   n_attn, H, H, ld, part, room, a.vec, smem);
+    q = product<2>({Segment{h_cur, wt.q2k_w, H},
+                    Segment{ctxc, wt.q2k_w + (size_t)H * H, H}},
+                   n_attn, H, ld, part, room, a.vec, smem);
     barrier.sync();
     clock.mark(3);
     visual_query(part, q, wt.q2k_b, n_attn, H, ld, vq);
     barrier.sync();
     clock.mark(4);
-    q = product<1>({Segment{vq, wt.vis_qw}}, n_attn, H, H, ld, part, room,
+    q = product<1>({Segment{vq, wt.vis_qw, H}}, n_attn, H, ld, part, room,
                    a.vec, smem);
     barrier.sync();
     clock.mark(5);
@@ -756,11 +364,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       // LSTM gates [emb; ctx_cmd; ctx_sit] W_ih + h W_hh + b, then the
       // cell: c in place, the new h apart.
       const size_t G4 = 4 * (size_t)H;
-      q = product<4>({Segment{emb, wt.w_ih},
-                      Segment{ctxc, wt.w_ih + G4 * H},
-                      Segment{ctxs, wt.w_ih + 2 * G4 * H},
-                      Segment{h_cur, wt.w_hh}},
-                     n_emit, 4 * H, H, ld, part, room, a.vec, smem);
+      q = product<4>({Segment{emb, wt.w_ih, H},
+                      Segment{ctxc, wt.w_ih + G4 * H, H},
+                      Segment{ctxs, wt.w_ih + 2 * G4 * H, H},
+                      Segment{h_cur, wt.w_hh, H}},
+                     n_emit, 4 * H, ld, part, room, a.vec, smem);
       barrier.sync();
       clock.mark(7);
       cell(part, q, wt.bias, n_emit, H, ld, c_cur, hn);
@@ -769,10 +377,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       // The logits [emb; h_new; ctx_cmd; ctx_sit] (W_out W_proj), the head
       // folded at entry.
       const size_t HV = (size_t)H * a.V;
-      q = product<4>({Segment{emb, head}, Segment{hn, head + HV},
-                      Segment{ctxc, head + 2 * HV},
-                      Segment{ctxs, head + 3 * HV}},
-                     n_emit, a.V, H, ld, part, room, a.V % 4 == 0, smem);
+      q = product<4>({Segment{emb, head, H}, Segment{hn, head + HV, H},
+                      Segment{ctxc, head + 2 * HV, H},
+                      Segment{ctxs, head + 3 * HV, H}},
+                     n_emit, a.V, ld, part, room, a.V % 4 == 0, smem);
       barrier.sync();
       clock.mark(9);
       argmax(part, q, n_emit, a.V, a.eos, t, B, row, a.step_tokens,
@@ -890,11 +498,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // the chunks' states; the staged scores) and the placing arrays. So at most
 // the ring's 147,456 bytes at every H and M.
 size_t gscan_decode_grid_smem_bytes(int H, int Mt, int Mv) {
-  const int m = Mt > Mv ? Mt : Mv;
-  const size_t m_s = m <= kStagedKeys ? m : 0;
-  const size_t attention =
-      (grid_chunks(H) > 0 ? (size_t)kWarps * (2 * H + 2) : 0) +
-      kWarps * m_s;
+  const size_t attention = attention_smem_floats(H, Mt > Mv ? Mt : Mv);
   size_t floats = core::kSmemFloats;
   floats = attention > floats ? attention : floats;
   const size_t placing = 4 * kChunk + 4 * kWarps;
@@ -933,26 +537,7 @@ int gscan_decode_grid(
     unsigned char* done_out, int* step_tokens, float* step_emitted,
     float* step_attn_cmd, float* step_attn_sit, float* scratch, int B,
     int Mt, int Mv, int H, int V, int K, int eos, int vec, void* stream) {
-  auto kernel = decode_grid_kernel;
-  const size_t smem = gscan_decode_grid_smem_bytes(H, Mt, Mv);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Layout lay(B, H, V);
-  err = cudaMemsetAsync(scratch + lay.counter, 0, 4 * sizeof(float), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const GridArgs args{
       proj_txt, cmd_mask, proj_vis, h_in, c_in, tok_in, done_in,
       Weights{txt_qw, txt_ew, q2k_w, q2k_b, vis_qw, vis_ew, emb, w_ih, w_hh,
@@ -960,17 +545,7 @@ int gscan_decode_grid(
       h_out, c_out, tok_out, done_out, step_tokens, step_emitted,
       step_attn_cmd, step_attn_sit, scratch, B, Mt, Mv, H, V, K, eos,
       vec != 0};
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(sms * per_sm);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = smem;
-  config.stream = st;
-  cudaLaunchAttribute attribute[1];
-  attribute[0].id = cudaLaunchAttributeCooperative;
-  attribute[0].val.cooperative = 1;
-  config.attrs = attribute;
-  config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, kernel, args);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_grid(
+      decode_grid_kernel, gscan_decode_grid_smem_bytes(H, Mt, Mv), args,
+      reinterpret_cast<unsigned*>(scratch + lay.counter), stream));
 }

@@ -3,9 +3,10 @@
 // 128 output rows side by side, row k of B its 256 output columns).
 //
 // Shared by the weight-gradient helper (teacher_forced.cu: out = X^T dY
-// over row-steps, its large products) and kernel 2's grid plan
-// (decode_grid.cu: a step's products, activations [k][slot] against
-// weights [k][column]).
+// over row-steps, its large products) and the grid plans of kernels 2, 3
+// and 4 (grid_core.cuh: a step's products, activations [k][slot] against
+// weights [k][column]; kernels 3 and 4 also take the 64 x 64 Tile<1, 1>
+// below for their small products).
 //
 // Bound on the H100: operations, if the tile feeds the FMA pipe. An SM
 // issues 128 float32 FMAs a clock and moves 128 bytes a clock out of shared
@@ -42,18 +43,10 @@
 namespace gscan {
 namespace core {
 
-constexpr int kTileM = 128;   // output rows of a CTA tile (A's columns)
-constexpr int kTileN = 256;   // output columns of a CTA tile (B's columns)
 constexpr int kDepth = 32;    // k rows per stage
 constexpr int kRingStages = 3;  // stages in the ring
 constexpr int kThreads = 256;
-constexpr int kRows = 8;      // a thread's rows
-constexpr int kCols = 16;     // a thread's columns
 constexpr int kMaxChain = 1024;  // terms a caller lets one sum run over
-constexpr int kFloatsA = kDepth * kTileM;
-constexpr int kStageFloats = kDepth * (kTileM + kTileN);
-constexpr int kSmemFloats = kRingStages * kStageFloats;
-constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);  // 147,456
 
 // 16 bytes (bytes of them read, the rest zero-filled), through L2 only.
 __device__ __forceinline__ void copy16(float* dst, const float* src,
@@ -103,94 +96,137 @@ __device__ __forceinline__ void load_stage(float* dst, const float* src,
   }
 }
 
-// This thread's rows (i < kRows) and columns (j < kCols) of the tile.
-__device__ __forceinline__ int row_of(int i) {
-  return (i < 4 ? 0 : 64) + (threadIdx.x / 16) * 4 + (i & 3);
-}
-__device__ __forceinline__ int col_of(int j) {
-  return 64 * (j / 4) + (threadIdx.x % 16) * 4 + (j & 3);
-}
+// A tile of 64 kRowGroups x 64 kColGroups outputs over the CTA's 256
+// threads (a 16 x 16 grid): a thread keeps 4 kRowGroups x 4 kColGroups
+// sums, rows ty*4 + 0..3 of each 64-row group and columns tx*4 + 0..3 of
+// each 64-column group, so that a warp's float4 reads fall on distinct
+// banks or broadcast. Tile<2, 4> is the 128 x 256 tile above; Tile<1, 1>,
+// 64 x 64 (16 FMAs per 8 floats read), serves the grid plans' products
+// whose 128 x 256 tiles would be too few or too padded to spread a step's
+// small products over the grid.
+template <int kRowGroups, int kColGroups>
+struct Tile {
+  static constexpr int kM = 64 * kRowGroups;  // output rows (A's columns)
+  static constexpr int kN = 64 * kColGroups;  // output columns (B's)
+  static constexpr int kRows = 4 * kRowGroups;  // a thread's rows
+  static constexpr int kCols = 4 * kColGroups;  // a thread's columns
+  static constexpr int kFloatsA = kDepth * kM;
+  static constexpr int kStageFloats = kDepth * (kM + kN);
+  static constexpr int kSmemFloats = kRingStages * kStageFloats;
 
-// The thread's A and B floats of row k of a stage.
-__device__ __forceinline__ void fragments(const float* a, const float* b,
-                                          int k, float (&av)[kRows],
-                                          float (&bv)[kCols]) {
-  const int ra = (threadIdx.x / 16) * 4, cb = (threadIdx.x % 16) * 4;
-  const float4 a0 = *reinterpret_cast<const float4*>(a + k * kTileM + ra);
-  const float4 a1 =
-      *reinterpret_cast<const float4*>(a + k * kTileM + 64 + ra);
-  av[0] = a0.x, av[1] = a0.y, av[2] = a0.z, av[3] = a0.w;
-  av[4] = a1.x, av[5] = a1.y, av[6] = a1.z, av[7] = a1.w;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float4 v =
-        *reinterpret_cast<const float4*>(b + k * kTileN + 64 * q + cb);
-    bv[4 * q] = v.x, bv[4 * q + 1] = v.y, bv[4 * q + 2] = v.z;
-    bv[4 * q + 3] = v.w;
+  // This thread's rows (i < kRows) and columns (j < kCols) of the tile.
+  __device__ __forceinline__ static int row_of(int i) {
+    return 64 * (i / 4) + (threadIdx.x / 16) * 4 + (i & 3);
   }
-}
+  __device__ __forceinline__ static int col_of(int j) {
+    return 64 * (j / 4) + (threadIdx.x % 16) * 4 + (j & 3);
+  }
 
-// One tile's sums over `stages` stages into acc (zeroed first): load(s, a,
-// b) issues stage s's copies of A and B into a ([kDepth][kTileM]) and b
-// ([kDepth][kTileN]) (every thread, see load_stage). kPrefetch: row k + 1's
-// floats load while row k's multiply (24 registers more). smem:
-// kSmemFloats floats, free again on return. Every thread of the CTA calls
-// this.
+  // The thread's A and B floats of row k of a stage.
+  __device__ __forceinline__ static void fragments(const float* a,
+                                                   const float* b, int k,
+                                                   float (&av)[kRows],
+                                                   float (&bv)[kCols]) {
+    const int ra = (threadIdx.x / 16) * 4, cb = (threadIdx.x % 16) * 4;
+#pragma unroll
+    for (int g = 0; g < kRowGroups; ++g) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(a + k * kM + 64 * g + ra);
+      av[4 * g] = v.x, av[4 * g + 1] = v.y, av[4 * g + 2] = v.z;
+      av[4 * g + 3] = v.w;
+    }
+#pragma unroll
+    for (int q = 0; q < kColGroups; ++q) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(b + k * kN + 64 * q + cb);
+      bv[4 * q] = v.x, bv[4 * q + 1] = v.y, bv[4 * q + 2] = v.z;
+      bv[4 * q + 3] = v.w;
+    }
+  }
+
+  // One tile's sums over `stages` stages into acc (zeroed first): load(s,
+  // a, b) issues stage s's copies of A and B into a ([kDepth][kM]) and b
+  // ([kDepth][kN]) (every thread, see load_stage). kPrefetch: row k + 1's
+  // floats load while row k's multiply. smem: kSmemFloats floats, free
+  // again on return. Every thread of the CTA calls this.
+  template <bool kPrefetch = true, typename Load>
+  __device__ __forceinline__ static void sums(int stages, float* smem,
+                                              Load&& load,
+                                              float (&acc)[kRows][kCols]) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+    for (int s = 0; s < stages && s < kRingStages - 1; ++s) {
+      float* slot = smem + s * kStageFloats;
+      load(s, slot, slot + kFloatsA);
+      commit();
+    }
+    for (int s = 0; s < stages; ++s) {
+      // Stages up to s + kRingStages - 2 are issued; s must have landed.
+      if (s + kRingStages - 2 < stages)
+        wait<kRingStages - 2>();
+      else
+        wait<0>();
+      // Stage s has landed for every thread, and every thread is past
+      // stage s - 1, whose slot takes stage s + kRingStages - 1.
+      __syncthreads();
+      if (s + kRingStages - 1 < stages) {
+        float* slot =
+            smem + (s + kRingStages - 1) % kRingStages * kStageFloats;
+        load(s + kRingStages - 1, slot, slot + kFloatsA);
+        commit();
+      }
+      const float* a = smem + s % kRingStages * kStageFloats;
+      const float* b = a + kFloatsA;
+      if constexpr (kPrefetch) {
+        float av[2][kRows], bv[2][kCols];
+        fragments(a, b, 0, av[0], bv[0]);
+#pragma unroll
+        for (int k = 0; k < kDepth; ++k) {
+          if (k + 1 < kDepth)
+            fragments(a, b, k + 1, av[(k + 1) & 1], bv[(k + 1) & 1]);
+#pragma unroll
+          for (int i = 0; i < kRows; ++i)
+#pragma unroll
+            for (int j = 0; j < kCols; ++j)
+              acc[i][j] = fmaf(av[k & 1][i], bv[k & 1][j], acc[i][j]);
+        }
+      } else {
+#pragma unroll 2
+        for (int k = 0; k < kDepth; ++k) {
+          float av[kRows], bv[kCols];
+          fragments(a, b, k, av, bv);
+#pragma unroll
+          for (int i = 0; i < kRows; ++i)
+#pragma unroll
+            for (int j = 0; j < kCols; ++j)
+              acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+      }
+    }
+    __syncthreads();  // the ring is free for the caller
+  }
+};
+
+// The 128 x 256 tile, as the helper and kernel 2's grid plan name it.
+using Wide = Tile<2, 4>;
+constexpr int kTileM = Wide::kM;   // output rows of a CTA tile (A's columns)
+constexpr int kTileN = Wide::kN;   // output columns of a CTA tile (B's)
+constexpr int kRows = Wide::kRows;  // a thread's rows
+constexpr int kCols = Wide::kCols;  // a thread's columns
+constexpr int kFloatsA = Wide::kFloatsA;
+constexpr int kStageFloats = Wide::kStageFloats;
+constexpr int kSmemFloats = Wide::kSmemFloats;
+constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);  // 147,456
+
+__device__ __forceinline__ int row_of(int i) { return Wide::row_of(i); }
+__device__ __forceinline__ int col_of(int j) { return Wide::col_of(j); }
+
 template <bool kPrefetch = true, typename Load>
 __device__ __forceinline__ void tile_sums(int stages, float* smem, Load&& load,
                                           float (&acc)[kRows][kCols]) {
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-  for (int s = 0; s < stages && s < kRingStages - 1; ++s) {
-    float* slot = smem + s * kStageFloats;
-    load(s, slot, slot + kFloatsA);
-    commit();
-  }
-  for (int s = 0; s < stages; ++s) {
-    // Stages up to s + kRingStages - 2 are issued; s must have landed.
-    if (s + kRingStages - 2 < stages)
-      wait<kRingStages - 2>();
-    else
-      wait<0>();
-    // Stage s has landed for every thread, and every thread is past stage
-    // s - 1, whose slot takes stage s + kRingStages - 1.
-    __syncthreads();
-    if (s + kRingStages - 1 < stages) {
-      float* slot = smem + (s + kRingStages - 1) % kRingStages * kStageFloats;
-      load(s + kRingStages - 1, slot, slot + kFloatsA);
-      commit();
-    }
-    const float* a = smem + s % kRingStages * kStageFloats;
-    const float* b = a + kFloatsA;
-    if constexpr (kPrefetch) {
-      float av[2][kRows], bv[2][kCols];
-      fragments(a, b, 0, av[0], bv[0]);
-#pragma unroll
-      for (int k = 0; k < kDepth; ++k) {
-        if (k + 1 < kDepth)
-          fragments(a, b, k + 1, av[(k + 1) & 1], bv[(k + 1) & 1]);
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < kCols; ++j)
-            acc[i][j] = fmaf(av[k & 1][i], bv[k & 1][j], acc[i][j]);
-      }
-    } else {
-#pragma unroll 2
-      for (int k = 0; k < kDepth; ++k) {
-        float av[kRows], bv[kCols];
-        fragments(a, b, k, av, bv);
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < kCols; ++j)
-            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();  // the ring is free for the caller
+  Wide::sums<kPrefetch>(stages, smem, static_cast<Load&&>(load), acc);
 }
 
 }  // namespace core

@@ -49,45 +49,39 @@
 // rank order at the owning CTA one barrier later, so that a forward step
 // has 6 cluster barriers. Which layout a launch takes (its "plan") is the
 // first of the kernel's plans that fits the device's shared memory per CTA
-// (gscan_teacher_forced_plan).
+// and the width (gscan_teacher_forced_plan); past the cluster plans both
+// kernels run the grid plans of teacher_forced_grid.cu, which take every
+// shape.
 #include <climits>
 #include <cstdint>
 
 #include "attend.cuh"
 #include "product_core.cuh"
+#include "teacher_forced.cuh"
+
+// teacher_forced_grid.cu: kernels 3 and 4's grid plans.
+size_t gscan_teacher_forced_grid_smem_bytes(int H, int Mt, int Mv);
+size_t gscan_teacher_forced_grid_scratch_floats(int kernel, int B, int H,
+                                                int E, int V, int Mt, int Mv);
+int gscan_teacher_forced_forward_grid(
+    const int* tokens, const float* drop, const float* proj_txt,
+    const float* cmd_mask, const float* proj_vis, const float* h0,
+    const float* c0, const float* const* weights, float* logits,
+    float* h_res, float* c_res, float* asum, float* scratch, int B, int T,
+    int num_steps, int Mt, int Mv, int H, int E, int V, void* stream);
+int gscan_teacher_forced_backward_grid(
+    const int* tokens, const float* drop, const float* proj_txt,
+    const float* cmd_mask, const float* proj_vis, const float* h_res,
+    const float* c_res, const float* dlogits, const float* g_asum,
+    const float* const* weights, float* d_proj_txt, float* d_proj_vis,
+    float* dh0, float* dc0, float* stash, float* scratch, int B, int T,
+    int num_steps, int Mt, int Mv, int H, int E, int V, void* stream);
 
 namespace {
 
-struct Weights {
-  const float* txt_qw;    // [H, H]
-  const float* txt_ew;    // [H]
-  const float* q2k_w;     // [2H, H]
-  const float* q2k_b;     // [H]
-  const float* vis_qw;    // [H, H]
-  const float* vis_ew;    // [H]
-  const float* emb;       // [V, E], pad row zeroed
-  const float* w_ih;      // [E + 2H, 4H] (transposed LSTM input weights)
-  const float* w_hh;      // [H, 4H]
-  const float* bias;      // [4H] = b_ih + b_hh
-  const float* out_w;     // [E + 3H, H]
-  const float* out_proj;  // [H, V]
-};
+using gscan::tf::Stash;
+using gscan::tf::Weights;
 
-// Column offsets of a row-step in the stash (ops/teacher_forced.py). The
-// one-hot segment is padded with zeros to P = V rounded up to 4 columns.
-struct Stash {
-  int onehot, emb, h_new, ctx_cmd, ctx_sit, ph, vq, d_ph, d_gates, d_pq_vis,
-      d_joint, d_pq_txt, d_emb, g_vis_ew, g_txt_ew, width;
-  __host__ __device__ Stash(int V, int E, int H)
-      : onehot(0), emb(pad(V)), h_new(pad(V) + E), ctx_cmd(pad(V) + E + H),
-        ctx_sit(pad(V) + E + 2 * H), ph(pad(V) + E + 3 * H),
-        vq(pad(V) + E + 4 * H), d_ph(pad(V) + E + 5 * H),
-        d_gates(pad(V) + E + 6 * H), d_pq_vis(pad(V) + E + 10 * H),
-        d_joint(pad(V) + E + 11 * H), d_pq_txt(pad(V) + E + 12 * H),
-        d_emb(pad(V) + E + 13 * H), g_vis_ew(pad(V) + 2 * E + 13 * H),
-        g_txt_ew(pad(V) + 2 * E + 14 * H), width(pad(V) + 2 * E + 15 * H) {}
-  __host__ __device__ static int pad(int V) { return (V + 3) / 4 * 4; }
-};
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
@@ -1686,24 +1680,42 @@ __global__ void __launch_bounds__(256) weight_grads_combine_kernel(
 // Plans and launches.
 // ---------------------------------------------------------------------------
 
-// The cluster kernels' shared-memory plans, tried in order: the first that
-// fits the device's shared memory per CTA is taken. Rows per cluster: 16
-// (at B = 200, 13 clusters in one wave; kernel 4 with 8 took 1.4x as long in
-// two waves, PERF.md), or 8 where the activations of 16 do not fit.
+// The plans, tried in order: the first that fits the device's shared memory
+// per CTA (and, for the L2 plans, the width) is taken. The cluster plans:
+// rows per cluster 16 (at B = 200, 13 clusters in one wave; kernel 4 with 8
+// took 1.4x as long in two waves, PERF.md), or 8 where the activations of 16
+// do not fit; their weights resident in shared memory, or read from L2 in
+// every product. Past the resident plans the L2 plans measured faster than
+// the grid plan (teacher_forced_grid.cu) only at narrow widths and few keys
+// (scripts/torch_kernel_ab.py --teacher-forced, PERF.md): kernel 3's up to
+// H = 320 with H (M_t + M_v) <= 18,432 (at M_t + M_v = 52 it won to H =
+// 320; at W3, H = 256 with 216 keys, it took 17.0 ms against 11.9), kernel
+// 4's up to H = 192. Past them the grid plan, which takes every shape.
+constexpr int kForwardL2MaxHidden = 320;
+constexpr int kForwardL2MaxKeyWork = 18432;
+constexpr int kBackwardL2MaxHidden = 192;
 struct Plan {
   bool resident_weights, own_keys;
   int rows;
   const char* name;
+  bool grid;         // teacher_forced_grid.cu's grid plan
+  int max_hidden;    // the widest H the plan takes (0: any)
+  int max_key_work;  // the largest H (M_t + M_v) it takes (0: any)
 };
 constexpr Plan kForwardPlans[] = {
-    {true, true, 16, "weights+keys in smem, 16 rows"},
-    {true, false, 16, "weights in smem, keys from L2, 16 rows"},
-    {false, false, 16, "weights+keys from L2, 16 rows"},
+    {true, true, 16, "weights+keys in smem, 16 rows", false, 0, 0},
+    {true, false, 16, "weights in smem, keys from L2, 16 rows", false, 0, 0},
+    {false, false, 16, "weights+keys from L2, 16 rows", false,
+     kForwardL2MaxHidden, kForwardL2MaxKeyWork},
+    {false, false, 0, "grid plan, one CTA per SM", true, 0, 0},
 };
 constexpr Plan kBackwardPlans[] = {
-    {true, false, 16, "weights in smem, 16 rows"},
-    {false, false, 16, "weights from L2, 16 rows"},
-    {false, false, 8, "weights from L2, 8 rows"},
+    {true, false, 16, "weights in smem, 16 rows", false, 0, 0},
+    {false, false, 16, "weights from L2, 16 rows", false,
+     kBackwardL2MaxHidden, 0},
+    {false, false, 8, "weights from L2, 8 rows", false, kBackwardL2MaxHidden,
+     0},
+    {false, false, 0, "grid plan, one CTA per SM", true, 0, 0},
 };
 constexpr int kForwardPlanCount = sizeof(kForwardPlans) / sizeof(Plan);
 constexpr int kBackwardPlanCount = sizeof(kBackwardPlans) / sizeof(Plan);
@@ -1719,6 +1731,7 @@ const Plan* find_plan(int kernel, int plan) {
 // Bytes of shared memory per CTA of `kernel`'s plan at these shapes.
 size_t plan_smem_bytes(int kernel, const Plan& p, int H, int E, int V, int Mt,
                        int Mv) {
+  if (p.grid) return gscan_teacher_forced_grid_smem_bytes(H, Mt, Mv);
   size_t floats;
   if (kernel == 3)
     floats = ForwardLayout<kClusterSize, 16>(H, E, V, Mt, Mv,
@@ -1812,8 +1825,12 @@ extern "C" int gscan_teacher_forced_plan(int kernel, int H, int E, int V,
                                          long long* need_bytes) {
   long long least = -1;
   for (int plan = 0; find_plan(kernel, plan) != nullptr; ++plan) {
+    const Plan& p = *find_plan(kernel, plan);
+    if ((p.max_hidden > 0 && H > p.max_hidden) ||
+        (p.max_key_work > 0 && (long long)H * (Mt + Mv) > p.max_key_work))
+      continue;
     const long long need = static_cast<long long>(
-        plan_smem_bytes(kernel, *find_plan(kernel, plan), H, E, V, Mt, Mv));
+        plan_smem_bytes(kernel, p, H, E, V, Mt, Mv));
     if (need <= limit_bytes) {
       *need_bytes = need;
       return plan;
@@ -1839,6 +1856,20 @@ extern "C" long long gscan_max_shared_memory_per_block(int device) {
   return bytes;
 }
 
+// Floats of the scratch that kernel `kernel`'s plan `plan` takes at these
+// shapes (0 for a cluster plan; -1 for no such plan).
+extern "C" long long gscan_teacher_forced_scratch_floats(int kernel, int plan,
+                                                         int B, int H, int E,
+                                                         int V, int Mt,
+                                                         int Mv) {
+  const Plan* p = find_plan(kernel, plan);
+  if (p == nullptr) return -1;
+  return p->grid ? static_cast<long long>(
+                       gscan_teacher_forced_grid_scratch_floats(
+                           kernel, B, H, E, V, Mt, Mv))
+                 : 0;
+}
+
 extern "C" int gscan_teacher_forced_forward(
     const int* tokens, const float* drop, const float* proj_txt,
     const float* cmd_mask, const float* proj_vis, const float* h0,
@@ -1847,10 +1878,21 @@ extern "C" int gscan_teacher_forced_forward(
     const float* vis_ew, const float* emb, const float* w_ih,
     const float* w_hh, const float* bias, const float* out_w,
     const float* out_proj, float* logits, float* h_res, float* c_res,
-    float* asum, int B, int T, int num_steps, int Mt, int Mv, int H, int E,
-    int V, int plan, void* stream) {
+    float* asum, float* scratch, int B, int T, int num_steps, int Mt, int Mv,
+    int H, int E, int V, int plan, void* stream) {
   if (!valid_shapes(B, T, Mt, Mv, H, E, V))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Plan* p = find_plan(3, plan);
+  if (p == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (p->grid) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const float* weights[12] = {txt_qw, txt_ew, q2k_w, q2k_b, vis_qw, vis_ew,
+                                emb,    w_ih,   w_hh,  bias,  out_w,  out_proj};
+    return gscan_teacher_forced_forward_grid(
+        tokens, drop, proj_txt, cmd_mask, proj_vis, h0, c0, weights, logits,
+        h_res, c_res, asum, scratch, B, T, num_steps, Mt, Mv, H, E, V,
+        stream);
+  }
   const ForwardArgs args{
       tokens, drop, proj_txt, cmd_mask, proj_vis, h0, c0,
       Weights{txt_qw, txt_ew, q2k_w, q2k_b, vis_qw, vis_ew, emb, w_ih, w_hh,
@@ -1869,11 +1911,22 @@ extern "C" int gscan_teacher_forced_backward(
     const float* q2k_b, const float* vis_qw, const float* vis_ew,
     const float* emb, const float* w_ih, const float* w_hh, const float* bias,
     const float* out_w, const float* out_proj, float* d_proj_txt,
-    float* d_proj_vis, float* dh0, float* dc0, float* stash, int B, int T,
-    int num_steps, int Mt, int Mv, int H, int E, int V, int plan,
-    void* stream) {
+    float* d_proj_vis, float* dh0, float* dc0, float* stash, float* scratch,
+    int B, int T, int num_steps, int Mt, int Mv, int H, int E, int V,
+    int plan, void* stream) {
   if (!valid_shapes(B, T, Mt, Mv, H, E, V))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Plan* p = find_plan(4, plan);
+  if (p == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (p->grid) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const float* weights[12] = {txt_qw, txt_ew, q2k_w, q2k_b, vis_qw, vis_ew,
+                                emb,    w_ih,   w_hh,  bias,  out_w,  out_proj};
+    return gscan_teacher_forced_backward_grid(
+        tokens, drop, proj_txt, cmd_mask, proj_vis, h_res, c_res, dlogits,
+        g_asum, weights, d_proj_txt, d_proj_vis, dh0, dc0, stash, scratch, B,
+        T, num_steps, Mt, Mv, H, E, V, stream);
+  }
   const BackwardArgs args{
       tokens, drop, proj_txt, cmd_mask, proj_vis, h_res, c_res, dlogits,
       g_asum,

@@ -44,11 +44,11 @@ SIGNATURES = {
     # 7 state inputs, 12 weights, 8 outputs, scratch (nullable), B, Mt, Mv,
     # H, V, K, eos, plan, vec, stream
     "gscan_decode_block": [_P] * 28 + [_I] * 9 + [_P],
-    # 7 inputs, 12 weights, 4 outputs, B, T, num_steps, Mt, Mv, H, E, V,
-    # plan, stream
-    "gscan_teacher_forced_forward": [_P] * 23 + [_I] * 9 + [_P],
-    # 9 inputs, 12 weights, 5 outputs, the same 9 ints, stream
-    "gscan_teacher_forced_backward": [_P] * 26 + [_I] * 9 + [_P],
+    # 7 inputs, 12 weights, 4 outputs, scratch (null for a cluster plan),
+    # B, T, num_steps, Mt, Mv, H, E, V, plan, stream
+    "gscan_teacher_forced_forward": [_P] * 24 + [_I] * 9 + [_P],
+    # 9 inputs, 12 weights, 5 outputs, scratch, the same 9 ints, stream
+    "gscan_teacher_forced_backward": [_P] * 27 + [_I] * 9 + [_P],
     # stash, h_res, dlogits, 12 outputs, scratch, its floats, N, H, E, V,
     # stream
     "gscan_teacher_forced_weight_grads": [_P] * 16 + [_I] * 5 + [_P],
@@ -160,6 +160,9 @@ def library() -> ctypes.CDLL:
         lib.gscan_teacher_forced_plan.argtypes = [_I] * 6 + [
             ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)]
         lib.gscan_teacher_forced_plan.restype = ctypes.c_int
+        # kernel, plan, B, H, E, V, Mt, Mv
+        lib.gscan_teacher_forced_scratch_floats.argtypes = [_I] * 8
+        lib.gscan_teacher_forced_scratch_floats.restype = ctypes.c_longlong
         lib.gscan_teacher_forced_plan_name.argtypes = [_I] * 2
         lib.gscan_teacher_forced_plan_name.restype = ctypes.c_char_p
         lib.gscan_max_shared_memory_per_block.argtypes = [_I]

@@ -3,8 +3,9 @@
 Replace the TPU kernels of ``multimodal_seq2seq_gscan_tpu/ops/
 pallas_teacher_forced.py``: ``_forward_impl`` (kernel 3) and
 ``_backward_impl`` (kernel 4), which ``fused_teacher_forced``'s custom VJP
-wires together; here :class:`FusedTeacherForced` does. CUDA source:
-``csrc/teacher_forced.cu``.
+wires together; here :class:`FusedTeacherForced` does. CUDA sources:
+``csrc/teacher_forced.cu`` (the cluster plans and the weight-gradient
+helper) and ``csrc/teacher_forced_grid.cu`` (the grid plans).
 
 - Kernel 3 (``teacher_forced_forward``) is kernel 2's decoder step with the
   teacher's token in place of the argmax, a ``[T, B, E]`` dropout mask on
@@ -18,23 +19,38 @@ wires together; here :class:`FusedTeacherForced` does. CUDA source:
   stash in device memory, and a helper kernel
   (``teacher_forced_weight_grads``) forms the fourteen products, split over
   chunks of row-steps whose sums a second pass adds in chunk order.
-- Both give each thread-block cluster (8 CTAs) a group of 16 rows. Each CTA
-  of a cluster keeps the column slices of the decoder weights for its share
-  of the hidden units in shared memory for the whole walk (kernel 3 also
-  its rows' keys); the CTAs exchange activations and partial sums through
-  distributed shared memory and add them in rank order. No float atomics:
-  the outputs are bit-identical from run to run.
+- Where the decoder's weight slices fit in shared memory (H up to ~105
+  for kernel 4 and ~116 for kernel 3 at M_t = 16, M_v = 36, the fixture's
+  H = 100 among them), both give each thread-block cluster (8 CTAs) a group
+  of 16 rows. Each CTA of a cluster keeps the column slices of the decoder
+  weights for its share of the hidden units in shared memory for the whole
+  walk (kernel 3 also its rows' keys where they fit); the CTAs exchange
+  activations and partial sums through distributed shared memory and add
+  them in rank order.
+- Past those widths both run a grid plan (``csrc/teacher_forced_grid.cu``):
+  one persistent cooperative kernel of one CTA per SM walks all T steps,
+  every product of a step one grid-wide product over the batch's rows on
+  the register-tiled product core, the step's phases between grid barriers;
+  kernel 4 recomputes each step's forward before its backward, as the
+  cluster plan does, and writes the same stash. Its activations live in a
+  scratch the wrapper allocates (:func:`scratch_floats`).
+- No float atomics in either: the outputs are bit-identical from run to
+  run.
 
 Bound on the H100: operations (a row-step is ~0.5 MFLOP of products with
-~1 MB of decoder weights; the residuals are ~10 MB at B=200, T=56), but the
-T-step chain makes both recurrent kernels latency-bound in practice.
+~1 MB of decoder weights at H = 100; the residuals are ~10 MB at B=200,
+T=56), but the T-step chain makes both recurrent kernels latency-bound in
+practice.
 
-Kernels 3 and 4 take any M and H. Each runs in one of a few shared-memory
-plans: the decoder's weight slices resident in shared memory or read from
-L2, kernel 3's keys resident or not, 16 or 8 rows per cluster. Before any
-launch the wrapper asks the library for the first plan that fits the
-device's shared memory per CTA (:func:`shared_memory_plan`) and raises
-``ValueError`` only where none does, naming the bytes needed and available.
+Kernels 3 and 4 take any M, H, E and V. Each runs in one of a few plans: the
+cluster plans (weights resident in shared memory, kernel 3's keys resident
+or not; or, only at the narrow widths where that measured faster, weights
+read from L2), then the grid plan, whose shared memory is the product
+core's ring at every shape. Before any launch the wrapper asks the library for the first
+plan that fits the device's shared memory per CTA
+(:func:`shared_memory_plan`); on an H100 the grid plan always does, so no
+shape is refused for its size.
+
 On CPU tensors each wrapper runs its plain twin:
 ``teacher_forced_forward_plain``, ``teacher_forced_backward_plain`` (a
 PyTorch port of the TPU backward kernel's step math) and
@@ -290,11 +306,15 @@ KERNEL_NUMBERS = {"teacher_forced_forward": 3, "teacher_forced_backward": 4}
 @functools.lru_cache(maxsize=None)
 def shared_memory_plan(kernel, m_t, m_v, hidden, emb_dim, vocab,
                        device_index):
-    """(index, name, bytes per CTA) of the shared-memory plan that
-    ``kernel`` ("teacher_forced_forward" or "teacher_forced_backward")
-    takes at these shapes on CUDA device ``device_index``: the first of its
-    plans (``csrc/teacher_forced.cu``) that fits the shared memory per CTA
-    the device reports. Raises ``ValueError`` where none fits."""
+    """(index, name, bytes per CTA) of the plan that ``kernel``
+    ("teacher_forced_forward" or "teacher_forced_backward") takes at these
+    shapes on CUDA device ``device_index``: the first of its plans
+    (``csrc/teacher_forced.cu``) that fits the shared memory per CTA the
+    device reports. The resident cluster plans come first; the grid plan
+    (``csrc/teacher_forced_grid.cu``) takes every shape, in the product
+    core's 147,456 bytes, so on an H100 this never raises for a shape. Only
+    a device with less shared memory per CTA than that is refused
+    (``ValueError``, the bytes needed and available)."""
     number = KERNEL_NUMBERS[kernel]
     lib = _build.library()
     have = _build.shared_memory_per_block(device_index)
@@ -332,14 +352,34 @@ def _check_inputs(name, device, proj_txt, cmd_mask, proj_vis, tokens, drop,
 
 
 def _plan(kernel, device, proj_txt, proj_vis, weights):
-    """The index of ``kernel``'s shared-memory plan at these shapes; raises,
-    before any launch, where none fits."""
+    """The index of ``kernel``'s plan at these shapes (see
+    :func:`shared_memory_plan`)."""
     if device.type != "cuda":
         raise ValueError("{} runs on cpu or cuda, not {}".format(kernel,
                                                                  device))
     return shared_memory_plan(kernel,
                               *_sizes(proj_txt, proj_vis, weights)[1:],
                               _build.device_index(device))[0]
+
+
+def scratch_floats(kernel, plan, batch, m_t, m_v, hidden, emb_dim, vocab):
+    """Floats of device scratch that ``kernel``'s plan ``plan`` takes at
+    these shapes: the grid plan's activations, k-split sums and (kernel 4)
+    transposed weights; 0 for a cluster plan."""
+    return _build.library().gscan_teacher_forced_scratch_floats(
+        KERNEL_NUMBERS[kernel], plan, batch, hidden, emb_dim, vocab, m_t,
+        m_v)
+
+
+def _scratch(kernel, plan, device, batch, m_t, m_v, hidden, emb_dim, vocab):
+    """The plan's scratch tensor (None for a cluster plan)."""
+    floats = scratch_floats(kernel, plan, batch, m_t, m_v, hidden, emb_dim,
+                            vocab)
+    return torch.empty(floats, device=device) if floats > 0 else None
+
+
+def _ptr(tensor):
+    return tensor.data_ptr() if tensor is not None else None
 
 
 def _stream(device):
@@ -376,12 +416,15 @@ def teacher_forced_forward(proj_txt, cmd_mask, proj_vis, h0, c0, tokens,
     asum = torch.empty((batch, m_v), device=device)
     if batch == 0:
         return logits, h_res, c_res, asum
+    scratch = _scratch("teacher_forced_forward", plan, device, batch, m_t,
+                       m_v, hidden, emb_dim, vocab)
     code = _build.library().gscan_teacher_forced_forward(
         tokens.data_ptr(), drop.data_ptr(), proj_txt.data_ptr(),
         cmd_mask.data_ptr(), proj_vis.data_ptr(), h0.data_ptr(),
         c0.data_ptr(), *(w.data_ptr() for w in weights), logits.data_ptr(),
-        h_res.data_ptr(), c_res.data_ptr(), asum.data_ptr(), batch, steps,
-        num_steps, m_t, m_v, hidden, emb_dim, vocab, plan, _stream(device))
+        h_res.data_ptr(), c_res.data_ptr(), asum.data_ptr(), _ptr(scratch),
+        batch, steps, num_steps, m_t, m_v, hidden, emb_dim, vocab, plan,
+        _stream(device))
     _build.check(code, "gscan_teacher_forced_forward")
     launches["teacher_forced_forward"] += 1
     return logits, h_res, c_res, asum
@@ -426,14 +469,16 @@ def teacher_forced_backward(proj_txt, cmd_mask, proj_vis, tokens, drop,
         device=device)
     if batch == 0:
         return d_proj_txt, d_proj_vis, dh0, dc0, stash
+    scratch = _scratch("teacher_forced_backward", plan, device, batch, m_t,
+                       m_v, hidden, emb_dim, vocab)
     code = _build.library().gscan_teacher_forced_backward(
         tokens.data_ptr(), drop.data_ptr(), proj_txt.data_ptr(),
         cmd_mask.data_ptr(), proj_vis.data_ptr(), h_res.data_ptr(),
         c_res.data_ptr(), dlogits.data_ptr(), g_asum.data_ptr(),
         *(m.data_ptr() for m in weights), d_proj_txt.data_ptr(),
         d_proj_vis.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-        stash.data_ptr(), batch, steps, num_steps, m_t, m_v, hidden, emb_dim,
-        vocab, plan, _stream(device))
+        stash.data_ptr(), _ptr(scratch), batch, steps, num_steps, m_t, m_v,
+        hidden, emb_dim, vocab, plan, _stream(device))
     _build.check(code, "gscan_teacher_forced_backward")
     launches["teacher_forced_backward"] += 1
     return d_proj_txt, d_proj_vis, dh0, dc0, stash

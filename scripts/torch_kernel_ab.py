@@ -6,6 +6,8 @@
                                        [--hidden H] [--m-v M]
                                        [--end-to-end]
                                        [--wide [--alternative]]
+                                       [--teacher-forced
+                                        [--hidden-sweep H,H,...]]
 
 Imports ``multimodal_seq2seq_gscan_tpu_torch`` from DIR (default: this
 checkout), builds DIR's kernels, and times with CUDA events, at the training
@@ -41,6 +43,12 @@ same way.
   the streamed ``train()`` (``steps_per_execution=1``) from the same
   checkpoint at batch 200, by the wall clock between its loss reports
   (batching, any prefetch, the step and the report included).
+- ``--teacher-forced`` times, instead of all the above, kernels 3 and 4 at
+  the training batch (B = 200, T = 56) and W1-W6 and H = 512 (W4-W6 and
+  H512 at M_t = 16, M_v = 36), each with the plan the checkout takes (or
+  its refusal: before the grid plans, no cluster plan fit past H ~ 480);
+  ``--hidden-sweep 136,168,200`` at those H = E instead (M_t = 16, M_v =
+  36).
 - ``--wide`` times, instead of all the above, the wide shapes: kernel 2, one
   32-step launch from SOS at B = 1024, M_t = 16, M_v = 36, V = 9 and H = E =
   449, 640 and 1024 (W4-W6), every row emitting at every step (an EOS token
@@ -320,6 +328,10 @@ def wide_times(cs, alternative):
         except ValueError as refused:  # its shared memory does not fit
             row.update(refused=str(refused))
         else:
+            if plan[1].startswith("grid"):  # no cluster plan fits
+                row.update(refused="no cluster plan fits: " + str(plan))
+                keep(row)
+                continue
             inputs, _ = cs.random_teacher_forced_inputs(
                 gen, device, WIDE_BATCH, steps, steps, WIDE_M_T, WIDE_M_V,
                 h, WIDE_VOCAB, SOS)
@@ -331,6 +343,66 @@ def wide_times(cs, alternative):
                        bound_ms=bound[0], bound_by=bound[1])
             del inputs
         keep(row)
+    return rows
+
+
+# Kernels 3 and 4 at the training batch: (name, H = E, M_t, M_v).
+TEACHER_FORCED = (("W1", 100, 16, 81), ("W2", 136, 16, 36),
+                  ("W3", 256, 72, 144), ("W4", 449, 16, 36),
+                  ("H512", 512, 16, 36), ("W5", 640, 16, 36),
+                  ("W6", 1024, 16, 36))
+
+
+def teacher_forced_times(cs, repeats, shapes=TEACHER_FORCED):
+    """Kernels 3 and 4 at ``shapes`` (TEACHER_FORCED; B = 200, T = 56,
+    num_steps = 53,
+    V = 9; random inputs drawn as chip_smoke.py draws them, seed 0), each
+    with the plan the checkout takes and its bound; a shape the checkout's
+    kernels refuse gives its ValueError instead. A list of rows, each
+    printed as it is taken."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.ops import _build
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    device = torch.device("cuda")
+    index = _build.device_index(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = []
+    steps, num_steps = cs.TRAIN_T, cs.TRAIN_T - 3
+    for name, h, m_t, m_v in shapes:
+        inputs, (dlogits, g_asum) = cs.random_teacher_forced_inputs(
+            gen, device, cs.TRAIN_BATCH, steps, num_steps, m_t, m_v, h,
+            WIDE_VOCAB, SOS)
+        work = cs.teacher_forced_work(cs.TRAIN_BATCH, steps, m_t, m_v, h, h,
+                                      WIDE_VOCAB)
+        for number, kernel in enumerate(("teacher_forced_forward",
+                                         "teacher_forced_backward")):
+            row = dict(kernel=kernel, shape=name, h=h)
+            bound = cs.bound_ms(*work[number])
+            row.update(bound_ms=bound[0], bound_by=bound[1])
+            try:
+                row["plan"] = str(tf.shared_memory_plan(
+                    kernel, m_t, m_v, h, h, WIDE_VOCAB, index))
+            except ValueError as refused:
+                row["refused"] = str(refused)
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+                continue
+            if number == 0:
+                row["ms"] = cs.cuda_ms(lambda: tf.teacher_forced_forward(
+                    *inputs, num_steps=num_steps), repeats)
+            else:
+                # The residuals from the plain forward, also where the
+                # checkout's kernel 3 refuses the shapes.
+                _, h_res, c_res, _ = tf.teacher_forced_forward_plain(
+                    *inputs, num_steps=num_steps)
+                row["ms"] = cs.cuda_ms(lambda: tf.teacher_forced_backward(
+                    *inputs[:3], *inputs[5:], h_res, c_res, dlogits, g_asum,
+                    num_steps=num_steps), repeats)
+                del h_res, c_res
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+        del inputs, dlogits, g_asum
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -464,6 +536,12 @@ def main():
     parser.add_argument("--wide", action="store_true",
                         help="time kernel 2 and the helper at the wide "
                              "shapes only")
+    parser.add_argument("--teacher-forced", action="store_true",
+                        help="time kernels 3 and 4 at W1-W6 and H = 512 "
+                             "only")
+    parser.add_argument("--hidden-sweep", default="",
+                        help="with --teacher-forced: these H = E (comma "
+                             "separated) at M_t = 16, M_v = 36 instead")
     parser.add_argument("--alternative", action="store_true",
                         help="with --wide: also the cluster layout")
     parser.add_argument("--build-only", action="store_true",
@@ -490,6 +568,17 @@ def main():
             if any(word in line for word in ("compiled in", "Compiling entry",
                                              "spill", "registers")):
                 print("  " + line.strip()[:150])
+        return 0
+    if args.teacher_forced:
+        with torch.no_grad(), full_float32():
+            shapes = tuple(("H{}".format(h), int(h), 16, 36) for h in
+                           args.hidden_sweep.split(",") if h) \
+                or TEACHER_FORCED
+            rows = teacher_forced_times(cs, max(2, args.repeats // 4),
+                                        shapes)
+        print(json.dumps(dict(label=args.label, package=str(root),
+                              sets=args.set, card=card(),
+                              teacher_forced=rows)))
         return 0
     if args.wide:
         with torch.no_grad(), full_float32():

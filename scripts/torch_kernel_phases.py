@@ -2,7 +2,8 @@
 """Where the time of kernels 3 and 4, or of kernel 2, goes, phase by phase,
 on the card.
 
-    python3 scripts/torch_kernel_phases.py [--repeats R] [--kernel 2|grid]
+    python3 scripts/torch_kernel_phases.py [--repeats R]
+                                           [--kernel 2|grid|tf-grid]
 
 With ``--kernel 2``: builds a copy with ``kPhaseTiming = 1`` in
 ``csrc/decode_block.cu`` (``build/variants/decode-phase-timing``), in which
@@ -21,7 +22,13 @@ barriers to counters; runs one 32-step launch from SOS at B = 1024, M_t =
 step (EOS outside the vocabulary), and at H = E = 640 with 90% of the rows
 done at entry (EOS 2), printing each phase's milliseconds per launch.
 
-Without either:
+With ``--kernel tf-grid``: a copy with ``kTfGridPhaseTiming = 1`` in
+``csrc/teacher_forced_grid.cu`` (``build/variants/tf-grid-phase-timing``):
+kernels 3 and 4's grid plans, each phase's milliseconds per launch (barrier
+to barrier, CTA 0's clock) at W3, W4, H = 512 and W6, B = 200, T = 56 (W2
+takes the L2 cluster plans).
+
+Without any:
 
 Builds a timed copy of the port's kernels in ``build/variants/phase-timing``
 (``scripts/kernel_phase_timing.patch`` applied to
@@ -189,12 +196,97 @@ def decode_grid_phases(repeats):
     return 0
 
 
+TF_GRID = {
+    3: ("entry: h0, c0 to the scratch",
+        "textual query; the embedding, residuals, last step's logits",
+        "textual attention", "visual query", "visual query tanh",
+        "visual projection", "visual attention",
+        "gate product; the summed attention", "cell", "head product",
+        "head sums", "logits product"),
+    4: ("entry: the transposed weights, the last step's inputs",
+        "textual query; d_ph product", "textual attention; d_ph sums",
+        "visual query; d_pre product", "visual query tanh; d_pre sums",
+        "visual projection", "visual attention", "gate product",
+        "cell forward and backward", "head product; d_lstm product",
+        "head and d_lstm sums; visual attention backward",
+        "d visual query product; the next step's inputs",
+        "d_joint_pre; the stash", "d_joint product; the next embedding",
+        "textual attention backward; dh_joint", "dh_txt product",
+        "dh")}
+TF_GRID_SHAPES = (("W3", 256, 72, 144), ("W4", 449, 16, 36),
+                  ("H512", 512, 16, 36), ("W6", 1024, 16, 36))
+
+
+def teacher_forced_grid_phases(repeats):
+    """Kernels 3 and 4's grid plans phase by phase (kTfGridPhaseTiming) at
+    W3, W4, H = 512 and W6, B = 200, T = 56."""
+    import torch
+    from torch_kernel_ab import load_chip_smoke, variant_checkout
+    sys.path.insert(0, str(variant_checkout(ROOT, "tf-grid-phase-timing",
+                                            ["kTfGridPhaseTiming=1"])))
+    cs = load_chip_smoke()
+    from multimodal_seq2seq_gscan_tpu_torch.ops import _build
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    from multimodal_seq2seq_gscan_tpu_torch.utils.precision import (
+        full_float32)
+    lib = _build.library()
+    lib.gscan_teacher_forced_grid_phase_cycles.argtypes = [ctypes.c_int,
+                                                           ctypes.c_void_p]
+    width = max(len(names) for names in TF_GRID.values()) + 2
+    counters = (ctypes.c_ulonglong * width)()
+    device = torch.device("cuda")
+    clock_hz = torch.cuda.get_device_properties(device).clock_rate * 1e3
+    steps, num_steps = cs.TRAIN_T, cs.TRAIN_T - 3
+    with torch.no_grad(), full_float32():
+        gen = torch.Generator(device=device).manual_seed(0)
+        for name, h, m_t, m_v in TF_GRID_SHAPES:
+            inputs, (dlogits, g_asum) = cs.random_teacher_forced_inputs(
+                gen, device, cs.TRAIN_BATCH, steps, num_steps, m_t, m_v, h,
+                9, 1)
+            _, h_res, c_res, _ = tf.teacher_forced_forward(
+                *inputs, num_steps=num_steps)
+            runs = {3: lambda: tf.teacher_forced_forward(
+                        *inputs, num_steps=num_steps),
+                    4: lambda: tf.teacher_forced_backward(
+                        *inputs[:3], *inputs[5:], h_res, c_res, dlogits,
+                        g_asum, num_steps=num_steps)}
+            for kernel, run in runs.items():
+                names = TF_GRID[kernel]
+                run()
+                torch.cuda.synchronize()
+                _build.check(lib.gscan_teacher_forced_grid_phase_cycles(
+                    kernel, counters), "phase read")
+                ms = cs.cuda_ms(run, repeats, warmup=0)
+                _build.check(lib.gscan_teacher_forced_grid_phase_cycles(
+                    kernel, counters), "phase read")
+                n = width - 2
+                total = sum(counters[:n])
+                print("{}; kernel {}'s grid plan, {} (H={}, M_t={}, M_v={}, "
+                      "B={}, T={}; timed build): {:.4f} ms per launch, "
+                      "{:.1f} steps per launch, {:.4f} ms by CTA 0's clock "
+                      "at {:.0f} MHz, of them {:.4f} ms in grid "
+                      "barriers".format(
+                          cs.nvidia_smi_line(), kernel, name, h, m_t, m_v,
+                          cs.TRAIN_BATCH, steps, ms,
+                          counters[n + 1] / repeats,
+                          total / repeats / clock_hz * 1e3, clock_hz / 1e6,
+                          counters[n] / repeats / clock_hz * 1e3))
+                for i, phase in enumerate(names):
+                    print("  {:9.4f} ms {:5.1f}%  {}".format(
+                        counters[i] / repeats / clock_hz * 1e3,
+                        100 * counters[i] / max(total, 1), phase))
+            del inputs, dlogits, g_asum, h_res, c_res
+    return 0
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--repeats", type=int, default=5)
-    parser.add_argument("--kernel", choices=("2", "grid", "3"), default="3",
+    parser.add_argument("--kernel", choices=("2", "grid", "3", "tf-grid"),
+                        default="3",
                         help="2: kernel 2; grid: kernel 2's grid plan; 3 "
-                        "(default): kernels 3 and 4")
+                        "(default): kernels 3 and 4; tf-grid: their grid "
+                        "plans")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -204,6 +296,8 @@ def main():
         return decode_block_phases(args.repeats)
     if args.kernel == "grid":
         return decode_grid_phases(args.repeats)
+    if args.kernel == "tf-grid":
+        return teacher_forced_grid_phases(args.repeats)
     from torch_kernel_ab import load_chip_smoke, variant_checkout
     sys.path.insert(0, str(variant_checkout(ROOT, "phase-timing",
                                             patch=PATCH)))

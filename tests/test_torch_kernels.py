@@ -24,7 +24,10 @@ H = 1024. Kernel 1's gradients (its backward is the plain
 ``attention_vjp_plain``) match autograd through its plain version at rtol
 1e-4 / atol 1e-5, the bar of float32 sums in two orders. Kernel 2 also
 takes H past its ring plans (its grid plan, H = 257 to 2048 and V up to
-6,743 here), and the
+6,743 here), kernels 3 and 4 and the helper H past their resident plans
+(the L2 cluster plans where they are taken, else the grid plans, H = 116
+to 1,536, B = 200 at T = 56, B = 5, H = 449 with E = 256; each run twice,
+every bit the same, the plan asserted), and the
 resident trainer's CUDA graph of the training step gives the eager steps'
 state and metrics, also for a decoder of two layers (the step unroll, its
 attentions kernel 1); the multi-seed chunk's one graph gives each seed's
@@ -785,6 +788,110 @@ def test_wide_shapes_match_plain(cuda, name):
     assert after[0] == before[0] + 2 and after[1] == before[1] + 1
     for kernel, count in after[2].items():
         assert count > before[2][kernel], kernel
+
+
+# Kernels 3 and 4 past their resident cluster plans: (batch, T, num_steps,
+# M_t, M_v, H, E, the plans (kernel 3, kernel 4): "resident", a cluster
+# plan with the weights in shared memory; "L2", one that reads them from
+# L2, which only narrow widths and few keys take (kernel 3: H <= 320 and H
+# (M_t + M_v) <= 18,432; kernel 4: H <= 192), where it measured faster;
+# "grid", the grid plan). H116 and H136: past the
+# resident plans, the L2 plans; W3 (M_t = 72, M_v = 144): the grid plans,
+# where the L2 plans ran before; 449 with E = 256: H % 4 != 0 (4-byte
+# weight copies and key loads) and E != H; 512 and past: widths no cluster
+# plan fits (C.12); B200_T56: the training shape at H = 512, the logits'
+# cotangent on its first GRAD_STEPS steps (on all 53, out_proj's gradient
+# sums 10,600 row-steps, and the kernel and the plain version, each ~7e-5
+# from float64, part by more than the gradient bar: a float32 sum that long
+# holds neither); B5: fewer rows than a tile. The inputs' seed is the batch
+# plus H.
+GRID_TEACHER_FORCED = {
+    "H116": (37, 6, 5, 16, 36, 116, 116, ("L2", "L2")),
+    "H136": (37, 6, 5, 16, 36, 136, 136, ("L2", "L2")),
+    "W3": (37, 6, 5, 72, 144, 256, 256, ("grid", "grid")),
+    "H449_E256": (37, 6, 5, 16, 36, 449, 256, ("grid", "grid")),
+    "H512": (37, 6, 5, 16, 36, 512, 512, ("grid", "grid")),
+    "H640": (24, 5, 4, 16, 36, 640, 640, ("grid", "grid")),
+    "H1024": (16, 4, 4, 16, 36, 1024, 1024, ("grid", "grid")),
+    "H1536": (9, 3, 3, 16, 36, 1536, 1536, ("grid", "grid")),
+    "B200_T56": (200, 56, 53, 16, 36, 512, 512, ("grid", "grid")),
+    "B5": (5, 6, 5, 16, 36, 640, 640, ("grid", "grid")),
+}
+GRAD_STEPS = {"B200_T56": 12}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GRID_TEACHER_FORCED))
+def test_teacher_forced_grid_plans(cuda, name):
+    """Kernels 3 and 4 and the helper past their resident plans: the plan
+    each kernel takes; against the plain unroll and its autograd
+    gradients at the JAX bars (logits rtol/atol 1e-5, summed attention rtol
+    1e-5 / atol 1e-6, gradients rtol 2e-4 / atol 2e-5), kernel 4 against its
+    plain twin (the stash too) at the gradient bar, and every output no
+    further from a float64 evaluation than twice the plain version (or
+    1e-6); each run twice, every bit the same."""
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    batch, steps, num_steps, m_t, m_v, h, e, plans = \
+        GRID_TEACHER_FORCED[name]
+    inputs, (dlogits, g_asum) = teacher_forced_inputs(
+        cuda, batch, steps, num_steps, m_t=m_t, m_v=m_v, h=h, e=e,
+        seed=batch + h)
+    dlogits[GRAD_STEPS.get(name, num_steps):] = 0.0
+    for kernel, want in zip(("teacher_forced_forward",
+                             "teacher_forced_backward"), plans):
+        _, plan_name, _ = tf.shared_memory_plan(
+            kernel, m_t, m_v, h, e, 9, torch.cuda.current_device())
+        kind = ("grid" if plan_name.startswith("grid") else "L2"
+                if plan_name.startswith(("weights from L2",
+                                         "weights+keys from L2"))
+                else "resident")
+        assert kind == want, (kernel, plan_name)
+    before = dict(tf.launches)
+    logits, h_res, c_res, asum = tf.teacher_forced_forward(
+        *inputs, num_steps=num_steps)
+    raw, grads, _ = kernel4_and_helper(inputs, dlogits, g_asum, num_steps)
+    for kernel, count in tf.launches.items():
+        assert count == before[kernel] + (2 if kernel
+                                          == "teacher_forced_forward" else 1)
+
+    def plain(args, cotangents):
+        leaves = [x.clone().requires_grad_(True) for x in
+                  (args[0], args[2], args[3], args[4], *args[7])]
+        out = tf.teacher_forced_plain(
+            leaves[0], args[1], leaves[1], leaves[2], leaves[3], args[5],
+            args[6], k2.DecoderWeights(*leaves[4:]), num_steps=num_steps)
+        grads = torch.autograd.grad(
+            (out[0] * cotangents[0]).sum() + (out[1] * cotangents[1]).sum(),
+            leaves)
+        return [out[0][:num_steps].detach(), out[1].detach()] + list(grads)
+
+    got = [logits[:num_steps], asum] + raw[:4] + grads
+    want = plain(inputs, (dlogits, g_asum))
+    exact = plain(as_float64(inputs), as_float64((dlogits, g_asum)))
+    names = ["logits", "asum", "proj_txt", "proj_vis", "h0", "c0"] + list(
+        k2.DecoderWeights._fields)
+    bars = [(1e-5, 1e-5), (1e-5, 1e-6)] + [(2e-4, 2e-5)] * 16
+    for field, a, b, x, (rtol, atol) in zip(names, got, want, exact, bars):
+        kernel_err = float((a.double() - x).abs().max())
+        plain_err = float((b.double() - x).abs().max())
+        torch.testing.assert_close(
+            a, b, rtol=rtol, atol=atol, msg="{}: max |err| {:.3e} against "
+            "the plain version; vs float64: kernel {:.3e}, plain {:.3e}".format(
+                field, float((a - b).abs().max()), kernel_err, plain_err))
+        assert kernel_err <= max(2 * plain_err, 1e-6), (field, kernel_err,
+                                                         plain_err)
+    twin = tf.teacher_forced_backward_plain(
+        inputs[0], inputs[1], inputs[2], inputs[5], inputs[6], inputs[7],
+        h_res, c_res, dlogits, g_asum, num_steps=num_steps)
+    for field, a, b in zip(["d_proj_txt", "d_proj_vis", "dh0", "dc0",
+                            "stash"], raw, twin):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5, msg=field)
+    forward_again = tf.teacher_forced_forward(*inputs, num_steps=num_steps)
+    raw_again, grads_again, _ = kernel4_and_helper(inputs, dlogits, g_asum,
+                                                   num_steps)
+    for first, second in zip([logits, h_res, c_res, asum] + raw + grads,
+                             list(forward_again) + raw_again + grads_again):
+        assert torch.equal(first, second)
 
 
 def resident_toy(device, n=48, grid=4, channels=6, t_in=7, t_out=12):

@@ -11,9 +11,10 @@ run them:
   (lengths 0..72, so the mask falls past the 64th key), H = 136;
 - the decode block at H = 136, M_v = 81;
 - the teacher-forced unroll (logits, summed attention and all 16 gradients)
-  at H = E = 136 with M_v = 81, and at H = E = 256 with M_t = 72 and a
-  12x12 grid (M_v = 144), both at B <= 4 and T = 8 (the JAX kernel's
-  block of steps);
+  at H = E = 136 with M_v = 81, at H = E = 256 with M_t = 72 and a 12x12
+  grid (M_v = 144), and at H = E = 512 (M_t = 16, M_v = 36: a width that
+  kernels 3 and 4 serve on the card with their grid plans only), each at
+  B <= 4 and T = 8 (the JAX kernel's block of steps);
 - one ``train_step`` and one ``evaluate`` of a tiny model on a 9x9 grid.
 Bars are the JAX tests': attention context atol 1e-5, weights atol 1e-6,
 gradients atol 1e-5; decode-block tokens equal, attention, h and c rtol 1e-5
@@ -176,6 +177,9 @@ TEACHER_FORCED_SHAPES = {
     "H136-Mv81": dict(batch=4, steps=8, num_steps=6, m_t=16, m_v=81, h=136),
     "H256-Mt72-Mv144": dict(batch=3, steps=8, num_steps=7, m_t=72, m_v=144,
                             h=256),
+    # The first width past kernels 3 and 4's cluster plans that JAX trains
+    # and the card once refused: their grid plans serve it there.
+    "H512": dict(batch=2, steps=8, num_steps=6, m_t=16, m_v=36, h=512),
 }
 
 
