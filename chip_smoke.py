@@ -29,8 +29,8 @@ of the rows done at entry), and kernels 3 and 4 past every cluster plan, on
 their grid plans (H=E=449, 512, 640, 1024 at B=200, T=56); these rows also
 stand, as ``wide`` lists, on their kernels' entries of the final kernels
 line. The decode's examples are also
-written as ``predict.json`` (``predict_and_save``), held to the decode's
-tokens and exact match. The second main path resumes training from the
+written as ``predict.json`` (``predict_and_save``) and scored by
+``evaluate``, held to the decode's tokens and exact match. The second main path resumes training from the
 fixture checkpoint for 20 steps at batch 200 through ``train()``, streamed
 (kernels 3 and 4, then a dev decode through kernel 2), round-trips the
 checkpoint, and compares 5 steps of the kernel path with the plain path;
@@ -41,15 +41,32 @@ timed against the streamed step with the device busy share of each, then
 At H=E=512, a decoder width no cluster plan of kernels 3 and 4 fits, the
 default "fused" path on random weights trains a graphed resident chunk of 4
 steps (kernels 3 and 4 on their grid plans), held to 4 eager steps of the
-plain unroll at the JAX bars.
+plain unroll at the JAX bars. The same width then runs through every entry
+point ("the wide decoder", encoder and decoder H = 512, embedding 25):
+200 graphed steps from seed 42's init, then (a) ``train`` resumed for one
+step and two chunks of 4 with dev evaluations of 512, writing model_best,
+held to the same run on the plain versions (per-step loss, params,
+evaluations), and 4 streamed steps; (b) the block decode of 512 dev
+examples with that model_best against ``block_plain``, kernel 2's two
+blocks timed, and the predict checks below on them; (c) the three bf16
+decodes, each against the same decode on kernel 1's plain version (rows
+may part only at argmax near-ties), and the float32 step decode; (d) a
+campaign of two seeds, each bit for bit its single-seed run; (e) a
+one-rank NCCL chunk and sharded decode, bit for bit the unsharded; (f) the
+command-line checks below, ``--mode=test`` on the run's model_best. The
+plans of kernels 2, 3 and 4 at that width are printed and required to be
+the grid plans, and one profiled step and decode must show their grid
+kernels and the helper's wide tiles.
 The command line runs in process (``cli/seq2seq.py``'s ``main``):
 ``--mode=train`` resumed to 200020 in graphed chunks with a dev evaluation
 of 512 examples, then ``--mode=test``, whose ``dev_predict.json`` must hold
-the decode phase's predictions. The 4096 examples are also decoded in each
-bf16 variant (``bfloat16``, ``bfloat16_mixed``, ``bfloat16_keys``: the step
-path, kernel 1's bf16 form), held to the JAX package's bars against the
-float32 decode; kernel 1's bf16 form is held to its plain version and to
-float64 at the decode's shapes and W3's, and timed beside its bound; and a
+the decode phase's predictions and be byte for byte the in-process
+``predict_and_save`` of the same checkpoint. The 4096 examples are also
+decoded in each bf16 variant (``bfloat16``, ``bfloat16_mixed``,
+``bfloat16_keys``: the step path, kernel 1's bf16 form), held to the JAX
+package's bars against the float32 decode; kernel 1's bf16 form is held to
+its plain version and to float64 at the decode's shapes, W3's and H = 512,
+and timed beside its bound; and a
 decoder of two layers on random weights trains one graphed resident chunk
 of its step unroll (kernel 1), held to as many eager steps. A multi-seed
 campaign (seeds 66, 49 and 50, fresh from each seed's init, 20 steps in
@@ -146,6 +163,17 @@ WIDE_TEACHER_FORCED = (("W4", 449), ("H512", 512), ("W5", 640),
 # WIDE_TRAIN_K steps.
 WIDE_TRAIN_H = 512
 WIDE_TRAIN_K = 4
+# The wide decoder through the entry points (encoder and decoder H =
+# WIDE_TRAIN_H, embedding 25, where kernels 2, 3 and 4 take their grid
+# plans): WIDE_PRETRAIN steps from
+# SEED's init in graphed chunks of WIDE_PRETRAIN_K (the fixture's dev exact
+# match is above 0 by then, so the paths' evaluations write model_best),
+# then each path from that state in chunks of WIDE_TRAIN_K; decodes and
+# evaluations of WIDE_EXAMPLES dev examples; a campaign of WIDE_SEEDS.
+WIDE_PRETRAIN = 200
+WIDE_PRETRAIN_K = 10
+WIDE_EXAMPLES = 512
+WIDE_SEEDS = (7, 8)
 # Kernel 2 past its ring plans (H <= 256), on its grid plan: (name, H = E,
 # share of rows done at entry), at M_t = 16, M_v = 36, V = 9, K = 32 steps
 # and batch PAST_448_BATCH (each launch well under 1 s).
@@ -1065,20 +1093,21 @@ def past_448_rows(gen, device, vocab, sos_idx, eos_idx):
     return rows
 
 
-def predict_checks(dataset, params, config, decoded, em_decoded, inputs,
-                   decode, sync):
-    """``predict_and_save`` over the fixture's dev examples at batch BATCH
-    (kernel 2), into a temporary predict.json: as many records as examples,
-    every prediction the decode phase's tokens, as many exact matches as
-    the decode phase's exact match, each attention row summing to 1 within
-    1e-5, the textual rows as long as the input. Prints the decode's
-    milliseconds apart from the host's (records, then the JSON file), and
-    the file's size."""
+def predict_checks(label, dataset, params, config, decoded, em_decoded,
+                   inputs, decode, sync, rows):
+    """``predict_and_save`` over the first ``rows`` dev examples at batch
+    ``rows`` (kernel 2), into a temporary predict.json: as many records as
+    examples, every prediction the decode's tokens (``decoded``), as many
+    exact matches as the decode's exact match, each attention row summing
+    to 1 within 1e-5, the textual rows as long as the input; ``evaluate``
+    of the same examples (kernel 2 again) at that exact match. Prints the
+    decode's milliseconds apart from the host's (records, then the JSON
+    file), and the file's size."""
     import torch
     from multimodal_seq2seq_gscan_tpu_torch.decode.greedy import (
         strip_output_sequences)
     from multimodal_seq2seq_gscan_tpu_torch.decode.predict import (
-        predict, predict_and_save)
+        evaluate, predict, predict_and_save)
     from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
     out_dir = tempfile.mkdtemp(prefix="gscan_chip_smoke_predict_")
     try:
@@ -1086,13 +1115,21 @@ def predict_checks(dataset, params, config, decoded, em_decoded, inputs,
         k2.launches = 0
         start = time.perf_counter()
         predict_and_save(dataset, params, config, path, MAX_DECODING_STEPS,
-                         batch_size=BATCH, device=DEVICE)
+                         batch_size=rows, max_testing_examples=rows,
+                         device=DEVICE)
         save_ms = (time.perf_counter() - start) * 1e3
         launches = k2.launches
         start = time.perf_counter()
         records = list(predict(dataset, params, config, MAX_DECODING_STEPS,
-                               batch_size=BATCH, device=DEVICE))
+                               batch_size=rows,
+                               max_examples_to_evaluate=rows,
+                               device=DEVICE))
         records_ms = (time.perf_counter() - start) * 1e3
+        k2.launches = 0
+        accuracy, em_eval, _ = evaluate(
+            dataset, params, config, MAX_DECODING_STEPS, batch_size=rows,
+            max_examples_to_evaluate=rows, device=DEVICE)
+        launches_eval = k2.launches
         with torch.no_grad():
             decode(params, *inputs)
             sync()
@@ -1105,27 +1142,33 @@ def predict_checks(dataset, params, config, decoded, em_decoded, inputs,
             written = json.load(f)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    print("predict.json: {} records, {} bytes; kernel 2 launches {}".format(
-        len(written), size, launches))
-    print("predict: decode {:.3f} ms (one decode of the {} examples, wall "
+    print("{}: predict.json {} records, {} bytes; kernel 2 launches {} "
+          "(evaluate: {})".format(label, len(written), size, launches,
+                                  launches_eval))
+    print("{}: decode {:.3f} ms (one decode of the {} examples, wall "
           "clock), records on the host {:.3f} ms, JSON file {:.3f} ms "
           "(predict_and_save {:.3f} ms in all)".format(
-              decode_ms, BATCH, records_ms - decode_ms,
+              label, decode_ms, rows, records_ms - decode_ms,
               save_ms - records_ms, save_ms))
-    require(launches > 0, "predict did not launch kernel 2")
-    require(len(written) == len(records) == BATCH,
-            "predict.json holds {} records".format(len(written)))
+    require(launches > 0 and launches_eval > 0,
+            "{}: predict or evaluate did not launch kernel 2".format(label))
+    require(len(written) == len(records) == rows,
+            "{}: predict.json holds {} records".format(label, len(written)))
     sequences, _ = strip_output_sequences(decoded, config.target_eos_idx)
     words = [dataset.array_to_sentence(seq, "target") for seq in sequences]
     same = sum(record["prediction"] == w for record, w in zip(written,
                                                                 words))
     exact = sum(record["exact_match"] for record in written)
-    print("predict.json against the decode phase: {} of {} predictions "
-          "equal, exact match {:.4f}% (decode phase {:.4f}%)".format(
-              same, BATCH, 100.0 * exact / BATCH, em_decoded))
-    require(same == BATCH, "predictions differ from the decode phase")
-    require(100.0 * exact / BATCH == em_decoded,
-            "predict.json's exact match differs from the decode phase's")
+    print("{}: predict.json against the decode: {} of {} predictions equal, "
+          "exact match {:.4f}% (the decode {:.4f}%, evaluate {:.4f}%, "
+          "accuracy {:.4f})".format(label, same, rows, 100.0 * exact / rows,
+                                    em_decoded, em_eval, accuracy))
+    require(same == rows, "{}: predictions differ from the decode".format(
+        label))
+    require(100.0 * exact / rows == em_decoded
+            and abs(em_eval - em_decoded) <= 1e-9,
+            "{}: predict.json's or evaluate's exact match differs from the "
+            "decode's".format(label))
     worst, wrong_length = 0.0, 0
     for record in written:
         for row in record["attention_weights_input"]:
@@ -1133,12 +1176,13 @@ def predict_checks(dataset, params, config, decoded, em_decoded, inputs,
             wrong_length += len(row[0]) != len(record["input"]) + 2
         for row in record["attention_weights_situation"]:
             worst = max(worst, abs(sum(row[0]) - 1.0))
-    print("predict.json attention rows: largest |sum - 1| {:.3e} (bar "
+    print("{}: predict.json attention rows: largest |sum - 1| {:.3e} (bar "
           "1e-5); textual rows not as long as the input: {}".format(
-              worst, wrong_length))
+              label, worst, wrong_length))
     require(worst <= 1e-5 and wrong_length == 0,
-            "predict.json's attention rows are not distributions over the "
-            "input")
+            "{}: predict.json's attention rows are not distributions over "
+            "the input".format(label))
+    return decode_ms
 
 
 def hold_chunk(label, chunk_state, chunk_metrics, step_state, step_metrics):
@@ -1414,6 +1458,377 @@ def wide_training_checks(train_set, sync):
                                data.target_ids.shape[1]))
 
 
+@contextlib.contextmanager
+def patched(module, name, value):
+    """While open, ``module.name`` is ``value``."""
+    before = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, before)
+
+
+def chunk_losses(make_chunk, losses):
+    """``make_chunk`` (a package's resident chunk maker) whose chunks append
+    their per-step losses to ``losses``."""
+    def made(*args, **kwargs):
+        chunk = make_chunk(*args, **kwargs)
+
+        def run(*chunk_args):
+            state, metrics = chunk(*chunk_args)
+            losses.extend(float(x) for x in metrics["loss"])
+            return state, metrics
+        return run
+    return made
+
+
+def wide_plans(config, m_t, m_v):
+    """Prints the plan each kernel takes at ``config``'s widths on this
+    card; kernel 2 must take its grid plan, kernels 3 and 4 theirs."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    index = torch.cuda.current_device()
+    h, e = config.decoder_hidden_size, config.embedding_dimension
+    vocab = config.target_vocabulary_size
+    block = k2.block_plan(h, vocab, m_t, m_v, index)
+    plans = [tf.shared_memory_plan(kernel, m_t, m_v, h, e, vocab, index)[1]
+             for kernel in ("teacher_forced_forward",
+                            "teacher_forced_backward")]
+    print("plans at H = {}, E = {}, M_t = {}, M_v = {}: kernel 2 {}; kernel "
+          "3 {}; kernel 4 {}".format(h, e, m_t, m_v, block.describe(),
+                                     *plans))
+    require(block.grid and all(p.startswith("grid") for p in plans),
+            "the kernels do not take their grid plans")
+
+
+def require_kernels(label, fn, names, sync):
+    """Runs ``fn()`` under torch.profiler (after one run outside it) and
+    requires a launch of each device kernel in ``names`` (substrings of
+    the kernels' names), printing their counts; fails where the profiler
+    sees no device time."""
+    _, events, busy_ms = device_window(fn, sync)
+    require(busy_ms > 0, "{}: torch.profiler saw no device time, so the "
+            "kernels run are not observed".format(label))
+    seen = {name: sum(e.count for e in events if name in e.key)
+            for name in names}
+    print("{}: device kernels in the profile: {}".format(label, seen))
+    require(all(seen.values()), "{}: a kernel of its plan did not "
+            "run".format(label))
+
+
+def wide_decoder_checks(train_set, dataset, smi, sync):
+    """The wide decoder (encoder and decoder H = WIDE_TRAIN_H, the flagship
+    architecture otherwise, the fixture's data) through every entry point
+    of the port, from WIDE_PRETRAIN graphed steps of SEED's init; the plan
+    each kernel takes (kernel 2's grid plan, kernels 3 and 4's, required),
+    and at each path launch counts set to 0 before it and read after it,
+    and its times: (a) ``train`` resumed for one step and two resident
+    chunks of WIDE_TRAIN_K with a dev evaluation of WIDE_EXAMPLES at each
+    print, writing model_best, held to the same ``train`` on the plain
+    versions (``teacher_forced_impl="plain"``, ``"block_plain"`` decodes:
+    per-step loss rtol 1e-5, params atol 1e-6, the evaluations' accuracy
+    and exact match atol 1e-6), and 4 streamed steps likewise; one step
+    profiled for the grid kernels and the helper's wide tiles; (b) the
+    block decode of the first WIDE_EXAMPLES dev examples with that
+    model_best: its tokens those of ``"block_plain"`` but at argmax
+    near-ties, its attention rtol 1e-5 / atol 1e-6, one decode profiled for
+    kernel 2's grid kernel, both blocks of kernel 2 timed; then
+    ``predict_checks`` (``predict_and_save`` and ``evaluate``) of those
+    examples; (c) the three bf16 decodes (kernel 1's bf16 form), each held
+    to the same decode on kernel 1's plain version (``bf16_near_ties``),
+    and the float32 step decode (kernel 1) against the plain decode; (d) a
+    campaign of WIDE_SEEDS fresh from init, each seed bit for bit its
+    single-seed run (C.14); (e) a one-rank NCCL chunk from the pretrained
+    state bit for bit the unsharded one, and the sharded decode of (b)'s
+    examples bit for bit the unsharded decode (C.14); (f) ``cli_checks``:
+    ``--mode=train`` for one chunk, then ``--mode=test`` on its
+    model_best."""
+    import numpy as np
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.decode import greedy
+    from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
+    from multimodal_seq2seq_gscan_tpu_torch.models.params import leaves
+    from multimodal_seq2seq_gscan_tpu_torch.ops import additive_attention as k1
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    from multimodal_seq2seq_gscan_tpu_torch.train import loop, resident
+    from multimodal_seq2seq_gscan_tpu_torch.train.checkpoint import (
+        load_params, save_checkpoint)
+    from multimodal_seq2seq_gscan_tpu_torch.train.state import Adam
+    from multimodal_seq2seq_gscan_tpu_torch.train.step import train_step
+    from multimodal_seq2seq_gscan_tpu_torch.utils.precision import (
+        full_float32)
+    h, k = WIDE_TRAIN_H, WIDE_TRAIN_K
+    width = dict(encoder_hidden_size=h, decoder_hidden_size=h)
+    config = ModelConfig(
+        input_vocabulary_size=train_set.input_vocabulary_size,
+        target_vocabulary_size=train_set.target_vocabulary_size,
+        num_cnn_channels=train_set.image_channels, **width)
+    batch, indices, _, _ = next(dataset.get_data_iterator(
+        batch_size=WIDE_EXAMPLES, pad_to_full_batch=True,
+        with_representations=False))
+    batch = batch.to(DEVICE)
+    inputs = (batch.input_ids, batch.input_lengths, batch.situations,
+              batch.target_positions)
+    m_t = batch.input_ids.shape[1]
+    m_v = batch.situations.shape[1] * batch.situations.shape[2]
+    eos = config.target_eos_idx
+    wide_plans(config, m_t, m_v)
+    times = {}
+
+    def zero_counts():
+        k1.launches, k1.launches_bf16, k2.launches = 0, 0, 0
+        tf.launches.update({name: 0 for name in tf.launches})
+
+    def counts():
+        return dict(tf.launches, decode_block=k2.launches,
+                    additive_attention=k1.launches)
+
+    def train_kw(**options):
+        return dict(dict(training_batch_size=TRAIN_BATCH, seed=SEED,
+                         max_testing_examples=WIDE_EXAMPLES,
+                         evaluation_batch_size=WIDE_EXAMPLES, device=DEVICE,
+                         **width), **options)
+
+    root = Path(tempfile.mkdtemp(prefix="gscan_chip_smoke_wide_"))
+    try:
+        # Pretraining: no evaluation, so that no best exact match is kept.
+        pre_events = []
+        begin = time.perf_counter()
+        pre_state, _ = loop.train(
+            str(FIXTURE / "dataset.txt"), str(FIXTURE),
+            **train_kw(max_training_iterations=WIDE_PRETRAIN,
+                       print_every=WIDE_PRETRAIN_K,
+                       evaluate_every=4 * WIDE_PRETRAIN,
+                       steps_per_execution=WIDE_PRETRAIN_K,
+                       output_directory=str(root / "pretrain"),
+                       callback=lambda *event: pre_events.append(event)))
+        sync()
+        pre_path = save_checkpoint(str(root / "pretrain"), pre_state)
+        print("pretraining at H = {}: {} steps from seed {}'s init in "
+              "graphed chunks of {}, {:.2f} s; losses {}".format(
+                  h, WIDE_PRETRAIN, SEED, WIDE_PRETRAIN_K,
+                  time.perf_counter() - begin,
+                  ["{:.5f}".format(v["loss"]) for _, _, v in pre_events]))
+        last = WIDE_PRETRAIN + 2 * k
+
+        # (a) train(), resident, against the plain versions.
+        runs = {}
+        for name, impl, decode_impl in (("kernel", "fused", "block"),
+                                        ("plain", "plain", "block_plain")):
+            losses, events = [], []
+            zero_counts()
+            begin = time.perf_counter()
+            with patched(loop, "make_train_chunk", chunk_losses(
+                    loop.make_train_chunk, losses)), \
+                    patched(greedy, "DEFAULT_DECODE_IMPL", decode_impl):
+                state, _ = loop.train(
+                    str(FIXTURE / "dataset.txt"), str(FIXTURE),
+                    **train_kw(resume_from_file=pre_path,
+                               max_training_iterations=last, print_every=k,
+                               evaluate_every=k, steps_per_execution=k,
+                               teacher_forced_impl=impl,
+                               output_directory=str(root / ("a_" + name)),
+                               callback=lambda *event: events.append(
+                                   event)))
+            sync()
+            runs[name] = (state, [v["loss"] for kind, it, v in events
+                                  if kind == "train" and it
+                                  == WIDE_PRETRAIN] + losses,
+                          events, counts(), time.perf_counter() - begin)
+        (state, losses, events, launches, wall), plain = runs["kernel"], \
+            runs["plain"]
+        print("(a) launches (kernels 3, 4 and the helper: the single step, "
+              "warm-up and capture; kernel 2: the evaluations): {}; plain "
+              "run {}".format(launches, plain[3]))
+        require(all(launches[name] > 0 for name in tf.launches)
+                and launches["decode_block"] > 0,
+                "(a): a kernel of the path was not launched")
+        require(not any(plain[3].values()),
+                "(a): the plain run launched a kernel")
+        for kind, it, values in events:
+            print("(a) {} {}: {}".format(kind, it, ", ".join(
+                "{} {:.6g}".format(name, v) for name, v in values.items())))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain[1]))
+        param_err = max(float((a - b).abs().max()) for a, b in zip(
+            leaves(state.params), leaves(plain[0].params)))
+        print("(a) per-step losses, kernels {} vs plain {}: max rel err "
+              "{:.3e} (rtol 1e-5); params max |err| {:.3e} (atol "
+              "1e-6)".format(["{:.6f}".format(x) for x in losses],
+                             ["{:.6f}".format(x) for x in plain[1]], rel,
+                             param_err))
+        require(len(losses) == len(plain[1]) == 2 * k + 1
+                and all(math.isfinite(x) for x in losses) and rel <= 1e-5,
+                "(a): the per-step losses differ from the plain run's")
+        require(param_err <= 1e-6, "(a): the params differ from the plain "
+                "run's")
+        evals = [[(it, v) for kind, it, v in run[2] if kind == "eval"]
+                 for run in (runs["kernel"], plain)]
+        require([it for it, _ in evals[0]] == [it for it, _ in evals[1]]
+                == list(range(WIDE_PRETRAIN, last + 1, k)),
+                "(a) evaluations at {}".format(evals))
+        eval_err = max(abs(a[name] - b[name]) for (_, a), (_, b) in
+                       zip(*evals) for name in ("accuracy", "exact_match"))
+        print("(a) evaluations' accuracy and exact match, kernels vs plain: "
+              "max |err| {:.3e} (atol 1e-6)".format(eval_err))
+        require(eval_err <= 1e-6, "(a): the evaluations differ from the "
+                "plain run's")
+        best = root / "a_kernel" / "model_best.msgpack"
+        require(best.exists(), "(a): no model_best was written (dev exact "
+                "match {})".format([v["exact_match"] for _, v in evals[0]]))
+        with open(str(best) + ".json") as f:
+            best_meta = json.load(f)
+        chunk_ms = [1e3 / v["steps_per_s"] for kind, it, v in events
+                    if kind == "train" and it > WIDE_PRETRAIN]
+        times["a: graphed chunk, ms a step (host clock)"] = chunk_ms
+        print("(a) model_best {}; graphed chunk {} ms a step (host clock, "
+              "the loop's windows); train() {:.2f} s, plain {:.2f} s; "
+              "{}".format(best_meta, ["{:.3f}".format(x) for x in chunk_ms],
+                          wall, plain[4], smi))
+        # Four streamed steps, against the plain versions.
+        streamed = {}
+        for name, impl in (("kernel", "fused"), ("plain", "plain")):
+            events = []
+            zero_counts()
+            state, _ = loop.train(
+                str(FIXTURE / "dataset.txt"), str(FIXTURE),
+                **train_kw(resume_from_file=pre_path,
+                           max_training_iterations=WIDE_PRETRAIN + 3,
+                           print_every=1, evaluate_every=4 * WIDE_PRETRAIN,
+                           steps_per_execution=1, teacher_forced_impl=impl,
+                           output_directory=str(root / ("s_" + name)),
+                           callback=lambda *event: events.append(event)))
+            sync()
+            streamed[name] = (state, [v["loss"] for _, _, v in events],
+                              counts(), [1e3 / v["steps_per_s"]
+                                         for _, _, v in events[1:]])
+        rel = max(abs(a - b) / abs(b) for a, b in zip(streamed["kernel"][1],
+                                                      streamed["plain"][1]))
+        param_err = max(float((a - b).abs().max()) for a, b in zip(
+            leaves(streamed["kernel"][0].params),
+            leaves(streamed["plain"][0].params)))
+        times["a: streamed, ms a step (host clock)"] = streamed["kernel"][3]
+        print("(a) streamed: launches {}; per-step losses {} vs plain {} "
+              "(max rel err {:.3e}, rtol 1e-5); params max |err| {:.3e} "
+              "(atol 1e-6); {} ms a step (host clock), plain {}".format(
+                  streamed["kernel"][2],
+                  ["{:.6f}".format(x) for x in streamed["kernel"][1]],
+                  ["{:.6f}".format(x) for x in streamed["plain"][1]], rel,
+                  param_err,
+                  ["{:.3f}".format(x) for x in streamed["kernel"][3]],
+                  ["{:.3f}".format(x) for x in streamed["plain"][3]]))
+        require(all(streamed["kernel"][2][name] == 4 for name in tf.launches)
+                and len(streamed["kernel"][1]) == 4 and rel <= 1e-5
+                and param_err <= 1e-6,
+                "(a): the streamed steps differ from the plain run's")
+        data = resident.build_resident_data(train_set, DEVICE)
+        step_batch = resident.gather_batch(data, next(
+            resident.index_block_stream(data.num_examples, TRAIN_BATCH, 1,
+                                        np.random.default_rng(SEED)))[0])
+        require_kernels("(a) one train step", lambda: train_step(
+            pre_state, step_batch, config, Adam()),
+            ("forward_grid_kernel", "backward_grid_kernel",
+             "weight_grads_wide_kernel"), sync)
+        del data, step_batch, runs, streamed, state
+
+        # (b) The block decode, predict_and_save and evaluate of model_best.
+        params = load_params(str(best), device=DEVICE)
+        decode = greedy.make_greedy_decoder(config, MAX_DECODING_STEPS,
+                                            EXIT_CHECK_EVERY,
+                                            decode_impl="block")
+        decode_plain = greedy.make_greedy_decoder(
+            config, MAX_DECODING_STEPS, EXIT_CHECK_EVERY,
+            decode_impl="block_plain")
+        with torch.no_grad():
+            out = decode(params, *inputs)
+            plain_out = decode_plain(params, *inputs)
+        found = decode_divergences(out, plain_out, WIDE_EXAMPLES)
+        check_divergences("(b) block decode vs plain", found)
+        same = torch.ones(WIDE_EXAMPLES, dtype=torch.bool, device=DEVICE)
+        same[[row for row, _, _ in found]] = False
+        for name in ("attention_commands", "attention_situations"):
+            check_close("(b) block decode vs plain, {} of the rows that "
+                        "agree".format(name), getattr(out, name)[same],
+                        getattr(plain_out, name)[same], 1e-5, 1e-6)
+        em = exact_match(out, dataset, indices, eos)
+        print("(b) block decode: exact match {:.4f}%, emitted tokens "
+              "{}".format(em, int(out.lengths.sum())))
+        require_kernels("(b) one decode", lambda: decode(params, *inputs),
+                        ("decode_grid_kernel",), sync)
+        with torch.no_grad(), full_float32():
+            blocks = fixture_blocks(params, config, batch)
+            row_steps = [int(k2.decode_block_plain(
+                *args, num_steps=EXIT_CHECK_EVERY,
+                eos_idx=eos).step_emitted.sum()) for args in blocks]
+        weights_bytes = sum(w.numel() * 4 for w in blocks[0][7])
+        for i, args in enumerate(blocks):
+            block_ms = cuda_ms(lambda: k2.fused_decode_block(
+                *args, num_steps=EXIT_CHECK_EVERY, eos_idx=eos), 5)
+            bound = bound_ms(*decode_block_work(
+                WIDE_EXAMPLES, m_t, m_v, h, config.target_vocabulary_size,
+                EXIT_CHECK_EVERY, weights_bytes, row_steps[i]))
+            times["b: kernel 2 block {} ms".format(i + 1)] = block_ms
+            print("(b) kernel 2, block {} of the decode (K={}, B={}, {} "
+                  "emitting row-steps): {:.4f} ms, bound {:.4f} ms ({}); "
+                  "{}".format(i + 1, EXIT_CHECK_EVERY, WIDE_EXAMPLES,
+                              row_steps[i], block_ms, *bound, smi))
+        del blocks
+        times["b: block decode ms (wall)"] = predict_checks(
+            "(b)", dataset, params, config, out, em, inputs, decode, sync,
+            WIDE_EXAMPLES)
+
+        # (c) The bf16 decodes and the float32 step decode (kernel 1).
+        _, bf16_times = bf16_decodes(params, config, inputs, dataset, indices,
+                                     out, plain_out, em, sync, flips=None,
+                                     label="(c) ")
+        zero_counts()
+        step = greedy.make_greedy_decoder(config, MAX_DECODING_STEPS,
+                                          EXIT_CHECK_EVERY, decode_impl="step")
+        begin = time.perf_counter()
+        with torch.no_grad():
+            step_out = step(params, *inputs)
+        sync()
+        step_ms = (time.perf_counter() - begin) * 1e3
+        print("(c) float32 step decode: kernel 1 launches {}, kernel 2 {}; "
+              "{:.3f} ms (one run, wall clock); {}".format(
+                  k1.launches, k2.launches, step_ms, smi))
+        require(k1.launches > 0 and k2.launches == 0,
+                "(c): the step decode did not run kernel 1 alone")
+        check_divergences("(c) step decode vs plain",
+                          decode_divergences(step_out, plain_out,
+                                             WIDE_EXAMPLES))
+        times.update({"c: {} decode ms (wall)".format(d): t
+                      for d, t in bf16_times.items()})
+        times["c: float32 step decode ms (wall)"] = step_ms
+        del step_out
+
+        # (d) The campaign, each seed against its single-seed run (C.14).
+        _, bits = campaign_against_singles(
+            "(d) H = {} campaign".format(h), root / "d", WIDE_SEEDS, 2 * k,
+            k, sync, max_testing_examples=WIDE_EXAMPLES,
+            evaluation_batch_size=WIDE_EXAMPLES, **width)
+        require(bits, "(d): a campaign seed is not bit for bit its "
+                "single-seed run")
+
+        # (e) Data parallel at one rank (C.14).
+        times["e: unsharded decode ms (wall)"] = data_parallel_one_rank(
+            train_set, config, pre_state, k, params, config, inputs, out,
+            sync, label="(e) H = {} one-rank NCCL mesh".format(h))
+
+        # (f) The command line.
+        times["f: --mode=train s"], times["f: --mode=test s"] = cli_checks(
+            "(f) cli", dataset, config, sync, pre_path, WIDE_PRETRAIN,
+            WIDE_PRETRAIN + k, k, k, WIDE_EXAMPLES, WIDE_EXAMPLES,
+            flags=["--encoder_hidden_size={}".format(h),
+                   "--decoder_hidden_size={}".format(h)], test_best=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("wide decoder at H = {}, times: {}; {}".format(
+        h, json.dumps(times), smi))
+
+
 def as_bf16(args, small):
     """Kernel 1's arguments with the keys in bf16 and the queries, mask and
     energy vector in ``small``."""
@@ -1424,21 +1839,27 @@ def as_bf16(args, small):
 
 
 def bf16_decodes(params, config, inputs, dataset, indices, f32_out,
-                 plain_out, em_f32, sync):
-    """The fixture's BATCH dev examples through each bf16 decode variant
-    (the step path, whose attentions are kernel 1's bf16 form): exact match
-    and the rows whose tokens differ from the float32 decode, each with the
-    float32 plain decode's top-2 logit gap at the first differing step.
-    Each variant may change only rows that the JAX package's decode of the
-    same variant changes on the CPU (``JAX_BF16_FLIPS``). Each variant must
-    launch kernel 1's bf16 form, and neither its float32 form nor kernel 2;
-    the counts are set to 0 before each variant and read after it. Returns
-    the bf16 form's launches over the three decodes."""
+                 plain_out, em_f32, sync, flips=JAX_BF16_FLIPS, label=""):
+    """The rows ``indices`` of ``dataset`` (``inputs``) through each bf16
+    decode variant (the step path, whose attentions are kernel 1's bf16
+    form): exact match and the rows whose tokens differ from the float32
+    decode ``f32_out``, each with the float32 plain decode's (``plain_out``)
+    top-2 logit gap at the first differing step. With ``flips``, each
+    variant may change only rows that the JAX package's decode of the same
+    variant changes on the CPU. Without, each variant is held to the same
+    decode with kernel 1 swapped for its plain version on the same bf16
+    inputs: its tokens may differ only at that decode's argmax near-ties
+    (``bf16_near_ties``). Each variant must launch kernel 1's bf16 form, and
+    neither its float32 form nor kernel 2 (the plain run none); the counts
+    are set to 0 before each variant and read after it. Returns the bf16
+    form's launches over the three decodes and each variant's wall-clock
+    ms."""
     import torch
     from multimodal_seq2seq_gscan_tpu_torch.decode import greedy
     from multimodal_seq2seq_gscan_tpu_torch.ops import additive_attention as k1
     from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
-    launches = 0
+    rows_in = len(indices)
+    launches, times = 0, {}
     for dtype in ("bfloat16", "bfloat16_mixed", "bfloat16_keys"):
         k1.launches, k1.launches_bf16, k2.launches = 0, 0, 0
         decode = greedy.make_greedy_decoder(
@@ -1447,13 +1868,14 @@ def bf16_decodes(params, config, inputs, dataset, indices, f32_out,
         start = time.perf_counter()
         out = decode(params, *inputs)
         sync()
-        ms = (time.perf_counter() - start) * 1e3
-        require(tuple(out.tokens.shape) == (BATCH, MAX_DECODING_STEPS + 1)
+        times[dtype] = ms = (time.perf_counter() - start) * 1e3
+        counts = (k1.launches_bf16, k1.launches, k2.launches)
+        require(tuple(out.tokens.shape) == (rows_in, MAX_DECODING_STEPS + 1)
                 and out.attention_situations.dtype == torch.float32
                 and bool(torch.isfinite(out.attention_commands).all())
                 and bool(torch.isfinite(out.attention_situations).all()),
-                "{} decode: outputs of the wrong shape, dtype or not "
-                "finite".format(dtype))
+                "{}{} decode: outputs of the wrong shape, dtype or not "
+                "finite".format(label, dtype))
         emitted, ref_emitted = out.emitted_mask > 0, f32_out.emitted_mask > 0
         differ = (((out.tokens * emitted) != (f32_out.tokens * ref_emitted))
                   | (emitted != ref_emitted)).any(dim=1)
@@ -1461,40 +1883,98 @@ def bf16_decodes(params, config, inputs, dataset, indices, f32_out,
         gaps = divergences(out.tokens, out.emitted_mask, plain_out.tokens,
                            plain_out.emitted_mask, plain_out.top2_gap)
         em = exact_match(out, dataset, indices, config.target_eos_idx)
-        print("{} decode ({:.3f} ms, one run, wall clock): exact match "
+        print("{}{} decode ({:.3f} ms, one run, wall clock): exact match "
               "{:.4f}% (float32 {:.4f}%); {} of {} rows differ from the "
               "float32 decode; against the float32 plain decode (row, first "
               "differing step, its top-2 logit gap): {}".format(
-                  dtype, ms, em, em_f32, len(rows), BATCH, gaps[:40]))
-        require(set(rows) <= set(JAX_BF16_FLIPS[dtype]),
-                "{} decode: rows {} differ from float32; the JAX package's "
-                "decode changes only {}".format(dtype, rows,
-                                                JAX_BF16_FLIPS[dtype]))
-        print("launches, {} decode: kernel 1's bf16 form {}, its float32 "
-              "form {}, kernel 2 {}".format(dtype, k1.launches_bf16,
-                                            k1.launches, k2.launches))
-        require(k1.launches_bf16 > 0 and k1.launches == 0
-                and k2.launches == 0,
-                "the {} decode did not run kernel 1's bf16 form alone".format(
-                    dtype))
-        launches += k1.launches_bf16
-    return launches
+                  label, dtype, ms, em, em_f32, len(rows), rows_in,
+                  gaps[:40]))
+        if flips is None:
+            bf16_near_ties(label + dtype, decode, params, inputs, out,
+                           bf16_state=dtype != "bfloat16_keys")
+        else:
+            require(set(rows) <= set(flips[dtype]),
+                    "{} decode: rows {} differ from float32; the JAX "
+                    "package's decode changes only {}".format(
+                        dtype, rows, flips[dtype]))
+        print("launches, {}{} decode: kernel 1's bf16 form {}, its float32 "
+              "form {}, kernel 2 {}".format(label, dtype, *counts))
+        require(counts[0] > 0 and counts[1] == 0 and counts[2] == 0,
+                "the {}{} decode did not run kernel 1's bf16 form "
+                "alone".format(label, dtype))
+        launches += counts[0]
+    return launches, times
 
 
-def cli_checks(dataset, decoded, eos_idx, sync):
+def bf16_near_ties(label, decode, params, inputs, out, bf16_state):
+    """Holds a bf16 step decode's output ``out`` to ``decode`` run again
+    with kernel 1 swapped for its plain version (same bf16 inputs, which it
+    widens to float32 as the kernel does), recording that run's top-2
+    logit gap at every step: a row may differ only where that gap, at the
+    first differing step, is below NEAR_TIE, or (``bf16_state``: the loop's
+    h and c in bf16) below two bf16 spacings of the top logit, the most
+    that rounding one bf16 logit can move two apart. Prints every
+    differing row."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.decode import greedy
+    from multimodal_seq2seq_gscan_tpu_torch.ops import additive_attention as k1
+    step_gaps, step_bars = [], []
+
+    def recording_step(*args, **kwargs):
+        result = greedy_step(*args, **kwargs)
+        top = result[0].float().topk(2, dim=-1).values
+        step_gaps.append(top[:, 0] - top[:, 1])
+        spacing = torch.exp2(torch.floor(torch.log2(top[:, 0].abs())) - 7)
+        step_bars.append(torch.clamp(2 * spacing, min=NEAR_TIE) if bf16_state
+                         else torch.full_like(spacing, NEAR_TIE))
+        return result
+
+    greedy_step = greedy.decoder_step
+    k1.launches, k1.launches_bf16 = 0, 0
+    with patched(k1, "additive_attention", k1.additive_attention_plain), \
+            patched(greedy, "decoder_step", recording_step):
+        ref = decode(params, *inputs)
+    require(k1.launches == k1.launches_bf16 == 0, "{}: the plain "
+            "attention's decode launched kernel 1".format(label))
+    pad = ref.tokens.shape[1] - len(step_gaps)
+    gap, bar = (torch.nn.functional.pad(torch.stack(x, dim=1), (0, pad),
+                                        value=float("inf"))
+                for x in (step_gaps, step_bars))
+    found = divergences(out.tokens, out.emitted_mask, ref.tokens,
+                        ref.emitted_mask, gap)
+    faults = [(row, step, g) for row, step, g in found
+              if g >= float(bar[row, step])]
+    print("{} decode vs the same decode on kernel 1's plain version: {} "
+          "rows differ (row, first differing step, top-2 gap, tie bar): "
+          "{}".format(label, len(found), [
+              (row, step, g, float(bar[row, step]))
+              for row, step, g in found]))
+    require(not faults, "{}: tokens differ from the plain attention's "
+            "decode away from a near-tie: {}".format(label, faults))
+
+
+def cli_checks(label, dataset, config, sync, resume, start, last, k,
+               evaluate_every, examples, test_batch, flags=(), words=None,
+               min_exact=None, test_best=False):
     """The port's command line in process on the card
-    (``cli.seq2seq.main``): ``--mode=train`` resumed from the fixture to
-    iteration 200020 in graphed chunks of RESIDENT_K steps (kernels 3, 4
-    and the helper) with a dev evaluation of STEP_EXAMPLES examples (kernel
-    2), then ``--mode=test`` writing ``dev_predict.json`` for the first
-    STEP_EXAMPLES dev examples, decoded at the decode phase's batch, whose
-    predictions must be the decode phase's."""
+    (``cli.seq2seq.main``, ``flags`` beside the common ones):
+    ``--mode=train`` resumed from ``resume`` (at iteration ``start``) to
+    iteration ``last`` in graphed chunks of ``k`` steps (kernels 3, 4 and
+    the helper) with a dev evaluation of ``examples`` examples every
+    ``evaluate_every`` (kernel 2), the last above ``min_exact`` where
+    given; then ``--mode=test`` on ``resume`` (with ``test_best``, on the
+    run's model_best) writing ``dev_predict.json`` for the first
+    ``examples`` dev examples at batch ``test_batch``: byte for byte the
+    in-process ``predict_and_save`` of that checkpoint (model ``config``),
+    and with ``words``, those predictions."""
     import logging
     from multimodal_seq2seq_gscan_tpu_torch.cli import seq2seq
-    from multimodal_seq2seq_gscan_tpu_torch.decode.greedy import (
-        strip_output_sequences)
+    from multimodal_seq2seq_gscan_tpu_torch.decode.predict import (
+        predict_and_save)
     from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
     from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    from multimodal_seq2seq_gscan_tpu_torch.train.checkpoint import (
+        load_params)
 
     class Lines(logging.Handler):
         def __init__(self):
@@ -1514,69 +1994,83 @@ def cli_checks(dataset, decoded, eos_idx, sync):
     out_dir = tempfile.mkdtemp(prefix="gscan_chip_smoke_cli_")
     common = ["--data_directory=" + str(FIXTURE),
               "--output_directory=" + out_dir,
-              "--resume_from_file=" + str(FIXTURE / "model_best.msgpack"),
               "--max_decoding_steps={}".format(MAX_DECODING_STEPS),
-              "--max_testing_examples={}".format(STEP_EXAMPLES),
-              "--seed={}".format(SEED)]
+              "--max_testing_examples={}".format(examples),
+              "--seed={}".format(SEED)] + list(flags)
     try:
         k2.launches = 0
         tf.launches.update({name: 0 for name in tf.launches})
-        start = time.perf_counter()
+        begin = time.perf_counter()
         seq2seq.main(vars(seq2seq.build_parser().parse_args(
-            ["--mode=train"] + common + [
+            ["--mode=train", "--resume_from_file=" + resume] + common + [
                 "--training_batch_size={}".format(TRAIN_BATCH),
-                "--test_batch_size={}".format(STEP_EXAMPLES),
-                "--max_training_iterations=200020",
-                "--print_every={}".format(RESIDENT_K),
-                "--evaluate_every={}".format(2 * RESIDENT_K),
-                "--steps_per_execution={}".format(RESIDENT_K)])),
-            device=DEVICE)
+                "--test_batch_size={}".format(examples),
+                "--max_training_iterations={}".format(last),
+                "--print_every={}".format(k),
+                "--evaluate_every={}".format(evaluate_every),
+                "--steps_per_execution={}".format(k)])), device=DEVICE)
         sync()
-        train_s = time.perf_counter() - start
+        train_s = time.perf_counter() - begin
         launches = dict(tf.launches, decode_block=k2.launches)
         with open(os.path.join(out_dir, "checkpoint.msgpack.json")) as f:
             meta = json.load(f)
+        tested = (os.path.join(out_dir, "model_best.msgpack") if test_best
+                  else resume)
+        require(os.path.exists(tested), "{} --mode=train wrote no "
+                "model_best: {}".format(label, sorted(os.listdir(out_dir))))
         k2.launches = 0
-        start = time.perf_counter()
+        begin = time.perf_counter()
         seq2seq.main(vars(seq2seq.build_parser().parse_args(
-            ["--mode=test"] + common + [
-                "--splits=dev", "--test_batch_size={}".format(BATCH)])),
+            ["--mode=test", "--resume_from_file=" + tested] + common + [
+                "--splits=dev", "--test_batch_size={}".format(test_batch)])),
             device=DEVICE)
         sync()
-        test_s = time.perf_counter() - start
+        test_s = time.perf_counter() - begin
         launches_test = k2.launches
-        with open(os.path.join(out_dir, "dev_predict.json")) as f:
-            written = json.load(f)
+        in_process = os.path.join(out_dir, "in_process_predict.json")
+        predict_and_save(dataset, load_params(tested, device=DEVICE), config,
+                         in_process, MAX_DECODING_STEPS,
+                         batch_size=test_batch,
+                         max_testing_examples=examples, device=DEVICE)
+        with open(os.path.join(out_dir, "dev_predict.json"), "rb") as f:
+            raw = f.read()
+        with open(in_process, "rb") as f:
+            equal = raw == f.read()
+        written = json.loads(raw)
     finally:
         loop_logger.removeHandler(lines)
         loop_logger.setLevel(level)
         shutil.rmtree(out_dir, ignore_errors=True)
     for line in lines.lines:
-        print("cli: " + line)
-    print("cli --mode=train: {:.2f} s, checkpoint meta {}; launches (kernels "
+        print("{}: {}".format(label, line))
+    print("{} --mode=train: {:.2f} s, checkpoint meta {}; launches (kernels "
           "3, 4 and the helper: warm-up, capture and single steps) "
-          "{}".format(train_s, meta, launches))
+          "{}".format(label, train_s, meta, launches))
     evaluations = [line for line in lines.lines
                    if "Evaluation Accuracy" in line]
     require(all(count > 0 for count in launches.values()),
-            "a kernel of the CLI's training path was not launched")
-    require(meta["iteration"] == 200021 and len(evaluations) == 2,
-            "cli --mode=train: meta {}, evaluations {}".format(
-                meta, evaluations))
+            "{}: a kernel of the training path was not launched".format(
+                label))
+    require(meta["iteration"] == last + 1 and len(evaluations) == len(
+        range(start, last + 1, evaluate_every)),
+        "{} --mode=train: meta {}, evaluations {}".format(label, meta,
+                                                         evaluations))
     exact = float(evaluations[-1].split("Exact Match:")[1].split()[0])
-    require(exact > 90.0, "cli --mode=train: dev exact match {}".format(
-        exact))
-    sequences, _ = strip_output_sequences(decoded, eos_idx)
-    words = [dataset.array_to_sentence(seq, "target")
-             for seq in sequences[:STEP_EXAMPLES]]
-    same = sum(record["prediction"] == w for record, w in zip(written,
-                                                                words))
-    print("cli --mode=test: {:.2f} s, {} records, kernel 2 launches {}; {} "
-          "of {} predictions equal the decode phase's".format(
-              test_s, len(written), launches_test, same, STEP_EXAMPLES))
-    require(launches_test > 0, "cli --mode=test did not launch kernel 2")
-    require(len(written) == STEP_EXAMPLES and same == STEP_EXAMPLES,
-            "cli --mode=test: predictions differ from the decode phase")
+    require(min_exact is None or exact > min_exact,
+            "{} --mode=train: dev exact match {}".format(label, exact))
+    same = len(written) if words is None else sum(
+        record["prediction"] == w for record, w in zip(written, words))
+    print("{} --mode=test: {:.2f} s, {} records, kernel 2 launches {}; "
+          "dev_predict.json against the in-process predict_and_save: "
+          "{}{}".format(label, test_s, len(written), launches_test,
+                        "byte for byte" if equal else "DIFFER",
+                        "" if words is None else "; {} of {} predictions "
+                        "equal the decode's".format(same, examples)))
+    require(launches_test > 0, "{} --mode=test did not launch kernel "
+            "2".format(label))
+    require(equal and len(written) == same == examples,
+            "{} --mode=test: dev_predict.json differs".format(label))
+    return train_s, test_s
 
 
 def two_layer_checks(train_set, config, sync):
@@ -1669,104 +2163,128 @@ def hold_events(label, got, want):
     return same
 
 
+def train_run(root, out, steps, sync, **options):
+    """``train()`` on the fixture for ``steps`` steps into ``root/out`` in
+    graphed chunks (``options`` complete or override the batch, periods,
+    chunk size and evaluation of the multi-seed phase); returns (state,
+    logged events, wall seconds)."""
+    from multimodal_seq2seq_gscan_tpu_torch.train.loop import train
+    events = []
+    start = time.perf_counter()
+    state, _ = train(str(FIXTURE / "dataset.txt"), str(FIXTURE),
+                     output_directory=str(root / out),
+                     max_training_iterations=steps,
+                     callback=lambda *event: events.append(event),
+                     **dict(dict(training_batch_size=TRAIN_BATCH,
+                                 print_every=MULTISEED_K,
+                                 evaluate_every=MULTISEED_K,
+                                 steps_per_execution=MULTISEED_K,
+                                 max_testing_examples=STEP_EXAMPLES,
+                                 evaluation_batch_size=STEP_EXAMPLES,
+                                 device=DEVICE), **options))
+    sync()
+    return state, events, time.perf_counter() - start
+
+
+def campaign_against_singles(label, root, seeds, steps, k, sync,
+                             **options):
+    """``train(seeds=...)`` of ``seeds`` for ``steps`` steps in graphed
+    chunks of ``k`` (one graph runs each seed's chunk in turn), a dev
+    evaluation per seed through kernel 2 after each chunk, into
+    ``root/campaign``, its launches counted (kernels 3, 4, the helper and
+    2 required); then each seed held against a single-seed
+    ``train(seed=s)`` of the same steps: params, moments, logged metrics
+    and checkpoint files. Returns (the campaign's stacked state, whether
+    every seed was bit for bit its single-seed run)."""
+    import filecmp
+    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    from multimodal_seq2seq_gscan_tpu_torch.train import multiseed
+    options = dict(options, print_every=k, evaluate_every=k,
+                   steps_per_execution=k)
+    listed = ",".join(str(s) for s in seeds)
+    k2.launches = 0
+    tf.launches.update({name: 0 for name in tf.launches})
+    stacked, events, campaign_s = train_run(root, "campaign", steps, sync,
+                                            seeds=listed, **options)
+    launches = dict(tf.launches, decode_block=k2.launches)
+    print("{} of seeds {} ({} steps, K={}): {:.2f} s; launches (kernels "
+          "3, 4 and the helper: warm-up and capture; kernel 2: the dev "
+          "evaluations) {}".format(label, listed, steps, k, campaign_s,
+                                   launches))
+    require(all(count > 0 for count in launches.values()),
+            "a kernel of the {}'s path was not launched".format(label))
+    for kind, it, values in events:
+        print("{} {} {} [seed {}]: {}".format(
+            label, kind, it, values["seed"], ", ".join(
+                "{} {:.6g}".format(name, v) for name, v in values.items()
+                if name != "seed")))
+    evaluations = [(it, v["seed"]) for kind, it, v in events
+                   if kind == "eval"]
+    require(evaluations == [(it, s) for it in range(k, steps + 1, k)
+                            for s in seeds],
+            "{} evaluations: {}".format(label, evaluations))
+    require(all(math.isfinite(v["loss"]) for kind, _, v in events
+                if kind == "train"), "{} losses are not finite".format(
+                    label))
+    bars = []
+    for i, s in enumerate(seeds):
+        single, single_events, single_s = train_run(
+            root, "single_{}".format(s), steps, sync, seed=s, **options)
+        seed_label = "{}, seed {}: campaign vs train(seed={}) ({:.2f} " \
+            "s)".format(label, s, s, single_s)
+        same = hold_states(seed_label, multiseed.slice_train_state(
+            stacked, i), single)
+        same &= hold_events(seed_label, [e for e in events
+                                         if e[2]["seed"] == s],
+                            single_events)
+        files = sorted(os.listdir(root / "single_{}".format(s)))
+        require(files == sorted(os.listdir(
+            root / "campaign" / "seed_{}".format(s))),
+            "{}: the files differ".format(seed_label))
+        equal_bytes = all(filecmp.cmp(
+            root / "single_{}".format(s) / name,
+            root / "campaign" / "seed_{}".format(s) / name,
+            shallow=False) for name in files)
+        require(equal_bytes or not same,
+                "{}: bit-identical states, different files".format(
+                    seed_label))
+        print("{}: files {} {}".format(seed_label, files, "byte-equal"
+                                       if equal_bytes else "differ"))
+        bars.append(same)
+    print("{}: bar held: {}".format(label, (
+        "bit for bit (every seed)" if all(bars) else
+        "the resident bars (metrics rtol 2e-5 / atol 1e-6, params and "
+        "moments atol 1e-6)")))
+    return stacked, all(bars)
+
+
 def multiseed_checks(train_set, config, sync):
     """The multi-seed campaign on the card, fresh from each seed's init at
     the flagship width: (a) ``train(seeds=...)`` of MULTISEED_SEEDS for
-    MULTISEED_STEPS steps in graphed chunks of MULTISEED_K (one graph runs
-    each seed's chunk in turn), a dev evaluation of STEP_EXAMPLES examples
-    per seed through kernel 2 after each chunk, into ``seed_<s>/``; (b)
-    each seed held against a single-seed ``train(seed=s)`` of the same
-    steps: params, moments, logged metrics and checkpoint files; (c) a
-    campaign run by the command line's ``--seeds`` to its first chunk and
-    resumed by ``train``, held against the uninterrupted one; (d) ms per step per seed of the campaign's graph
-    against one seed's graphed chunk and against the seeds' single-seed
-    graphs replayed in turn, with the device busy share (torch.profiler)."""
-    import filecmp
+    MULTISEED_STEPS steps in graphed chunks of MULTISEED_K, a dev
+    evaluation of STEP_EXAMPLES examples per seed after each chunk, each
+    seed held against a single-seed ``train(seed=s)`` of the same steps
+    (``campaign_against_singles``); (b) a campaign run by the command
+    line's ``--seeds`` to its first chunk and resumed by ``train``, held
+    against the uninterrupted one; (c) ms per step per seed of the
+    campaign's graph against one seed's graphed chunk and against the
+    seeds' single-seed graphs replayed in turn, with the device busy share
+    (torch.profiler)."""
     import numpy as np
     import torch
     from multimodal_seq2seq_gscan_tpu_torch.cli import seq2seq
-    from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
-    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
     from multimodal_seq2seq_gscan_tpu_torch.train import multiseed, resident
-    from multimodal_seq2seq_gscan_tpu_torch.train.loop import train
     from multimodal_seq2seq_gscan_tpu_torch.train.state import (
         Adam, create_train_state)
     seeds = ",".join(str(s) for s in MULTISEED_SEEDS)
-    common = dict(training_batch_size=TRAIN_BATCH,
-                  print_every=MULTISEED_K, evaluate_every=MULTISEED_K,
-                  steps_per_execution=MULTISEED_K,
-                  max_testing_examples=STEP_EXAMPLES,
-                  evaluation_batch_size=STEP_EXAMPLES, device=DEVICE)
     root = Path(tempfile.mkdtemp(prefix="gscan_chip_smoke_multiseed_"))
-
-    def run(out, steps, **options):
-        events = []
-        start = time.perf_counter()
-        state, _ = train(str(FIXTURE / "dataset.txt"), str(FIXTURE),
-                         output_directory=str(root / out),
-                         max_training_iterations=steps,
-                         callback=lambda *event: events.append(event),
-                         **dict(common, **options))
-        sync()
-        return state, events, time.perf_counter() - start
-
     try:
-        # (a) The campaign, its launches counted.
-        k2.launches = 0
-        tf.launches.update({name: 0 for name in tf.launches})
-        stacked, events, campaign_s = run("campaign", MULTISEED_STEPS,
-                                          seeds=seeds)
-        launches = dict(tf.launches, decode_block=k2.launches)
-        print("campaign of seeds {} ({} steps, K={}): {:.2f} s; launches "
-              "(kernels 3, 4 and the helper: warm-up and capture; kernel "
-              "2: the dev evaluations) {}".format(
-                  seeds, MULTISEED_STEPS, MULTISEED_K, campaign_s, launches))
-        require(all(count > 0 for count in launches.values()),
-                "a kernel of the campaign's path was not launched")
-        for kind, it, values in events:
-            print("campaign {} {} [seed {}]: {}".format(
-                kind, it, values["seed"], ", ".join(
-                    "{} {:.6g}".format(k, v) for k, v in values.items()
-                    if k != "seed")))
-        evaluations = [(it, v["seed"]) for kind, it, v in events
-                       if kind == "eval"]
-        require(evaluations == [(it, s) for it in range(
-            MULTISEED_K, MULTISEED_STEPS + 1, MULTISEED_K)
-            for s in MULTISEED_SEEDS], "campaign evaluations: {}".format(
-                evaluations))
-        require(all(math.isfinite(v["loss"]) for kind, _, v in events
-                    if kind == "train"), "campaign losses are not finite")
-        # (b) Each seed against its single-seed run.
-        bars = []
-        for i, s in enumerate(MULTISEED_SEEDS):
-            single, single_events, single_s = run("single_{}".format(s),
-                                                  MULTISEED_STEPS, seed=s)
-            label = "seed {}: campaign vs train(seed={}) ({:.2f} s)".format(
-                s, s, single_s)
-            same = hold_states(label, multiseed.slice_train_state(
-                stacked, i), single)
-            same &= hold_events(label, [e for e in events
-                                        if e[2]["seed"] == s],
-                                single_events)
-            files = sorted(os.listdir(root / "single_{}".format(s)))
-            require(files == sorted(os.listdir(
-                root / "campaign" / "seed_{}".format(s))),
-                "{}: the files differ".format(label))
-            equal_bytes = all(filecmp.cmp(
-                root / "single_{}".format(s) / name,
-                root / "campaign" / "seed_{}".format(s) / name,
-                shallow=False) for name in files)
-            require(equal_bytes or not same,
-                    "{}: bit-identical states, different files".format(
-                        label))
-            print("{}: files {} {}".format(label, files, "byte-equal"
-                                           if equal_bytes else "differ"))
-            bars.append(same)
-        print("multi-seed bar held: {}".format(
-            "bit for bit (every seed)" if all(bars) else
-            "the resident bars (metrics rtol 2e-5 / atol 1e-6, params and "
-            "moments atol 1e-6)"))
-        # (c) Stopped after the first chunk (through the command line's
+        # (a) The campaign against its seeds' single runs.
+        stacked, _ = campaign_against_singles(
+            "campaign", root, MULTISEED_SEEDS, MULTISEED_STEPS, MULTISEED_K,
+            sync)
+        # (b) Stopped after the first chunk (through the command line's
         # --seeds), resumed through train().
         seq2seq.main(vars(seq2seq.build_parser().parse_args([
             "--mode=train", "--data_directory=" + str(FIXTURE),
@@ -1781,8 +2299,9 @@ def multiseed_checks(train_set, config, sync):
             "--test_batch_size={}".format(STEP_EXAMPLES),
             "--max_decoding_steps={}".format(MAX_DECODING_STEPS)])),
             device=DEVICE)
-        resumed, _, resumed_s = run("resumed", MULTISEED_STEPS, seeds=seeds,
-                                    resume_from_file=str(root / "resumed"))
+        resumed, _, resumed_s = train_run(
+            root, "resumed", MULTISEED_STEPS, sync, seeds=seeds,
+            resume_from_file=str(root / "resumed"))
         same = [hold_states(
             "seed {}: resumed campaign vs uninterrupted ({:.2f} s)".format(
                 s, resumed_s), multiseed.slice_train_state(resumed, i),
@@ -1794,7 +2313,7 @@ def multiseed_checks(train_set, config, sync):
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    # (d) Times: the campaign's graph against the seeds' single graphs.
+    # (c) Times: the campaign's graph against the seeds' single graphs.
     optimizer = Adam()
     data = resident.build_resident_data(train_set, DEVICE)
     states = [create_train_state(s, config, optimizer, device=DEVICE)
@@ -2259,15 +2778,15 @@ def engine_checks(sync):
         {name: round(value, 3) for name, value in times.items()}))
 
 
-def data_parallel_one_rank(train_set, train_config, params, config, inputs,
-                           decoded, sync):
+def data_parallel_one_rank(train_set, train_config, start, k, params, config,
+                           inputs, decoded, sync, label="one-rank NCCL mesh"):
     """Phase (a) of "main path: data parallel", in this process: a one-rank
-    NCCL group (a file store). A resident chunk of RESIDENT_K graphed
-    steps at batch TRAIN_BATCH from the fixture checkpoint, its CUDA graph
-    holding the sharded step's all-reduces, against the unsharded graphed
-    chunk: params, moments and metrics bit for bit. Then the sharded
-    decode of the BATCH dev examples through kernel 2: the decode phase's
-    tokens, bit for bit. Prints each part's wall time beside the
+    NCCL group (a file store). A resident chunk of ``k`` graphed steps at
+    batch TRAIN_BATCH from the state ``start``, its CUDA graph holding the
+    sharded step's all-reduces, against the unsharded graphed chunk:
+    params, moments and metrics bit for bit. Then the sharded decode of
+    ``inputs`` through kernel 2 (``params``, ``config``): ``decoded``'s
+    outputs, bit for bit. Prints each part's wall time beside the
     unsharded one's; returns the unsharded decode's (ms)."""
     import numpy as np
     import torch
@@ -2278,8 +2797,6 @@ def data_parallel_one_rank(train_set, train_config, params, config, inputs,
     from multimodal_seq2seq_gscan_tpu_torch.parallel.mesh import (
         make_mesh, shard_batch)
     from multimodal_seq2seq_gscan_tpu_torch.train import resident
-    from multimodal_seq2seq_gscan_tpu_torch.train.checkpoint import (
-        load_checkpoint)
     from multimodal_seq2seq_gscan_tpu_torch.train.state import Adam
     store = tempfile.mkdtemp(prefix="gscan_chip_smoke_nccl_")
     dist.init_process_group("nccl", init_method="file://" + os.path.join(
@@ -2289,18 +2806,15 @@ def data_parallel_one_rank(train_set, train_config, params, config, inputs,
         require(mesh.backend == "nccl" and mesh.shape == (1, 1),
                 "mesh {} over {}".format(mesh.shape, mesh.backend))
         optimizer = Adam()
-        start, _ = load_checkpoint(str(FIXTURE / "model_best.msgpack"),
-                                   device=DEVICE)
         data = resident.build_resident_data(train_set, DEVICE)
         block = next(resident.index_block_stream(
-            data.num_examples, TRAIN_BATCH, RESIDENT_K,
-            np.random.default_rng(SEED)))
+            data.num_examples, TRAIN_BATCH, k, np.random.default_rng(SEED)))
         chunks = {"sharded": resident.make_train_chunk(
             train_config, optimizer, mesh=mesh),
             "unsharded": resident.make_train_chunk(train_config, optimizer)}
         results, first_s, launches = {}, {}, {}
         for name, chunk in chunks.items():
-            tf.launches.update({k: 0 for k in tf.launches})
+            tf.launches.update({kernel: 0 for kernel in tf.launches})
             begin = time.perf_counter()
             results[name] = chunk(start, data, block)
             sync()
@@ -2308,33 +2822,31 @@ def data_parallel_one_rank(train_set, train_config, params, config, inputs,
             launches[name] = dict(tf.launches)
         (a, a_metrics), (b, b_metrics) = results["sharded"], \
             results["unsharded"]
-        same = (all(torch.equal(a_metrics[k], b_metrics[k])
-                    for k in resident.METRIC_NAMES)
+        same = (all(torch.equal(a_metrics[name], b_metrics[name])
+                    for name in resident.METRIC_NAMES)
                 and leaves_equal(a.params, b.params)
                 and leaves_equal(a.opt_state.mu, b.opt_state.mu)
                 and leaves_equal(a.opt_state.nu, b.opt_state.nu))
         replay_ms = {name: cuda_ms(lambda chunk=chunk: chunk(start, data,
                                                              block),
-                                   3, warmup=1) / RESIDENT_K
+                                   3, warmup=1) / k
                      for name, chunk in chunks.items()}
-        print("one-rank NCCL mesh, resident chunk (K={}, B={}): params, "
-              "moments and metrics against the unsharded chunk: {}; "
-              "losses {}".format(
-                  RESIDENT_K, TRAIN_BATCH,
+        print("{}, resident chunk (K={}, B={}): params, moments and metrics "
+              "against the unsharded chunk: {}; losses {}".format(
+                  label, k, TRAIN_BATCH,
                   "bit for bit" if same else "DIFFER",
                   ["{:.6f}".format(float(x)) for x in a_metrics["loss"]]))
-        print("one-rank NCCL mesh, resident chunk: first call (warm-up and "
-              "capture) {:.3f} s against the unsharded {:.3f} s; replay "
-              "{:.3f} ms a step against {:.3f} ms; launches while "
-              "captured: {} (unsharded {})".format(
-                  first_s["sharded"], first_s["unsharded"],
-                  replay_ms["sharded"], replay_ms["unsharded"],
-                  launches["sharded"], launches["unsharded"]))
-        require(same, "the one-rank NCCL chunk differs from the unsharded "
-                "chunk")
+        print("{}, resident chunk: first call (warm-up and capture) {:.3f} "
+              "s against the unsharded {:.3f} s; replay {:.3f} ms a step "
+              "against {:.3f} ms; launches while captured: {} (unsharded "
+              "{})".format(label, first_s["sharded"], first_s["unsharded"],
+                           replay_ms["sharded"], replay_ms["unsharded"],
+                           launches["sharded"], launches["unsharded"]))
+        require(same, "{}: the chunk differs from the unsharded "
+                "chunk".format(label))
         require(all(count > 0 for count in launches["sharded"].values()),
-                "a teacher-forced kernel was not launched in the sharded "
-                "chunk")
+                "{}: a teacher-forced kernel was not launched in the sharded "
+                "chunk".format(label))
         decode = greedy.make_greedy_decoder(
             config, MAX_DECODING_STEPS, EXIT_CHECK_EVERY,
             decode_impl="block", mesh=mesh)
@@ -2351,19 +2863,20 @@ def data_parallel_one_rank(train_set, train_config, params, config, inputs,
             fn(params, *inputs)
             sync()
             times[name] = (time.perf_counter() - begin) * 1e3
-        same = all(torch.equal(getattr(out, k), getattr(decoded, k))
-                   for k in ("tokens", "emitted_mask", "lengths",
-                             "attention_commands", "attention_situations"))
-        print("one-rank NCCL mesh, decode of {} (kernel 2, {} launches): "
-              "every output against the decode phase's: {}; {:.3f} ms "
-              "against the unsharded {:.3f} ms (wall clock)".format(
-                  BATCH, launches_decode,
+        same = all(torch.equal(getattr(out, name), getattr(decoded, name))
+                   for name in ("tokens", "emitted_mask", "lengths",
+                                "attention_commands",
+                                "attention_situations"))
+        print("{}, decode of {} (kernel 2, {} launches): every output "
+              "against the unsharded decode's: {}; {:.3f} ms against the "
+              "unsharded {:.3f} ms (wall clock)".format(
+                  label, len(inputs[0]), launches_decode,
                   "bit for bit" if same else "DIFFER", times["sharded"],
                   times["unsharded"]))
-        require(launches_decode > 0, "the sharded decode did not launch "
-                "kernel 2")
-        require(same, "the one-rank sharded decode differs from the decode "
-                "phase's")
+        require(launches_decode > 0, "{}: the sharded decode did not launch "
+                "kernel 2".format(label))
+        require(same, "{}: the sharded decode differs from the unsharded "
+                "decode".format(label))
         return times["unsharded"]
     finally:
         dist.destroy_process_group()
@@ -2740,11 +3253,16 @@ def main():
             full_float32():
         gen = torch.Generator(device=device).manual_seed(0)
         # Kernel 1, (a): the JAX attention test's inputs at a decoder step's
-        # two calls (M_t masked, M_v unmasked), with that test's bars.
+        # two calls (M_t masked, M_v unmasked), with that test's bars, at
+        # the fixture's H and at the wide decoder's (WIDE_TRAIN_H, from a
+        # generator of its own, so that the later draws are unchanged).
+        gen_wide = torch.Generator(device=device).manual_seed(2)
         attention_err = max(
-            hold_attention("additive_attention random M={} masked={}".format(
-                m, masked), random_attention_inputs(gen, device, BATCH, m,
-                                                    hidden, masked))
+            hold_attention("additive_attention random M={} H={} "
+                           "masked={}".format(m, h, masked),
+                           random_attention_inputs(g, device, BATCH, m, h,
+                                                   masked))
+            for g, h in ((gen, hidden), (gen_wide, WIDE_TRAIN_H))
             for m, masked in ((m_t, True), (m_v, False)))
 
         # Kernel 1, (b): the fixture's inputs of the first decoder step.
@@ -2769,9 +3287,10 @@ def main():
         # Kernel 1's bf16 form (bf16 keys; float32 queries, mask and energy
         # vector as in a bfloat16_keys decode, or bf16 as in a bfloat16
         # one) against its plain version on the same inputs: the JAX
-        # test's inputs at the decode's shapes and at W3's, at the float32
-        # form's bars and the float64 referee; the fixture's first decoder
-        # step, as the float32 form's, against float64.
+        # test's inputs at the decode's shapes, at W3's and at the wide
+        # decoder's, at the float32 form's bars and the float64 referee; the
+        # fixture's first decoder step, as the float32 form's, against
+        # float64.
         def bf16_label(args):
             return "additive_attention bf16 M={} H={} {} queries".format(
                 args[1].shape[1], args[1].shape[2],
@@ -2786,7 +3305,9 @@ def main():
                                                 h, masked), small)
                 for m, h, masked in ((m_t, hidden, True),
                                      (m_v, hidden, False), (72, 256, True),
-                                     (144, 256, False))
+                                     (144, 256, False),
+                                     (m_t, WIDE_TRAIN_H, True),
+                                     (m_v, WIDE_TRAIN_H, False))
                 for small in (torch.float32, torch.bfloat16)))
         for small in (torch.float32, torch.bfloat16):
             for args in attention_calls:
@@ -3038,13 +3559,14 @@ def main():
 
     with phase("main path: bf16 decodes of {} fixture dev examples".format(
             BATCH)), encoder_precision(tf32_seen):
-        launches_bf16 = bf16_decodes(params, config, inputs, dataset, indices,
-                                     kernel_out, plain_out, em_kernel, sync)
+        launches_bf16, _ = bf16_decodes(params, config, inputs, dataset,
+                                        indices, kernel_out, plain_out,
+                                        em_kernel, sync)
 
     with phase("main path: predict {} fixture dev examples".format(BATCH)), \
             encoder_precision(tf32_seen):
-        predict_checks(dataset, params, config, kernel_out, em_kernel,
-                       inputs, decode_kernel, sync)
+        predict_checks("predict", dataset, params, config, kernel_out,
+                       em_kernel, inputs, decode_kernel, sync, BATCH)
 
     with phase("main path: train {} steps at batch {} from the fixture "
                "checkpoint".format(TRAIN_STEPS, TRAIN_BATCH)), \
@@ -3192,9 +3714,19 @@ def main():
             encoder_precision(tf32_seen):
         wide_training_checks(train_set, sync)
 
+    with phase("main path: the wide decoder at H = {} through the entry "
+               "points".format(WIDE_TRAIN_H)), encoder_precision(tf32_seen):
+        wide_decoder_checks(train_set, dataset, smi, sync)
+
     with phase("main path: the command line, --mode=train and --mode=test"), \
             encoder_precision(tf32_seen):
-        cli_checks(dataset, kernel_out, config.target_eos_idx, sync)
+        cli_checks("cli", dataset, config, sync,
+                   str(FIXTURE / "model_best.msgpack"), 200000, 200020,
+                   RESIDENT_K, 2 * RESIDENT_K, STEP_EXAMPLES, BATCH,
+                   words=[dataset.array_to_sentence(seq, "target")
+                          for seq in greedy.strip_output_sequences(
+                              kernel_out, config.target_eos_idx)[0][
+                                  :STEP_EXAMPLES]], min_exact=90.0)
 
     with phase("main path: a two-layer decoder's resident chunk"), \
             encoder_precision(tf32_seen):
@@ -3207,8 +3739,9 @@ def main():
 
     with phase("main path: data parallel"), encoder_precision(tf32_seen):
         single_decode_ms = data_parallel_one_rank(
-            train_set, train_config, params, config, inputs, kernel_out,
-            sync)
+            train_set, train_config, load_checkpoint(
+                str(FIXTURE / "model_best.msgpack"), device=device)[0],
+            RESIDENT_K, params, config, inputs, kernel_out, sync)
         data_parallel_two_ranks(params, config, kernel_out, plain_out,
                                 single_train, single_decode_ms)
         dryrun_entry_check()

@@ -204,8 +204,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "lines run unchanged; the port's CUDA kernels "
                              "build once into build/torch_kernels/ instead.")
     parser.add_argument("--data_parallel", type=int, default=0,
-                        help="If > 1, train data-parallel over this many "
-                             "devices (not ported yet: refused).")
+                        help="If > 1, train (--mode=train) or decode "
+                             "(--mode=test) data-parallel over this many "
+                             "devices (mesh over the 'data' axis): one "
+                             "process a rank, one GPU a rank over NCCL, or "
+                             "gloo ranks when main() is given "
+                             "device='cpu' (parallel/launch.py).")
     parser.add_argument("--steps_per_execution", type=int, default=50,
                         help="Optimizer steps fused into one device call "
                              "(a CUDA graph of the chunk over device-resident "

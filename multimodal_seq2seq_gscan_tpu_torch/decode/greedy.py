@@ -8,9 +8,11 @@ per-example done flags. Steps run in blocks of ``exit_check_every``; after each
 block one host check of ``done.all()`` ends the loop early, and the blocks it
 skips leave zeros, as the JAX decoder's skipped blocks do.
 
-``decode_impl`` picks how a block runs:
-- ``"block"`` (default): one launch of kernel 2 (``ops/decode_block.py``)
-  per block on the card;
+``decode_impl`` picks how a block runs (unset: ``DEFAULT_DECODE_IMPL``, the
+one ``predict``, ``evaluate`` and the training loop's evaluation take, as
+in the JAX package):
+- ``"block"`` (the default): one launch of kernel 2
+  (``ops/decode_block.py``) per block on the card;
 - ``"block_plain"``: the same block through its plain PyTorch version, which
   also records every step's top-2 logit gap (``GreedyDecodeOutput.top2_gap``)
   so that a comparison can tell an argmax near-tie;
@@ -47,6 +49,7 @@ from multimodal_seq2seq_gscan_tpu_torch.parallel.mesh import (
 from multimodal_seq2seq_gscan_tpu_torch.utils.precision import full_float32
 
 DECODE_IMPLS = ("block", "block_plain", "step")
+DEFAULT_DECODE_IMPL = "block"
 COMPUTE_DTYPES = (None, "float32", "bfloat16", "bfloat16_mixed",
                   "bfloat16_keys")
 
@@ -75,7 +78,7 @@ class GreedyDecodeOutput(NamedTuple):
 
 def make_greedy_decoder(config: ModelConfig, max_decoding_steps: int,
                         exit_check_every: int = 32,
-                        decode_impl: str = "block",
+                        decode_impl: Optional[str] = None,
                         compute_dtype: Optional[str] = None,
                         mesh: Optional[Mesh] = None, gather: bool = True):
     """Build a batched greedy decoder ``decode(params, input_ids,
@@ -95,6 +98,8 @@ def make_greedy_decoder(config: ModelConfig, max_decoding_steps: int,
     rank in data order; with ``gather=False`` it is the rank's rows, for a
     caller that gathers only the fields it reads (``decode/predict.py``).
     """
+    if decode_impl is None:
+        decode_impl = DEFAULT_DECODE_IMPL
     if decode_impl not in DECODE_IMPLS:
         raise ValueError("decode_impl must be one of {}, got {!r}".format(
             DECODE_IMPLS, decode_impl))

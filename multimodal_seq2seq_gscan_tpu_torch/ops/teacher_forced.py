@@ -19,21 +19,29 @@ helper) and ``csrc/teacher_forced_grid.cu`` (the grid plans).
   stash in device memory, and a helper kernel
   (``teacher_forced_weight_grads``) forms the fourteen products, split over
   chunks of row-steps whose sums a second pass adds in chunk order.
-- Where the decoder's weight slices fit in shared memory (H up to ~105
-  for kernel 4 and ~116 for kernel 3 at M_t = 16, M_v = 36, the fixture's
-  H = 100 among them), both give each thread-block cluster (8 CTAs) a group
-  of 16 rows. Each CTA of a cluster keeps the column slices of the decoder
-  weights for its share of the hidden units in shared memory for the whole
-  walk (kernel 3 also its rows' keys where they fit); the CTAs exchange
-  activations and partial sums through distributed shared memory and add
-  them in rank order.
-- Past those widths both run a grid plan (``csrc/teacher_forced_grid.cu``):
-  one persistent cooperative kernel of one CTA per SM walks all T steps,
-  every product of a step one grid-wide product over the batch's rows on
-  the register-tiled product core, the step's phases between grid barriers;
-  kernel 4 recomputes each step's forward before its backward, as the
-  cluster plan does, and writes the same stash. Its activations live in a
-  scratch the wrapper allocates (:func:`scratch_floats`).
+- Each kernel takes the first of three kinds of plan that fits
+  (:func:`shared_memory_plan`, ``csrc/teacher_forced.cu``'s plan table):
+  1. The resident cluster plans, where the decoder's weight slices fit in
+     shared memory (H up to ~105 for kernel 4 and ~116 for kernel 3 at
+     M_t = 16, M_v = 36, the fixture's H = 100 among them): each
+     thread-block cluster (8 CTAs) takes a group of 16 rows; each CTA keeps
+     the column slices of the decoder weights for its share of the hidden
+     units in shared memory for the whole walk (kernel 3 also its rows'
+     keys where they fit); the CTAs exchange activations and partial sums
+     through distributed shared memory and add them in rank order.
+  2. The L2 cluster plans: the same clusters reading the weights (and
+     kernel 3's keys) from L2 in every product, taken only where they
+     measured faster than the grid plan: kernel 3 up to H = 320 with
+     H (M_t + M_v) <= 18,432, kernel 4 up to H = 192 (16 rows a cluster,
+     or 8 where 16 rows' activations do not fit in its shared memory).
+  3. The grid plans (``csrc/teacher_forced_grid.cu``), past both: one
+     persistent cooperative kernel of one CTA per SM walks all T steps,
+     every product of a step one grid-wide product over the batch's rows
+     on the register-tiled product core, the step's phases between grid
+     barriers; kernel 4 recomputes each step's forward before its
+     backward, as the cluster plans do, and writes the same stash. Their
+     activations live in a scratch the wrapper allocates
+     (:func:`scratch_floats`).
 - No float atomics in either: the outputs are bit-identical from run to
   run.
 
@@ -42,14 +50,11 @@ Bound on the H100: operations (a row-step is ~0.5 MFLOP of products with
 T=56), but the T-step chain makes both recurrent kernels latency-bound in
 practice.
 
-Kernels 3 and 4 take any M, H, E and V. Each runs in one of a few plans: the
-cluster plans (weights resident in shared memory, kernel 3's keys resident
-or not; or, only at the narrow widths where that measured faster, weights
-read from L2), then the grid plan, whose shared memory is the product
-core's ring at every shape. Before any launch the wrapper asks the library for the first
-plan that fits the device's shared memory per CTA
-(:func:`shared_memory_plan`); on an H100 the grid plan always does, so no
-shape is refused for its size.
+Kernels 3 and 4 take any M, H, E and V: the grid plan's shared memory is
+the product core's ring at every shape. Before any launch the wrapper asks
+the library for the first plan that fits the device's shared memory per
+CTA (:func:`shared_memory_plan`); on an H100 the grid plan always does, so
+no shape is refused for its size.
 
 On CPU tensors each wrapper runs its plain twin:
 ``teacher_forced_forward_plain``, ``teacher_forced_backward_plain`` (a
@@ -310,11 +315,12 @@ def shared_memory_plan(kernel, m_t, m_v, hidden, emb_dim, vocab,
     ("teacher_forced_forward" or "teacher_forced_backward") takes at these
     shapes on CUDA device ``device_index``: the first of its plans
     (``csrc/teacher_forced.cu``) that fits the shared memory per CTA the
-    device reports. The resident cluster plans come first; the grid plan
-    (``csrc/teacher_forced_grid.cu``) takes every shape, in the product
-    core's 147,456 bytes, so on an H100 this never raises for a shape. Only
-    a device with less shared memory per CTA than that is refused
-    (``ValueError``, the bytes needed and available)."""
+    device reports: the resident cluster plans, then the L2 cluster plans
+    (only up to the widths where they measured faster), then the grid plan
+    (``csrc/teacher_forced_grid.cu``), which takes every shape in the
+    product core's 147,456 bytes, so on an H100 this never raises for a
+    shape. Only a device with less shared memory per CTA than that is
+    refused (``ValueError``, the bytes needed and available)."""
     number = KERNEL_NUMBERS[kernel]
     lib = _build.library()
     have = _build.shared_memory_per_block(device_index)

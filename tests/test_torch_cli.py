@@ -12,6 +12,7 @@
   the bars of tests/test_torch_predict.py (words, derivations, situations,
   accuracies equal; attention stacks rtol 1e-5 / atol 1e-6), and
   ``--decode_dtype=bfloat16_keys`` predicts the same sequences.
+- ``--data_parallel``'s help says what ``main`` does with it (C.13).
 - ``--data_parallel=2 --mode=test`` on two gloo ranks writes the single
   run's ``dev_predict.json`` byte for byte; ``--seeds`` with
   ``--data_parallel`` is refused, as JAX refuses it, and on the card more
@@ -27,17 +28,27 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import chunk_losses
 from multimodal_seq2seq_gscan_tpu.cli.seq2seq import (
     build_parser as jax_build_parser)
+from multimodal_seq2seq_gscan_tpu.cli.seq2seq import main as jax_main
 from multimodal_seq2seq_gscan_tpu.data.dataset import (
     GroundedScanDataset as JaxDataset)
 from multimodal_seq2seq_gscan_tpu.decode.predict import (
     predict_and_save as jax_predict_and_save)
 from multimodal_seq2seq_gscan_tpu.models import ModelConfig as JaxConfig
 from multimodal_seq2seq_gscan_tpu.models import init_model_params
+from multimodal_seq2seq_gscan_tpu.train import resident as jax_resident
 from multimodal_seq2seq_gscan_tpu_torch.cli import seq2seq
+from multimodal_seq2seq_gscan_tpu_torch.data.dataset import (
+    GroundedScanDataset)
+from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
+from multimodal_seq2seq_gscan_tpu_torch.models.params import tree_map
+from multimodal_seq2seq_gscan_tpu_torch.train import loop as port_loop
 from multimodal_seq2seq_gscan_tpu_torch.train.checkpoint import (
-    read_checkpoint)
+    read_checkpoint, save_checkpoint)
+from multimodal_seq2seq_gscan_tpu_torch.train.state import (
+    Adam, create_train_state)
 from tests.test_torch_predict import CLOSE_KEYS, EXACT_KEYS
 from tests.test_torch_decode_dtype import one_torch_thread  # noqa: F401
 
@@ -45,6 +56,10 @@ FIXTURE = os.path.join(os.path.dirname(__file__), "..", "data",
                        "bench_fixture")
 CHECKPOINT = os.path.join(FIXTURE, "model_best.msgpack")
 N_EXAMPLES = 64
+# Decoded at H = 512 (a model of a few steps stops early in few rows):
+# examples and the steps' cap.
+WIDE_EXAMPLES = 16
+WIDE_DECODING_STEPS = 30
 
 
 def parse(*args):
@@ -64,6 +79,18 @@ def test_parser_has_the_jax_flags():
     flags = parse("--mode=train", "--teacher_forced_impl=pallas")
     assert flags["teacher_forced_impl"] == "pallas"
     assert parse("--mode=train")["teacher_forced_impl"] == "fused"
+
+
+def test_data_parallel_help_says_what_main_does():
+    """C.13: ``--data_parallel``'s help describes the flag as ``main``
+    runs it (both modes on n ranks), not as refused."""
+    text = seq2seq.build_parser().format_help()
+    action, = [a for a in seq2seq.build_parser()._actions
+               if a.dest == "data_parallel"]
+    assert "refused" not in action.help and "not ported" not in action.help
+    for words in ("--mode=train", "--mode=test", "NCCL", "gloo"):
+        assert words in action.help, words
+    assert "--data_parallel" in text
 
 
 def test_train_resumes_for_20_resident_steps(tmp_path, monkeypatch):
@@ -130,10 +157,102 @@ def run_test(tmp_path, *extra):
         return json.load(f)
 
 
-def test_test_mode_writes_jax_predictions(tmp_path, jax_records):
-    got = run_test(tmp_path)
-    assert len(got) == len(jax_records) == N_EXAMPLES
-    for record, ref in zip(got, jax_records):
+def flat(tree, prefix=""):
+    if not isinstance(tree, dict):
+        return {prefix: np.asarray(tree)}
+    return {k: v for name, sub in tree.items()
+            for k, v in flat(sub, prefix + "/" + name).items()}
+
+
+def train_both(tmp_path, monkeypatch, hidden):
+    """Both packages' ``--mode=train`` at encoder and decoder width
+    ``hidden`` for one resident chunk of 4 steps (iterations 9-12, batch 8,
+    dropout 0, a dev evaluation of 8 at 12), from one checkpoint at step 9:
+    the port's init from seed 42 with a random non-zero Adam state (as
+    tests/test_torch_train.py starts): per-step losses rtol 1e-5, the
+    checkpoints' params atol 1e-6. Returns the flags that set the width and
+    the port's checkpoint."""
+    train_set = GroundedScanDataset(os.path.join(FIXTURE, "dataset.txt"),
+                                    FIXTURE, split="train")
+    train_set.read_dataset(max_examples=1)
+    config = ModelConfig(
+        input_vocabulary_size=train_set.input_vocabulary_size,
+        target_vocabulary_size=train_set.target_vocabulary_size,
+        num_cnn_channels=train_set.image_channels,
+        encoder_hidden_size=hidden, decoder_hidden_size=hidden)
+    state = create_train_state(42, config, Adam(), device="cpu")
+    rng = np.random.RandomState(3)
+    mu = tree_map(lambda p: torch.from_numpy(
+        rng.randn(*p.shape).astype(np.float32) * 1e-3), state.params)
+    nu = tree_map(lambda p: torch.from_numpy(
+        rng.uniform(1e-6, 1e-5, p.shape).astype(np.float32)), state.params)
+    start = save_checkpoint(str(tmp_path / "start"), state._replace(
+        step=9, opt_state=state.opt_state._replace(
+            count=9, mu=mu, nu=nu, schedule_count=9)))
+    width = ("--encoder_hidden_size={}".format(hidden),
+             "--decoder_hidden_size={}".format(hidden))
+    flags = ["--mode=train", "--data_directory=" + FIXTURE,
+             "--resume_from_file=" + start, "--encoder_dropout_p=0",
+             "--decoder_dropout_p=0", "--cnn_dropout_p=0",
+             "--training_batch_size=8", "--max_training_examples=16",
+             "--max_testing_examples=8", "--test_batch_size=8",
+             "--max_training_iterations=12", "--print_every=4",
+             "--evaluate_every=4", "--steps_per_execution=4",
+             "--max_decoding_steps={}".format(WIDE_DECODING_STEPS),
+             "--compilation_cache_dir=", *width]
+    losses = {"jax": [], "port": []}
+    monkeypatch.setattr(jax_resident, "make_train_chunk", chunk_losses(
+        jax_resident.make_train_chunk, losses["jax"]))
+    monkeypatch.setattr(port_loop, "make_train_chunk", chunk_losses(
+        port_loop.make_train_chunk, losses["port"]))
+    jax_main(vars(jax_build_parser().parse_args(
+        flags + ["--output_directory=" + str(tmp_path / "jax")])))
+    seq2seq.main(parse(*flags, "--output_directory=" + str(tmp_path /
+                                                          "port")),
+                 device="cpu")
+    assert len(losses["port"]) == len(losses["jax"]) == 4
+    np.testing.assert_allclose(losses["port"], losses["jax"], rtol=1e-5)
+    port = tmp_path / "port" / "checkpoint.msgpack"
+    got, want = (read_checkpoint(str(path)) for path in (
+        port, tmp_path / "jax" / "checkpoint.msgpack"))
+    assert got["step"] == want["step"] == 13
+    got, want = flat(got["params"]), flat(want["params"])
+    assert got.keys() == want.keys()
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], rtol=0, atol=1e-6,
+                                   err_msg=name)
+    return width, str(port)
+
+
+@pytest.mark.parametrize("hidden", [100, 512])
+def test_test_mode_writes_jax_predictions(tmp_path, jax_records, hidden,
+                                          monkeypatch):
+    """``--mode=test``'s ``dev_predict.json`` against JAX's records: at the
+    fixture's width on its checkpoint (JAX's ``predict_and_save``, 64
+    examples); at encoder and decoder H = 512 on the checkpoint of one
+    resident chunk that both packages' ``--mode=train`` trained alike
+    (``train_both``), JAX's records from its own ``--mode=test`` of that
+    checkpoint (16 examples, 31 steps at most)."""
+    if hidden == 100:
+        got, want = run_test(tmp_path), jax_records
+    else:
+        width, checkpoint = train_both(tmp_path, monkeypatch, hidden)
+        examples = ("--max_testing_examples={}".format(WIDE_EXAMPLES),
+                    "--test_batch_size={}".format(WIDE_EXAMPLES),
+                    "--max_decoding_steps={}".format(WIDE_DECODING_STEPS))
+        got = run_test(tmp_path / "port",
+                       "--resume_from_file=" + checkpoint, *width,
+                       *examples)
+        jax_main(vars(jax_build_parser().parse_args([
+            "--mode=test", "--data_directory=" + FIXTURE,
+            "--output_directory=" + str(tmp_path / "jax"),
+            "--resume_from_file=" + checkpoint, "--splits=dev",
+            "--compilation_cache_dir=", *width, *examples])))
+        with open(tmp_path / "jax" / "dev_predict.json") as f:
+            want = json.load(f)
+    assert len(got) == len(want) == (N_EXAMPLES if hidden == 100
+                                     else WIDE_EXAMPLES)
+    for record, ref in zip(got, want):
         assert list(record) == list(ref)
         for key in EXACT_KEYS:
             assert record[key] == ref[key], key

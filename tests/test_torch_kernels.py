@@ -33,10 +33,12 @@ state and metrics, also for a decoder of two layers (the step unroll, its
 attentions kernel 1); the multi-seed chunk's one graph gives each seed's
 single-seed graphed chunk bit for bit, and so does a chunk under a
 one-rank NCCL mesh, its all-reduces held in the graph, the unsharded
-chunk. Kernel 1's bf16 form (bf16 keys; float32 or bf16
-queries, energy vector and mask) equals its plain version on the same bf16
-inputs at the float32 form's bars, and is no further from float64 than
-twice the plain version.
+chunk, both also at H = 512 (the grid plans of kernels 3 and 4 inside the
+graphs); ``predict`` at H = 512 (kernel 2's grid plan) gives the
+``"block_plain"`` decode's records. Kernel 1's bf16 form (bf16 keys;
+float32 or bf16 queries, energy vector and mask) equals its plain version
+on the same bf16 inputs at the float32 form's bars, and is no further from
+float64 than twice the plain version.
 """
 
 import numpy as np
@@ -803,8 +805,8 @@ def test_wide_shapes_match_plain(cuda, name):
 # cotangent on its first GRAD_STEPS steps (on all 53, out_proj's gradient
 # sums 10,600 row-steps, and the kernel and the plain version, each ~7e-5
 # from float64, part by more than the gradient bar: a float32 sum that long
-# holds neither); B5: fewer rows than a tile. The inputs' seed is the batch
-# plus H.
+# holds neither), then on all of them held to float64 alone; B5: fewer rows
+# than a tile. The inputs' seed is the batch plus H.
 GRID_TEACHER_FORCED = {
     "H116": (37, 6, 5, 16, 36, 116, 116, ("L2", "L2")),
     "H136": (37, 6, 5, 16, 36, 136, 136, ("L2", "L2")),
@@ -829,13 +831,16 @@ def test_teacher_forced_grid_plans(cuda, name):
     1e-5 / atol 1e-6, gradients rtol 2e-4 / atol 2e-5), kernel 4 against its
     plain twin (the stash too) at the gradient bar, and every output no
     further from a float64 evaluation than twice the plain version (or
-    1e-6); each run twice, every bit the same."""
+    1e-6); each run twice, every bit the same. Where GRAD_STEPS scores only
+    the first steps, the whole walk's gradients are held to float64 as
+    well."""
     from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
     batch, steps, num_steps, m_t, m_v, h, e, plans = \
         GRID_TEACHER_FORCED[name]
     inputs, (dlogits, g_asum) = teacher_forced_inputs(
         cuda, batch, steps, num_steps, m_t=m_t, m_v=m_v, h=h, e=e,
         seed=batch + h)
+    whole_walk = dlogits.clone()
     dlogits[GRAD_STEPS.get(name, num_steps):] = 0.0
     for kernel, want in zip(("teacher_forced_forward",
                              "teacher_forced_backward"), plans):
@@ -892,6 +897,20 @@ def test_teacher_forced_grid_plans(cuda, name):
     for first, second in zip([logits, h_res, c_res, asum] + raw + grads,
                              list(forward_again) + raw_again + grads_again):
         assert torch.equal(first, second)
+    if name in GRAD_STEPS:
+        # The whole walk, every step's cotangent: each gradient no further
+        # from float64 than twice the plain version (the kernel and the
+        # plain version part by more than the gradient bar here).
+        raw, grads, _ = kernel4_and_helper(inputs, whole_walk, g_asum,
+                                           num_steps)
+        want = plain(inputs, (whole_walk, g_asum))
+        exact = plain(as_float64(inputs), as_float64((whole_walk, g_asum)))
+        for field, a, b, x in zip(names[2:], raw[:4] + grads, want[2:],
+                                  exact[2:]):
+            kernel_err = float((a.double() - x).abs().max())
+            plain_err = float((b.double() - x).abs().max())
+            assert kernel_err <= max(2 * plain_err, 1e-6), (
+                "whole walk", field, kernel_err, plain_err)
 
 
 def resident_toy(device, n=48, grid=4, channels=6, t_in=7, t_out=12):
@@ -1019,26 +1038,46 @@ def test_two_layer_graph_equals_eager_steps(cuda):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-6, msg=tree)
 
 
+def toy_config(h, **options):
+    """The resident toy's model: decoder width h (12, or 512, where kernels
+    3 and 4 take their grid plans, checked here)."""
+    from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
+    config = ModelConfig(input_vocabulary_size=12, target_vocabulary_size=8,
+                         num_cnn_channels=6, embedding_dimension=10,
+                         encoder_hidden_size=h, decoder_hidden_size=h,
+                         cnn_kernel_size=3, cnn_hidden_num_channels=6,
+                         **options)
+    if h >= 512:
+        for kernel in tf.KERNEL_NUMBERS:
+            _, plan, _ = tf.shared_memory_plan(
+                kernel, 7, 16, h, config.embedding_dimension, 8,
+                torch.cuda.current_device())
+            assert plan.startswith("grid"), (kernel, plan)
+    return config
+
+
 @pytest.mark.cuda
-def test_multiseed_graph_equals_single_seed_graphs(cuda):
+@pytest.mark.parametrize("h", [12, 512])
+def test_multiseed_graph_equals_single_seed_graphs(cuda, h):
     """The multi-seed chunk's one CUDA graph (two seeds' K = 4 steps in
     turn, dropout on) against each seed's single-seed graphed chunk: params,
     moments and metrics bit for bit (the training step takes cuDNN's
-    deterministic algorithms); and a dropped chunk maker's graphs are freed
-    by reference counting, not left to the cycle collector (which could
-    destroy them during another capture and invalidate it)."""
+    deterministic algorithms), also at H = 512, where the graph holds each
+    seed's cooperative launches of kernels 3 and 4's grid plans; and a
+    dropped chunk maker's graphs are freed by reference counting, not left
+    to the cycle collector (which could destroy them during another capture
+    and invalidate it)."""
     import gc
     import weakref
-    from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
+    from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
     from multimodal_seq2seq_gscan_tpu_torch.train import multiseed, resident
     from multimodal_seq2seq_gscan_tpu_torch.train.state import (
         Adam, create_train_state)
-    config = ModelConfig(input_vocabulary_size=12, target_vocabulary_size=8,
-                         num_cnn_channels=6, embedding_dimension=10,
-                         encoder_hidden_size=12, decoder_hidden_size=12,
-                         cnn_kernel_size=3, cnn_hidden_num_channels=6)
+    config = toy_config(h)
     optimizer = Adam()
     data = resident_toy(cuda)
+    before = dict(tf.launches)
     states = [create_train_state(s, config, optimizer, device=cuda)
               for s in (7, 8)]
     blocks = np.stack([next(resident.index_block_stream(
@@ -1056,6 +1095,8 @@ def test_multiseed_graph_equals_single_seed_graphs(cuda):
             get = (lambda s: s.params) if tree == "params" else (
                 lambda s, t=tree: getattr(s.opt_state, t))
             assert leaves_equal(get(got), get(single)), tree
+    for kernel, count in tf.launches.items():
+        assert count > before[kernel], kernel
     graphs = resident.ChunkGraphs(config, optimizer, 0.3)
     graphs.replay([states[0]], data, blocks[:1])
     ref = weakref.ref(graphs)
@@ -1068,22 +1109,19 @@ def test_multiseed_graph_equals_single_seed_graphs(cuda):
 
 
 @pytest.mark.cuda
-def test_nccl_one_rank_chunk_graph_equals_unsharded(cuda, tmp_path):
+@pytest.mark.parametrize("h", [12, 512])
+def test_nccl_one_rank_chunk_graph_equals_unsharded(cuda, tmp_path, h):
     """The resident chunk under a one-rank NCCL mesh, its CUDA graph
     holding the step's all-reduces, against the unsharded graphed chunk:
     params, moments and metrics bit for bit over two chunks (full layout,
-    dropout and the auxiliary task on), and one graph a chunk maker."""
+    dropout and the auxiliary task on), also at H = 512 (kernels 3 and 4's
+    grid plans beside the all-reduces), and one graph a chunk maker."""
     import torch.distributed as dist
-    from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
     from multimodal_seq2seq_gscan_tpu_torch.parallel.mesh import make_mesh
     from multimodal_seq2seq_gscan_tpu_torch.train import resident
     from multimodal_seq2seq_gscan_tpu_torch.train.state import (
         Adam, create_train_state)
-    config = ModelConfig(input_vocabulary_size=12, target_vocabulary_size=8,
-                         num_cnn_channels=6, embedding_dimension=10,
-                         encoder_hidden_size=12, decoder_hidden_size=12,
-                         cnn_kernel_size=3, cnn_hidden_num_channels=6,
-                         auxiliary_task=True)
+    config = toy_config(h, auxiliary_task=True)
     optimizer = Adam()
     data = resident_toy(cuda)
     blocks = resident.index_block_stream(data.num_examples, 8, 4,
@@ -1107,6 +1145,53 @@ def test_nccl_one_rank_chunk_graph_equals_unsharded(cuda, tmp_path):
             assert leaves_equal(a.opt_state.nu, b.opt_state.nu)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_predict_at_h512_equals_block_plain(cuda, monkeypatch):
+    """``predict`` of 64 fixture dev examples with a decoder of H = E = 512
+    (random weights from seed 42), kernel 2 on its grid plan, against the
+    same records through ``"block_plain"``: every output token equal, the
+    attention rows at the decode block's bars (rtol 1e-5 / atol 1e-6)."""
+    import os
+    from multimodal_seq2seq_gscan_tpu_torch.data.dataset import (
+        GroundedScanDataset)
+    from multimodal_seq2seq_gscan_tpu_torch.decode import greedy
+    from multimodal_seq2seq_gscan_tpu_torch.decode.predict import predict
+    from multimodal_seq2seq_gscan_tpu_torch.models.config import ModelConfig
+    from multimodal_seq2seq_gscan_tpu_torch.train.state import (
+        Adam, create_train_state)
+    fixture = os.path.join(os.path.dirname(__file__), "..", "data",
+                           "bench_fixture")
+    dataset = GroundedScanDataset(os.path.join(fixture, "dataset.txt"),
+                                  fixture, split="dev")
+    dataset.read_dataset(max_examples=64)
+    config = ModelConfig(
+        input_vocabulary_size=dataset.input_vocabulary_size,
+        target_vocabulary_size=dataset.target_vocabulary_size,
+        num_cnn_channels=dataset.image_channels, encoder_hidden_size=512,
+        decoder_hidden_size=512)
+    plan = k2.block_plan(512, dataset.target_vocabulary_size, 16, 36,
+                         torch.cuda.current_device())
+    assert plan.grid, plan.describe()
+    params = create_train_state(42, config, Adam(), device=cuda).params
+    before = k2.launches
+    got = list(predict(dataset, params, config, 120, batch_size=64,
+                       device=cuda))
+    assert k2.launches > before
+    monkeypatch.setattr(greedy, "DEFAULT_DECODE_IMPL", "block_plain")
+    before = k2.launches
+    want = list(predict(dataset, params, config, 120, batch_size=64,
+                        device=cuda))
+    assert k2.launches == before
+    assert len(got) == len(want) == 64
+    for a, b in zip(got, want):
+        assert a["output_ids"] == b["output_ids"]
+        for key in ("attention_weights_input", "attention_weights_situation"):
+            torch.testing.assert_close(
+                torch.tensor(a[key], dtype=torch.float64),
+                torch.tensor(b[key], dtype=torch.float64), rtol=1e-5,
+                atol=1e-6, msg=key)
 
 
 def leaves_equal(a, b):
