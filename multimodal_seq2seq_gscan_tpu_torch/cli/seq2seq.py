@@ -196,7 +196,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--profile_dir", type=str, default="",
                         help="If set, capture a torch.profiler trace of "
-                             "a window of training steps to this directory.")
+                             "a window of training steps to this directory "
+                             "(after a warm-up step or chunk whose trace "
+                             "is dropped); it shows the port's spans "
+                             "gscan.chunk with .bind, .scalars, .upload "
+                             "and .launch, gscan.step.optimizer, "
+                             "gscan.decode and gscan.decode.check_inputs, "
+                             ".encode and .exit_check.")
     parser.add_argument("--compilation_cache_dir", type=str,
                         default=os.path.expanduser("~/.cache/jax_gscan"),
                         help="The JAX package's persistent XLA "

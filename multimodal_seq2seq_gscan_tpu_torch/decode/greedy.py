@@ -47,6 +47,7 @@ from multimodal_seq2seq_gscan_tpu_torch.ops.decode_block import (
 from multimodal_seq2seq_gscan_tpu_torch.parallel.mesh import (
     Mesh, all_true, check_mesh, gather_rows)
 from multimodal_seq2seq_gscan_tpu_torch.utils.precision import full_float32
+from multimodal_seq2seq_gscan_tpu_torch.utils.profiling import count, span
 
 DECODE_IMPLS = ("block", "block_plain", "step")
 DEFAULT_DECODE_IMPL = "block"
@@ -117,18 +118,30 @@ def make_greedy_decoder(config: ModelConfig, max_decoding_steps: int,
     def decode(params: ModelParams, input_ids: torch.Tensor,
                input_lengths: torch.Tensor, situations: torch.Tensor,
                target_positions: torch.Tensor) -> GreedyDecodeOutput:
+        with span("gscan.decode"):
+            return body(params, input_ids, input_lengths, situations,
+                        target_positions)
+
+    def body(params, input_ids, input_lengths, situations, target_positions):
         device = input_ids.device
         vocab = params.encoder.embedding.shape[0]
-        if input_ids.numel() and int(input_ids.max()) >= vocab:
-            raise ValueError("input token id {} outside the {}-row encoder "
-                             "embedding".format(int(input_ids.max()), vocab))
+        if input_ids.numel():
+            with span("gscan.decode.check_inputs"):
+                count("host_syncs")
+                largest = int(input_ids.max())
+            if largest >= vocab:
+                raise ValueError("input token id {} outside the {}-row "
+                                 "encoder embedding".format(largest, vocab))
         with torch.no_grad():
-            encoded = encode_input(params, config, input_ids, input_lengths,
-                                   situations)
-            proj_txt, proj_vis = project_keys(params, encoded)
-            proj_txt, proj_vis = proj_txt.contiguous(), proj_vis.contiguous()
-            cmd_mask = encoded.command_mask.contiguous()
-            h, c = initialize_decoder_hidden(params, config, encoded.hidden)
+            with span("gscan.decode.encode", timed=True):
+                encoded = encode_input(params, config, input_ids,
+                                       input_lengths, situations)
+                proj_txt, proj_vis = project_keys(params, encoded)
+                proj_txt = proj_txt.contiguous()
+                proj_vis = proj_vis.contiguous()
+                cmd_mask = encoded.command_mask.contiguous()
+                h, c = initialize_decoder_hidden(params, config,
+                                                 encoded.hidden)
             loop_params = params
             if compute_dtype == "bfloat16_keys":
                 proj_txt, proj_vis = (x.to(torch.bfloat16)
@@ -162,7 +175,7 @@ def make_greedy_decoder(config: ModelConfig, max_decoding_steps: int,
                                     eos_idx=config.target_eos_idx, **extra)
 
             for index in range(num_blocks):
-                if index and all_true(mesh, done):
+                if index and _all_done(mesh, done):
                     break
                 # The step path stops at the cap; a block always runs whole
                 # and its steps past the cap are cut off below.
@@ -181,6 +194,13 @@ def make_greedy_decoder(config: ModelConfig, max_decoding_steps: int,
                 for field in output))
 
     return decode
+
+
+def _all_done(mesh: Optional[Mesh], done: torch.Tensor) -> bool:
+    """The early exit's check: one host sync."""
+    with span("gscan.decode.exit_check"):
+        count("host_syncs")
+        return all_true(mesh, done)
 
 
 def _to_bf16(tree):

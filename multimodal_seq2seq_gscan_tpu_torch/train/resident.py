@@ -23,9 +23,14 @@ or replay raises; there is no eager fallback on the card. On the CPU a
 chunk runs the same steps eagerly. Under a data-parallel mesh
 (``parallel/mesh.py``) each rank's chunk takes its columns of the block,
 and the graph captures the sharded step's NCCL all-reduces; the group's
-first collectives run in the warm-up before the capture.
+first collectives run in the warm-up before the capture. While a torch
+profiler runs in a single process, a chunk replays a graph of its own,
+captured on the first traced chunk, with device markers at each step's
+``gscan.step.optimizer`` span (``utils/profiling.py``); under a mesh the
+graph is the untraced one (``ChunkGraphs.key``).
 """
 
+import contextlib
 import gc
 import math
 import warnings
@@ -44,6 +49,7 @@ from multimodal_seq2seq_gscan_tpu_torch.train.state import (
     Adam, AdamState, TrainState)
 from multimodal_seq2seq_gscan_tpu_torch.train.step import (
     step_seed, train_step)
+from multimodal_seq2seq_gscan_tpu_torch.utils import profiling
 
 METRIC_NAMES = ("loss", "accuracy", "exact_match", "aux_accuracy")
 
@@ -229,11 +235,25 @@ class ChunkGraphs:
         """(params, mu, nu) as views of one row of ``flat``."""
         return row_trees(row, self.template)
 
+    def key(self, widths: Tuple[int, ...], batch: int, data: ResidentData
+            ) -> tuple:
+        """The key of a chunk's graph. Its last entry says whether the
+        graph is marked: a single process that runs a profiler replays a
+        graph of its own, with device markers at the edges of each step's
+        ``gscan.step.optimizer`` span (``utils/profiling.py``); an untraced
+        run's graph has none. Under a mesh it is never marked: the
+        profiler may run on one rank alone (``train/loop.py``), and a rank
+        that captured a graph the others do not would run the capture's
+        warm-up collectives alone."""
+        marked = profiling.enabled() and self.mesh is None
+        return (widths, batch, tuple(t.data_ptr() for t in data), marked)
+
     def graph(self, widths: Tuple[int, ...], batch: int, data: ResidentData
               ) -> "_Graph":
-        key = (widths, batch, tuple(t.data_ptr() for t in data))
+        """The graph of this key (``key``), captured on its first use."""
+        key = self.key(widths, batch, data)
         if key not in self.graphs:
-            self.graphs[key] = _Graph(self, widths, batch, data)
+            self.graphs[key] = _Graph(self, widths, batch, data, key[-1])
             self.pool = self.graphs[key].graph.pool()
         return self.graphs[key]
 
@@ -245,17 +265,22 @@ class ChunkGraphs:
         them, the metrics ``[S, K, len(METRIC_NAMES)]``)."""
         _, steps, batch = idx_blocks.shape
         widths = _step_widths(segments, steps, data.target_ids.shape[1])
-        self.bind(states)
-        scalars = np.array([[self.optimizer.scalars(
-            s.opt_state.count + k, s.opt_state.schedule_count + k)
-            for k in range(steps)] for s in states], np.float32)
-        seeds = [[step_seed(s.rng, s.step + k) for k in range(steps)]
-                 for s in states]
+        with profiling.span("gscan.chunk.bind"):
+            self.bind(states)
         graph = self.graph(widths, batch, data)
-        graph.idx.copy_(_pinned(idx_blocks.astype(np.int64)),
-                        non_blocking=True)
-        graph.scalars.copy_(_pinned(scalars), non_blocking=True)
-        graph.replay(seeds)
+        with profiling.span("gscan.chunk.scalars"):
+            scalars = np.array([[self.optimizer.scalars(
+                s.opt_state.count + k, s.opt_state.schedule_count + k)
+                for k in range(steps)] for s in states], np.float32)
+            graph.seed([[step_seed(s.rng, s.step + k) for k in range(steps)]
+                        for s in states])
+        with profiling.span("gscan.chunk.upload"):
+            graph.idx.copy_(_pinned(idx_blocks.astype(np.int64)),
+                            non_blocking=True)
+            graph.scalars.copy_(_pinned(scalars), non_blocking=True)
+        with profiling.span("gscan.chunk.launch"):
+            graph.graph.replay()
+        profiling.recorder.replayed(graph.markers)
         return self.flat.clone(), graph.metrics.clone()
 
 
@@ -267,7 +292,7 @@ class _Graph:
     and its update into row s of the shared buffer."""
 
     def __init__(self, owner: ChunkGraphs, widths: Tuple[int, ...],
-                 batch: int, data: ResidentData):
+                 batch: int, data: ResidentData, marked: bool):
         # No reference back to ``owner``: a cycle would leave a dead
         # holder's graphs to the cyclic garbage collector, which may run
         # during a later capture, and destroying a graph then invalidates
@@ -283,22 +308,28 @@ class _Graph:
                                    device=device)
         self.generators = [[torch.Generator(device=device)
                             for _ in range(steps)] for _ in range(seeds)]
-        # Warm-up on a side stream (lazy initialisation, the kernels'
-        # build and attributes) of one seed's steps, into a copy of its
-        # row: the real state stays as it was.
-        spare = owner.flat[0].clone()
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            self._steps(owner, 0, spare, spare)
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        for generator in (g for row in self.generators for g in row):
-            self.graph.register_generator_state(generator)
-        gc.collect()  # any dead graph elsewhere goes now, not mid-capture
-        with torch.cuda.graph(self.graph, pool=owner.pool):
-            for s, row in enumerate(owner.flat):
-                self._steps(owner, s, row, row)
+        with profiling.span("gscan.chunk.capture"):
+            # Warm-up on a side stream (lazy initialisation, the kernels'
+            # build and attributes) of one seed's steps, into a copy of
+            # its row: the real state stays as it was.
+            spare = owner.flat[0].clone()
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                self._steps(owner, 0, spare, spare)
+            torch.cuda.current_stream(device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            for generator in (g for row in self.generators for g in row):
+                self.graph.register_generator_state(generator)
+            gc.collect()  # any dead graph elsewhere goes now, not mid-capture
+            # A marked graph's optimizer spans leave device markers in it
+            # (``utils/profiling.py``).
+            marking = (profiling.recorder.marking() if marked
+                       else contextlib.nullcontext([]))
+            with torch.cuda.graph(self.graph, pool=owner.pool), \
+                    marking as self.markers:
+                for s, row in enumerate(owner.flat):
+                    self._steps(owner, s, row, row)
 
     def _steps(self, owner: ChunkGraphs, s: int, source: torch.Tensor,
                target: torch.Tensor):
@@ -314,16 +345,17 @@ class _Graph:
                 state, batch, owner.config, owner.optimizer,
                 owner.weight_target_loss, generator=self.generators[s][j],
                 adam_scalars=self.scalars[s, j], mesh=owner.mesh)
-            flatten_state(new, target)
+            with profiling.span("gscan.step.optimizer", timed=True):
+                flatten_state(new, target)
             self.metrics[s, j].copy_(torch.stack(
                 [metrics[name] for name in METRIC_NAMES]))
             source = target
 
-    def replay(self, seeds: List[List[int]]):
+    def seed(self, seeds: List[List[int]]):
+        """Seed s's step j draws its dropout from ``seeds[s][j]``."""
         for generators, row in zip(self.generators, seeds):
             for generator, seed in zip(generators, row):
                 generator.manual_seed(seed)
-        self.graph.replay()
 
 
 def _pinned(array: np.ndarray) -> torch.Tensor:
@@ -356,6 +388,11 @@ def make_train_chunk(config: ModelConfig, optimizer: Adam,
 
     def chunk(state: TrainState, data: ResidentData, idx_block,
               segments=None):
+        with profiling.span("gscan.chunk"):
+            profiling.count("steps", len(idx_block))
+            return run(state, data, idx_block, segments)
+
+    def run(state, data, idx_block, segments):
         idx_block = np.asarray(idx_block)
         idx_block = idx_block[:, shard_rows(mesh, idx_block.shape[1])]
         if data.input_ids.device.type != "cuda":

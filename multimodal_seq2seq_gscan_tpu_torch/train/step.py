@@ -45,6 +45,7 @@ from multimodal_seq2seq_gscan_tpu_torch.parallel.mesh import (
 from multimodal_seq2seq_gscan_tpu_torch.train.state import Adam, TrainState
 from multimodal_seq2seq_gscan_tpu_torch.utils.precision import (
     deterministic_convolutions, full_float32)
+from multimodal_seq2seq_gscan_tpu_torch.utils.profiling import span
 
 
 def step_seed(rng: np.ndarray, step: int) -> int:
@@ -188,9 +189,10 @@ def train_step(state: TrainState, batch: Batch, config: ModelConfig,
                         / torch.clamp(aux_counts[1], min=1.0)
                         if config.auxiliary_task
                         else torch.zeros((), device=loss.device))
-    new_params, new_opt_state = optimizer.apply(
-        state.params, tree_unflatten(params, grads), state.opt_state,
-        adam_scalars)
+    with span("gscan.step.optimizer", timed=True):
+        new_params, new_opt_state = optimizer.apply(
+            state.params, tree_unflatten(params, grads), state.opt_state,
+            adam_scalars)
     metrics = {"loss": loss, "accuracy": accuracy,
                "exact_match": exact_match, "aux_accuracy": aux_accuracy}
     return TrainState(step=state.step + 1, params=new_params,

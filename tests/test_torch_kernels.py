@@ -38,7 +38,10 @@ graphs); ``predict`` at H = 512 (kernel 2's grid plan) gives the
 ``"block_plain"`` decode's records. Kernel 1's bf16 form (bf16 keys;
 float32 or bf16 queries, energy vector and mask) equals its plain version
 on the same bf16 inputs at the float32 form's bars, and is no further from
-float64 than twice the plain version.
+float64 than twice the plain version. The resident graph captured under a
+profiler, with device markers at its optimizer spans, gives the untraced
+graph's state bit for bit; a span encloses its kernel in the CUDA trace;
+the benchmark's readers of the port's spans read device time.
 """
 
 import numpy as np
@@ -1197,3 +1200,162 @@ def test_predict_at_h512_equals_block_plain(cuda, monkeypatch):
 def leaves_equal(a, b):
     from multimodal_seq2seq_gscan_tpu_torch.models.params import leaves
     return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def profiled():
+    """A torch.profiler of the host and the card: the port's spans are
+    on inside it (``utils/profiling.py``)."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+@pytest.mark.cuda
+def test_marked_chunk_graph_equals_unmarked(cuda):
+    """Two K = 4 chunks through the graph captured under a profiler, which
+    holds the device markers of every step's ``gscan.step.optimizer``
+    spans, against the same chunks through the untraced graph: params,
+    moments and metrics bit for bit. Each traced call records one
+    ``gscan.chunk`` root of 4 steps; the first captures
+    (``gscan.chunk.capture``), the second does not; the markers of each
+    replay (two a step: Adam and the write of the state) read above 0
+    device ms. Each call's host work is split among its children: the
+    bind copies, the scalars and seeds, the uploads and the launch, once
+    each and inside the root."""
+    from multimodal_seq2seq_gscan_tpu_torch.train import resident
+    from multimodal_seq2seq_gscan_tpu_torch.train.state import (
+        Adam, create_train_state)
+    from multimodal_seq2seq_gscan_tpu_torch.utils import profiling
+    config = toy_config(12, auxiliary_task=True)
+    optimizer = Adam()
+    data = resident_toy(cuda)
+    blocks = resident.index_block_stream(data.num_examples, 8, 4,
+                                         np.random.default_rng(3))
+    plain = resident.make_train_chunk(config, optimizer)
+    marked = resident.make_train_chunk(config, optimizer)
+    a = b = create_train_state(5, config, optimizer, device=cuda)
+    for call in range(2):
+        block = next(blocks)
+        a, a_metrics = plain(a, data, block)
+        profiling.recorder.clear()
+        with profiled():
+            b, b_metrics = marked(b, data, block)
+            torch.cuda.synchronize()
+        for name in resident.METRIC_NAMES:
+            assert torch.equal(a_metrics[name], b_metrics[name]), name
+        assert leaves_equal(a.params, b.params)
+        assert leaves_equal(a.opt_state.mu, b.opt_state.mu)
+        assert leaves_equal(a.opt_state.nu, b.opt_state.nu)
+        spans = profiling.recorder.spans()
+        (root,) = [s for s in spans if s.parent is None]
+        assert root.name == "gscan.chunk" and root.counts == {"steps": 4}
+        kids = [s for s in spans if s.parent == root.id]
+        captures = [s for s in kids if s.name == "gscan.chunk.capture"]
+        assert len(captures) == (1 if call == 0 else 0)
+        markers = [s for s in kids if s.name == "gscan.step.optimizer"]
+        assert len(markers) == 2 * 4
+        assert all(s.device_ms() > 0 for s in markers)
+        phases = [s for s in kids if s.name not in (
+            "gscan.chunk.capture", "gscan.step.optimizer")]
+        assert [s.name for s in phases] == [
+            "gscan.chunk.bind", "gscan.chunk.scalars", "gscan.chunk.upload",
+            "gscan.chunk.launch"]
+        assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
+                   for s in phases)
+
+
+@pytest.mark.cuda
+def test_span_encloses_its_kernel_in_the_trace(cuda):
+    """A span around one kernel's launch and a synchronise: the kernel's
+    device interval in the CUDA trace lies inside the span's host interval
+    (one clock), and the span's device events read above 0 ms."""
+    from multimodal_seq2seq_gscan_tpu_torch.utils import profiling
+    x = torch.ones(1 << 22, device=cuda)
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        with profiling.span("gscan.test", timed=True) as record:
+            y = x * 3
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and "elementwise" in e.name()]
+    assert len(kernels) == 1
+    start = kernels[0].start_ns()
+    assert record.start_ns <= start
+    assert start + kernels[0].duration_ns() <= record.end_ns
+    assert record.device_ms() > 0
+    assert float(y[0]) == 3.0
+
+
+@pytest.mark.cuda
+def test_span_readers_read_device_time(cuda):
+    """The benchmark's readers of the port's spans over a traced window of
+    one decode (kernel 2) and one graphed chunk, after a unit of each
+    before the window: ``decode_encoder_ms`` and
+    ``optimizer_ms_per_step`` above 0, at least two host syncs a decode,
+    and a chunk's enqueue above 0 ms."""
+    from benchmark.harness.core import Context, _reader
+    from benchmark.harness.trace import Tracer
+    from multimodal_seq2seq_gscan_tpu_torch.decode.greedy import (
+        make_greedy_decoder)
+    from multimodal_seq2seq_gscan_tpu_torch.train import resident
+    from multimodal_seq2seq_gscan_tpu_torch.train.state import (
+        Adam, create_train_state)
+    config = toy_config(12)
+    optimizer = Adam()
+    data = resident_toy(cuda)
+    state = create_train_state(5, config, optimizer, device=cuda)
+    decode = make_greedy_decoder(config, 20, exit_check_every=8)
+    chunk = resident.make_train_chunk(config, optimizer)
+    blocks = resident.index_block_stream(data.num_examples, 8, 4,
+                                         np.random.default_rng(3))
+    state, _ = chunk(state, data, next(blocks))  # the untraced graph
+
+    def unit():
+        nonlocal state
+        decode(state.params, data.input_ids, data.input_lengths,
+               data.situations.float(), data.target_positions)
+        state, _ = chunk(state, data, next(blocks))
+
+    tracer = Tracer(True)
+    tracer.start()
+    unit()
+    torch.cuda.synchronize()
+    with tracer.span("window"):
+        unit()
+        torch.cuda.synchronize()
+    tracer.stop()
+    ctx = Context(tracer.trace, {"kind": "decode", "batches": 1}, {})
+    assert _reader("decode_encoder_ms")(ctx) > 0
+    assert _reader("host_syncs_per_batch.decode")(ctx) >= 2
+    assert _reader("device_idle.decode_encoder")(ctx) is not None
+    ctx = ctx._replace(counts={"kind": "train", "steps": 4})
+    assert _reader("optimizer_ms_per_step")(ctx) > 0
+    assert _reader("chunk_enqueue_ms")(ctx) > 0
+
+
+@pytest.mark.cuda
+def test_profile_dir_traces_steady_chunks(cuda, tmp_path):
+    """``train(profile_dir=)`` with K = 10 on the card: the trace holds a
+    replayed chunk (``gscan.chunk``, its ``gscan.chunk.launch``) and no
+    capture, since the marked graph is captured in the warm-up chunk whose
+    trace is dropped."""
+    import json
+    import os
+    from multimodal_seq2seq_gscan_tpu_torch.train.loop import train
+    fixture = os.path.join(os.path.dirname(__file__), "..", "data",
+                           "bench_fixture")
+    trace_dir = tmp_path / "trace"
+    state, _ = train(os.path.join(fixture, "dataset.txt"), fixture,
+                     output_directory=str(tmp_path / "out"), device=cuda,
+                     max_training_examples=16, training_batch_size=4,
+                     embedding_dimension=8, encoder_hidden_size=12,
+                     decoder_hidden_size=12, cnn_kernel_size=3,
+                     cnn_hidden_num_channels=6, print_every=10,
+                     evaluate_every=1000, max_training_iterations=40,
+                     steps_per_execution=10, profile_dir=str(trace_dir))
+    assert state.step == 40
+    (trace,) = trace_dir.glob("*.pt.trace.json")
+    with open(trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"gscan.chunk", "gscan.chunk.launch"} <= names
+    assert "gscan.chunk.capture" not in names

@@ -288,6 +288,14 @@ def test_resident_chunk_two_ranks_equal_the_single_process(case, layout):
     assert_states_close(got_state, port_trees(state), 1e-4, 1e-5)
 
 
+def test_graph_key_is_the_same_on_every_rank_under_a_one_rank_profiler(
+        case):
+    """With a profiler on rank 0 alone, no rank keys a marked graph of its
+    own (its capture's warm-up would run collectives the others do not)."""
+    first, second = (rank["graph_key"] for rank in case["ranks"])
+    assert first == second == ((4, 4), 4, False)
+
+
 @pytest.mark.parametrize("impl,dtype", worker.DECODES)
 def test_sharded_decode_equals_single_process_and_jax_mesh(case, impl,
                                                            dtype):

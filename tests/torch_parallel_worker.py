@@ -8,6 +8,7 @@ each other, with the port's single process and with the JAX package's
 spawned process, and JAX has no part in it.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -24,7 +25,7 @@ from multimodal_seq2seq_gscan_tpu_torch.models.params import leaves
 from multimodal_seq2seq_gscan_tpu_torch.parallel.mesh import (
     make_global_batch, make_mesh, shard_batch, shard_examples_for_process)
 from multimodal_seq2seq_gscan_tpu_torch.train.resident import (
-    make_train_chunk)
+    ChunkGraphs, make_train_chunk)
 from multimodal_seq2seq_gscan_tpu_torch.train.state import Adam
 from multimodal_seq2seq_gscan_tpu_torch.train.step import (
     loss_and_grads, train_step)
@@ -100,6 +101,18 @@ def run_cases(mesh, payload):
         seen["chunk_" + name] = (
             {k: v.numpy().copy() for k, v in chunk_metrics.items()},
             numpy_state(chunk_state))
+
+    # The key of a chunk's CUDA graph while a profiler runs on rank 0
+    # alone, as the loop's ``StepProfiler`` does: the same on both ranks
+    # (the data's addresses, which differ by process, left out).
+    graphs = ChunkGraphs(payload["dropout_config"], optimizer, 0.3,
+                         mesh=mesh)
+    profiler = (torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+        if mesh.rank == 0 else contextlib.nullcontext())
+    with profiler:
+        key = graphs.key((4,) * 2, 4, payload["resident"])
+    seen["graph_key"] = key[:2] + key[3:]
 
     # The sharded greedy decode of the fixture's examples.
     fixture_config, params = payload["fixture_config"], payload["params"]
