@@ -28,7 +28,12 @@ its library call), and kernel 2 past its ring plans, on its grid plan
 of the rows done at entry), and kernels 3 and 4 past every cluster plan, on
 their grid plans (H=E=449, 512, 640, 1024 at B=200, T=56); these rows also
 stand, as ``wide`` lists, on their kernels' entries of the final kernels
-line. The decode's examples are also
+line. The encoder kernel (one bidirectional LSTM layer a launch) is held
+to its plain version (``masked_lstm_scan`` with ``reverse_padded``) within
+1e-5 and to float64 at the decode cell's 16,384 rows (the trained encoder
+on the fixture's commands, M_t = 16, H = 100) and at H = 512 on random
+weights, must launch once in the block decode, and is timed at both
+shapes beside its bound. The decode's examples are also
 written as ``predict.json`` (``predict_and_save``) and scored by
 ``evaluate``, held to the decode's tokens and exact match. The second main path resumes training from the
 fixture checkpoint for 20 steps at batch 200 through ``train()``, streamed
@@ -133,6 +138,9 @@ JAX_BF16_FLIPS = {"bfloat16": (289, 1445, 1756, 1908, 2329, 3110),
                   "bfloat16_mixed": (1445, 1756, 1908, 2329, 3110),
                   "bfloat16_keys": (1908,)}
 STEP_EXAMPLES = 512
+# The benchmark's decode cell's rows a batch, at which the encoder kernel
+# is held and timed (the fixture's 4096 dev rows repeated).
+DECODE_CELL_ROWS = 16384
 NEAR_TIE = 1e-4
 DEVICE = "cuda"
 # Training: the README's batch, resumed from the fixture's step 200000 on
@@ -923,6 +931,106 @@ def teacher_forced_times(gen, device, label, h, m_t, m_v, vocab, sos_idx,
     del inputs, dlogits, g_asum, h_res, c_res, stash
     torch.cuda.empty_cache()
     return times
+
+
+def encoder_layer_work(lengths, e, h, steps):
+    """(bytes, flops) of one bidirectional encoder LSTM layer over its rows'
+    real tokens: per token and direction the gate product over [x | h] (2 x
+    4H x (E + H) flops) and ~12 H of the cell; the real tokens' inputs, both
+    directions' weights and biases and the lengths read once, the output
+    [B, T, H] and the hidden written once."""
+    batch, tokens = lengths.shape[0], int(lengths.sum())
+    flops = tokens * 2 * (2 * 4 * h * (e + h) + 12 * h)
+    num_bytes = 4 * (tokens * e + 2 * (4 * h * (e + h) + 8 * h)
+                     + batch * steps * h + batch * (h + 1))
+    return num_bytes, flops
+
+
+def fixture_encoder_layer(params, config, batch, rows):
+    """The decode cell's encoder layer: the trained encoder's bidirectional
+    layer on the fixture's embedded commands and lengths, its rows repeated
+    to ``rows``; (x, lengths, forward, backward)."""
+    from multimodal_seq2seq_gscan_tpu_torch.models.nn import embed
+    copies = -(-rows // batch.input_ids.shape[0])
+    x = embed(params.encoder.embedding, batch.input_ids,
+              config.input_padding_idx).repeat(copies, 1, 1)[:rows]
+    lengths = batch.input_lengths.repeat(copies)[:rows]
+    return (x.contiguous(), lengths.contiguous(),
+            params.encoder.fwd_layers[0], params.encoder.bwd_layers[0])
+
+
+def random_encoder_layer(gen, device, rows, steps, e, h):
+    """A bidirectional layer drawn as PyTorch's LSTM initialises one
+    (U(-1/sqrt(H), 1/sqrt(H))), N(0, 1) inputs, lengths uniform in
+    1..steps with the first row full and the second of length 1; (x,
+    lengths, forward, backward)."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.models.params import (
+        LSTMLayerParams)
+    scale = h ** -0.5
+
+    def layer():
+        return LSTMLayerParams(*(
+            (2 * torch.rand(shape, generator=gen, device=device) - 1) * scale
+            for shape in ((4 * h, e), (4 * h, h), (4 * h,), (4 * h,))))
+
+    x = torch.randn(rows, steps, e, generator=gen, device=device)
+    lengths = torch.randint(1, steps + 1, (rows,), generator=gen,
+                            device=device)
+    lengths[:2] = torch.tensor([steps, 1], device=device)
+    return x, lengths, layer(), layer()
+
+
+def hold_encoder_layer(label, x, lengths, forward, backward):
+    """The encoder kernel against its plain version (``masked_lstm_scan``
+    with ``reverse_padded``, ``models/model.py::_scan_layer``) within atol
+    1e-5, output and hidden, and both against float64; returns the larger
+    max |err| against the plain version."""
+    import torch
+    from multimodal_seq2seq_gscan_tpu_torch.models import model
+    from multimodal_seq2seq_gscan_tpu_torch.models.nn import sequence_mask
+    from multimodal_seq2seq_gscan_tpu_torch.ops import encoder_lstm
+    mask = sequence_mask(lengths, x.shape[1])
+    kernel = encoder_lstm.encoder_layer(x, lengths, forward, backward,
+                                        sum_directions=True)
+    torch.cuda.synchronize()
+    plain = model._scan_layer(forward, backward, x, mask, lengths,
+                              sum_directions=True)
+    exact = model._scan_layer(*as_float64((forward, backward, x)), mask,
+                              lengths, sum_directions=True)
+    err = 0.0
+    for name, got, want, truth in zip(("output", "hidden"), kernel, plain,
+                                      exact):
+        err = max(err, check_close("{} {}".format(label, name), got, want,
+                                   0.0, 1e-5))
+        against_float64("{} {}".format(label, name), got, want, truth)
+    return err
+
+
+def encoder_layer_times(label, layer):
+    """(ms, plain ms, bound) of one encoder layer: the kernel and its plain
+    version (``_scan_layer``) by CUDA events, the bound from the layer's
+    own lengths."""
+    from multimodal_seq2seq_gscan_tpu_torch.models import model
+    from multimodal_seq2seq_gscan_tpu_torch.models.nn import sequence_mask
+    from multimodal_seq2seq_gscan_tpu_torch.ops import encoder_lstm
+    x, lengths, forward, backward = layer
+    mask = sequence_mask(lengths, x.shape[1])
+    ms = cuda_ms(lambda: encoder_lstm.encoder_layer(
+        x, lengths, forward, backward, sum_directions=True), 20)
+    plain_ms = cuda_ms(lambda: model._scan_layer(
+        forward, backward, x, mask, lengths, sum_directions=True), 5,
+        warmup=1)
+    bound = bound_ms(*encoder_layer_work(lengths, x.shape[2],
+                                         forward.w_hh.shape[1], x.shape[1]))
+    plan = encoder_lstm.layer_plan(x.shape[0], x.shape[2],
+                                   forward.w_hh.shape[1], 0)
+    print("encoder_lstm {} (B={}, T={}, E={}, H={}, {} real tokens): {:.4f} "
+          "ms, plain {:.4f} ms, bound {:.4f} ms ({}); {}".format(
+              label, x.shape[0], x.shape[1], x.shape[2],
+              forward.w_hh.shape[1], int(lengths.sum()), ms, plain_ms,
+              *bound, plan))
+    return ms, plain_ms, bound, plan
 
 
 def time_rows(name, label, times):
@@ -3184,6 +3292,8 @@ def main():
     from multimodal_seq2seq_gscan_tpu_torch.ops import _build
     from multimodal_seq2seq_gscan_tpu_torch.ops import additive_attention as k1
     from multimodal_seq2seq_gscan_tpu_torch.ops import decode_block as k2
+    from multimodal_seq2seq_gscan_tpu_torch.ops import (
+        encoder_lstm as encoder_kernel)
     from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf
     from multimodal_seq2seq_gscan_tpu_torch.models.params import leaves
     from multimodal_seq2seq_gscan_tpu_torch.train.checkpoint import (
@@ -3344,6 +3454,24 @@ def main():
             for i, args in enumerate((block_args, block2_args))]
         print("emitting row-steps of the fixture's blocks: {}".format(
             block_row_steps))
+
+        # The encoder kernel (one bidirectional LSTM layer a launch) at the
+        # decode cell's shapes: the trained encoder on the fixture's
+        # commands repeated to DECODE_CELL_ROWS rows, M_t = 16, H = 100;
+        # and at the wide decoder's H = WIDE_TRAIN_H on random weights and
+        # lengths (a generator of its own, so that the later draws are
+        # unchanged).
+        encoder_layers = {
+            "decode": fixture_encoder_layer(params, config, batch,
+                                            DECODE_CELL_ROWS),
+            "wide": random_encoder_layer(
+                torch.Generator(device=device).manual_seed(3), device,
+                DECODE_CELL_ROWS, m_t, config.embedding_dimension,
+                WIDE_TRAIN_H)}
+        encoder_err = max(
+            hold_encoder_layer("encoder_lstm {} B={} H={}".format(
+                name, layer[0].shape[0], layer[2].w_hh.shape[1]), *layer)
+            for name, layer in encoder_layers.items())
 
     with phase("teacher-forced kernels against their plain versions"), \
             torch.no_grad(), full_float32():
@@ -3507,11 +3635,12 @@ def main():
         inputs = (batch.input_ids, batch.input_lengths, batch.situations,
                   batch.target_positions)
 
-        k1.launches, k2.launches = 0, 0
+        k1.launches, k2.launches, encoder_kernel.launches = 0, 0, 0
         kernel_out = decode_kernel(params, *inputs)
         sync()
         launches_block = {"decode_block": k2.launches,
-                          "additive_attention": k1.launches}
+                          "additive_attention": k1.launches,
+                          "encoder_lstm": encoder_kernel.launches}
         plain_out = decode_plain(params, *inputs)
         sync()
         k1.launches, k2.launches = 0, 0
@@ -3524,6 +3653,10 @@ def main():
         require(launches_block["decode_block"] > 0
                 and launches_step["additive_attention"] > 0,
                 "a kernel of the main path was not launched")
+        require(launches_block["encoder_lstm"] == 1,
+                "the block decode launched the encoder kernel {} times, not "
+                "once (one encoder layer)".format(
+                    launches_block["encoder_lstm"]))
 
         for label, output, rows in (("block decode", kernel_out, BATCH),
                                     ("plain decode", plain_out, BATCH),
@@ -3825,6 +3958,9 @@ def main():
             model.initialize_decoder_hidden(params, config, encoded.hidden)
 
         encode_ms = cuda_ms(encode, 5, warmup=1)
+        encoder_times = {name: encoder_layer_times(name, layer)
+                         for name, layer in encoder_layers.items()}
+        del encoder_layers
         profile_decode(lambda: decode_kernel(params, *inputs), encode, sync)
         attention_bytes, attention_flops = (
             sum(x) for x in zip(attention_work(BATCH, m_t, hidden, True),
@@ -3964,6 +4100,25 @@ def main():
          "block2_ms": block_times[1][0], "block2_plain_ms": block_times[1][1],
          "block2_bound_ms": block_times[1][2][0]},
     ]
+    ms, plain_ms, bound, plan = encoder_times["decode"]
+    wide_ms, wide_plain_ms, wide_bound, wide_plan = encoder_times["wide"]
+    kernels.append({
+        "name": "encoder_lstm", "route": "cuda",
+        "source": "multimodal_seq2seq_gscan_tpu_torch/csrc/encoder_lstm.cu",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the JAX package's encoder LSTM is "
+                         "plain XLA (multimodal_seq2seq_gscan_tpu/models/"
+                         "model.py:73)",
+        "launches": launches_block["encoder_lstm"],
+        "max_abs_err": encoder_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+        "library_note": "no library call runs this layer in the port; "
+                        "cuDNN's LSTM is not timed here",
+        "rows": DECODE_CELL_ROWS, "plan": str(plan),
+        "wide": [dict(shape="H{}".format(WIDE_TRAIN_H),
+                      kernel="encoder_lstm", ms=wide_ms,
+                      plain_ms=wide_plain_ms, bound_ms=wide_bound[0],
+                      bound_by=wide_bound[1], plan=str(wide_plan))]})
     tf_source = "multimodal_seq2seq_gscan_tpu_torch/csrc/teacher_forced.cu"
     tf_replaces = "multimodal_seq2seq_gscan_tpu/ops/pallas_teacher_forced.py"
     for name, line, err, ms, plain_ms, bound, library_ms in (

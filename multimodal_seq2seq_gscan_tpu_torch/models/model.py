@@ -19,6 +19,7 @@ from multimodal_seq2seq_gscan_tpu_torch.models.nn import (
     additive_attention, dropout, embed, lstm_cell, masked_lstm_scan,
     reverse_padded, sequence_mask, situation_cnn, uniform)
 from multimodal_seq2seq_gscan_tpu_torch.models.params import ModelParams
+from multimodal_seq2seq_gscan_tpu_torch.ops import encoder_lstm as encoder_ops
 from multimodal_seq2seq_gscan_tpu_torch.ops import teacher_forced as tf_ops
 from multimodal_seq2seq_gscan_tpu_torch.ops.decode_block import (
     pack_decoder_weights)
@@ -43,7 +44,11 @@ def encode_input(params: ModelParams, config: ModelConfig,
     valid prefix, which reproduces packed-sequence semantics. Dropout (CNN
     features, the embedded command, then each layer's output but the
     last's, as torch nn.LSTM's inter-layer dropout) draws from
-    ``generator`` unless ``deterministic``.
+    ``generator`` unless ``deterministic``. Where the tensors are float32
+    on the card and no gradient is wanted (the greedy decode, ``predict``,
+    ``evaluate``, the eval forward), each LSTM layer is one call of the
+    encoder kernel (``ops/encoder_lstm.py``); everywhere else, training
+    included, the ``masked_lstm_scan`` loop.
     """
     features = torch.relu(situation_cnn(params.cnn, situations,
                                         config.cnn_kernel_size))
@@ -57,30 +62,59 @@ def encode_input(params: ModelParams, config: ModelConfig,
 
     # torch nn.LSTM stack wiring: layer i>0 consumes the concat of both
     # directions of the layer below; the direction *sum* is the last layer's.
-    num_layers = len(params.encoder.fwd_layers)
+    encoder = params.encoder
+    kernel = _encoder_kernel_applies(embedded, encoder)
+    num_layers = len(encoder.fwd_layers)
     layer_input = embedded
-    fwd_out = bwd_out = fwd_h = bwd_h = None
-    for i, fwd_layer in enumerate(params.encoder.fwd_layers):
-        fwd_out, (fwd_h, _) = masked_lstm_scan(fwd_layer, layer_input, mask)
-        if params.encoder.bwd_layers is not None:
-            reversed_in = reverse_padded(layer_input, command_lengths)
-            bwd_out_rev, (bwd_h, _) = masked_lstm_scan(
-                params.encoder.bwd_layers[i], reversed_in, mask)
-            bwd_out = reverse_padded(bwd_out_rev, command_lengths)
-            layer_input = torch.cat([fwd_out, bwd_out], dim=-1)
+    for i, fwd_layer in enumerate(encoder.fwd_layers):
+        bwd_layer = (None if encoder.bwd_layers is None
+                     else encoder.bwd_layers[i])
+        last = i == num_layers - 1
+        if kernel:
+            layer_input, hidden = encoder_ops.encoder_layer(
+                layer_input, command_lengths, fwd_layer, bwd_layer,
+                sum_directions=last, with_hidden=last)
         else:
-            layer_input = fwd_out
-        if i < num_layers - 1:
+            layer_input, hidden = _scan_layer(
+                fwd_layer, bwd_layer, layer_input, mask, command_lengths,
+                sum_directions=last)
+        if not last:
             layer_input = dropout(generator, layer_input,
                                   config.encoder_dropout_p, deterministic)
-    if params.encoder.bwd_layers is not None:
-        outputs = fwd_out + bwd_out
-        hidden = fwd_h + bwd_h
-    else:
-        outputs = fwd_out
-        hidden = fwd_h
-    return EncodedInput(encoded_situations=features, encoded_commands=outputs,
-                        hidden=hidden, command_mask=mask)
+    return EncodedInput(encoded_situations=features,
+                        encoded_commands=layer_input, hidden=hidden,
+                        command_mask=mask)
+
+
+def _encoder_kernel_applies(embedded: torch.Tensor, encoder) -> bool:
+    """Whether the encoder kernel (``ops/encoder_lstm.py``, which has no
+    backward) runs the command's LSTM: float32 tensors on the card, and no
+    gradient wanted of the input or of a weight."""
+    layers = tuple(encoder.fwd_layers) + tuple(encoder.bwd_layers or ())
+    tensors = [embedded] + [t for layer in layers for t in layer]
+    if embedded.device.type != "cuda" or any(
+            t.dtype != torch.float32 for t in tensors):
+        return False
+    return not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in tensors))
+
+
+def _scan_layer(forward, backward, x: torch.Tensor, mask: torch.Tensor,
+                lengths: torch.Tensor, *, sum_directions: bool):
+    """One encoder LSTM layer through ``masked_lstm_scan``, the backward
+    direction over the length-reversed valid prefix: (the output [B, T, H],
+    the directions' sum where ``sum_directions`` or there is one direction,
+    else their concatenation [B, T, 2H]; the sum of the directions' final h
+    [B, H], None for a concatenation)."""
+    out, (hidden, _) = masked_lstm_scan(forward, x, mask)
+    if backward is None:
+        return out, hidden
+    bwd_out_rev, (bwd_h, _) = masked_lstm_scan(
+        backward, reverse_padded(x, lengths), mask)
+    bwd_out = reverse_padded(bwd_out_rev, lengths)
+    if sum_directions:
+        return out + bwd_out, hidden + bwd_h
+    return torch.cat([out, bwd_out], dim=-1), None
 
 
 def initialize_decoder_hidden(params: ModelParams, config: ModelConfig,

@@ -52,6 +52,11 @@ SIGNATURES = {
     # stash, h_res, dlogits, 12 outputs, scratch, its floats, N, H, E, V,
     # stream
     "gscan_teacher_forced_weight_grads": [_P] * 16 + [_I] * 5 + [_P],
+    # x, lengths, the rows' order, each direction's w_ih, w_hh, b_ih, b_hh
+    # (the backward's null when unidirectional), out, hidden (nullable),
+    # scratch (nullable), packed weights, B, T, In, H, dirs, sum, rows,
+    # unit_groups, passes, stream
+    "gscan_encoder_lstm": [_P] * 15 + [_I] * 9 + [_P],
 }
 
 _library: Optional[ctypes.CDLL] = None
@@ -165,6 +170,12 @@ def library() -> ctypes.CDLL:
         lib.gscan_teacher_forced_scratch_floats.restype = ctypes.c_longlong
         lib.gscan_teacher_forced_plan_name.argtypes = [_I] * 2
         lib.gscan_teacher_forced_plan_name.restype = ctypes.c_char_p
+        # rows, In, H, unit_groups, scratch
+        lib.gscan_encoder_lstm_shared_bytes.argtypes = [_I] * 5
+        lib.gscan_encoder_lstm_shared_bytes.restype = ctypes.c_longlong
+        # rows, In, H, unit_groups
+        lib.gscan_encoder_lstm_scratch_floats.argtypes = [_I] * 4
+        lib.gscan_encoder_lstm_scratch_floats.restype = ctypes.c_longlong
         lib.gscan_max_shared_memory_per_block.argtypes = [_I]
         lib.gscan_max_shared_memory_per_block.restype = ctypes.c_longlong
         lib.gscan_error_string.argtypes = [ctypes.c_int]

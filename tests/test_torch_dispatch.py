@@ -19,6 +19,18 @@
   honours those it took since (the resident trainer's layouts,
   ``profile_dir``, ``prefetch_depth``, ``k`` under either dataset
   backend, ``generate_vocabularies``).
+- The encoder kernel (``ops/encoder_lstm.py``, no backward) runs the
+  command's LSTM only on the card without autograd: on CPU tensors, and
+  under ``torch.enable_grad()`` with weights that require grad,
+  ``encode_input`` runs ``masked_lstm_scan`` and never the kernel's
+  wrapper (``encoder_kernel_layers`` stays 0), for 1 and 2 layers, one
+  direction or two, and the wrapper refuses inputs that require grad.
+  Where the kernel applies, the one wiring loop calls the wrapper once a
+  layer with that layer's directions, the directions summed and the hidden
+  asked for on the last layer only; with a stand-in for the wrapper that
+  runs the scan's layer, its results equal the scan path's, dropout on and
+  off. The kernel itself is held on the card
+  (tests/test_torch_encoder_kernel.py).
 """
 
 import functools
@@ -386,3 +398,107 @@ def test_train_honours_keywords_it_once_refused(tmp_path, monkeypatch,
         for name in ("training_input_vocab.txt",
                      "training_target_vocab.txt"):
             assert os.path.isfile(os.path.join(data_directory, name))
+
+
+# ---------------------------------------------------------------------------
+# The encoder kernel: only on the card, only without autograd
+# ---------------------------------------------------------------------------
+
+def calls_of(monkeypatch, module, name):
+    """The list that every later call of ``module.name`` appends to."""
+    calls, inner = [], getattr(module, name)
+
+    def counted(*args, **kwargs):
+        calls.append(name)
+        return inner(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("bidirectional", [True, False])
+@pytest.mark.parametrize("layers", [1, 2])
+def test_encoder_kernel_not_taken_on_the_cpu_or_under_autograd(
+        monkeypatch, layers, bidirectional):
+    from torch.profiler import ProfilerActivity, profile
+    from multimodal_seq2seq_gscan_tpu_torch.models import model
+    from multimodal_seq2seq_gscan_tpu_torch.ops import encoder_lstm
+    from multimodal_seq2seq_gscan_tpu_torch.utils import profiling
+    config = ModelConfig(**tiny_kwargs(num_encoder_layers=layers,
+                                       encoder_bidirectional=bidirectional))
+    params = create_train_state(3, config, Adam(), device="cpu").params
+    _, batch = random_batch(5)
+    args = (params, config, batch.input_ids, batch.input_lengths,
+            batch.situations)
+    scans = calls_of(monkeypatch, model, "masked_lstm_scan")
+    wrapper = calls_of(monkeypatch, encoder_lstm, "encoder_layer")
+    launches = encoder_lstm.launches
+    with profile(activities=[ProfilerActivity.CPU]), \
+            profiling.span("test") as record:
+        with torch.no_grad():
+            plain = model.encode_input(*args)
+        model.encode_input(*args)
+        for leaf in leaves(params):
+            leaf.requires_grad_(True)
+        with torch.enable_grad():
+            graded = model.encode_input(*args)
+    directions = 2 if bidirectional else 1
+    assert len(scans) == 3 * layers * directions
+    assert wrapper == [] and encoder_lstm.launches == launches
+    assert record.counts.get("encoder_kernel_layers", 0) == 0
+    assert graded.encoded_commands.requires_grad
+    assert torch.equal(graded.encoded_commands.detach(),
+                       plain.encoded_commands)
+    assert torch.equal(graded.hidden.detach(), plain.hidden)
+    with pytest.raises(RuntimeError, match="no backward"):
+        encoder_lstm.encoder_layer(
+            torch.zeros(2, 3, 8), torch.tensor([3, 1]),
+            params.encoder.fwd_layers[0], None, sum_directions=True)
+
+
+@pytest.mark.parametrize("bidirectional", [True, False])
+@pytest.mark.parametrize("layers", [1, 2])
+def test_encoder_kernel_branch_calls_the_wrapper_a_layer_at_a_time(
+        monkeypatch, layers, bidirectional):
+    from multimodal_seq2seq_gscan_tpu_torch.models import model
+    from multimodal_seq2seq_gscan_tpu_torch.models.nn import sequence_mask
+    from multimodal_seq2seq_gscan_tpu_torch.ops import encoder_lstm
+    config = ModelConfig(**tiny_kwargs(
+        num_encoder_layers=layers, encoder_bidirectional=bidirectional,
+        encoder_dropout_p=0.3))
+    params = create_train_state(4, config, Adam(), device="cpu").params
+    encoder = params.encoder
+    _, batch = random_batch(6)
+    args = (params, config, batch.input_ids, batch.input_lengths,
+            batch.situations)
+    calls = []
+
+    def stand_in(x, lengths, forward, backward, *, sum_directions,
+                 with_hidden=True):
+        calls.append((forward, backward, sum_directions, with_hidden))
+        out, hidden = model._scan_layer(
+            forward, backward, x, sequence_mask(lengths, x.shape[1]),
+            lengths, sum_directions=sum_directions)
+        return out, hidden if with_hidden else None
+
+    for deterministic in (True, False):
+        want = model.encode_input(
+            *args, generator=torch.Generator().manual_seed(1),
+            deterministic=deterministic)
+        with monkeypatch.context() as patch:
+            patch.setattr(model, "_encoder_kernel_applies",
+                          lambda *_: True)
+            patch.setattr(encoder_lstm, "encoder_layer", stand_in)
+            got = model.encode_input(
+                *args, generator=torch.Generator().manual_seed(1),
+                deterministic=deterministic)
+        for field in ("encoded_commands", "hidden"):
+            torch.testing.assert_close(getattr(got, field),
+                                       getattr(want, field), rtol=0, atol=0)
+    assert len(calls) == 2 * layers
+    for i, (forward, backward, summed, hidden) in enumerate(
+            calls[:layers]):
+        assert forward is encoder.fwd_layers[i]
+        assert backward is (None if encoder.bwd_layers is None
+                            else encoder.bwd_layers[i])
+        assert summed == hidden == (i == layers - 1)
